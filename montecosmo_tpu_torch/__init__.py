@@ -1,0 +1,5 @@
+"""montecosmo_tpu_torch: the field-level model of montecosmo_tpu in PyTorch,
+with hand-written CUDA/Triton kernels for the particle paint on Hopper."""
+from montecosmo_tpu_torch.models.model import FieldLevelModel, default_config
+
+__all__ = ["FieldLevelModel", "default_config"]

@@ -1,0 +1,71 @@
+"""Linear interpolation on uniform grids (index arithmetic) and on general
+sorted nodes (`interp`, the counterpart of `jnp.interp`).
+
+Parity: `montecosmo_tpu/ops/interp.py:20-108`; `interp` follows
+`jnp.interp`'s semantics (clamp to the end values, differentiable in the
+query, the nodes and the values).
+"""
+import numpy as np
+import torch
+
+_TINY = float(np.finfo(np.float32).tiny)
+_EPS = float(np.spacing(np.finfo(np.float32).eps))
+_PAIRS = {}
+
+
+def _node_pairs(xtab, device):
+    """(x_i, 1/(x_{i+1}-x_i)) of concrete float32 nodes, cached per device."""
+    xt = np.asarray(xtab, np.float32)
+    key = (xt.tobytes(), str(device))
+    if key not in _PAIRS:
+        _PAIRS[key] = (torch.as_tensor(xt[:-1], device=device),
+                       torch.as_tensor(1.0 / np.diff(xt), device=device))
+    return _PAIRS[key]
+
+
+def uniform_interp(x, x0, dx, ytab, left=None, right=None, logx=False,
+                   xtab=None):
+    """Linear interpolation of `ytab` sampled at x0 + i*dx (i = 0..n-1).
+
+    x     : query tensor (or Python float) of any shape; the bracket is found
+            in log space if logx=True (x0/dx in log units; x <= 0 maps to
+            `left`).
+    xtab  : optional concrete node positions in linear units; the lerp then
+            runs linearly in x between them.
+    left, right : values outside the grid (None clamps to the end values).
+    """
+    n = ytab.shape[0]
+    x = torch.as_tensor(x, dtype=ytab.dtype, device=ytab.device)
+    xq = torch.log(torch.clamp(x, min=_TINY)) if logx else x
+    t = (xq - x0) / dx
+    i = torch.clamp(torch.floor(t).long(), 0, n - 2)
+    lo, hi = ytab[i], ytab[i + 1]
+    if xtab is not None:
+        x_lo, inv = _node_pairs(xtab, x.device)
+        frac = (x - x_lo[i]) * inv[i]
+    else:
+        frac = t - i
+    y = lo + frac * (hi - lo)
+    below = t < 0
+    if logx:
+        below = below | (x <= 0)
+    above = t > (n - 1)
+    ybelow = ytab[0] if left is None else torch.as_tensor(left, dtype=y.dtype, device=y.device)
+    yabove = ytab[-1] if right is None else torch.as_tensor(right, dtype=y.dtype, device=y.device)
+    y = torch.where(below, ybelow, y)
+    return torch.where(above, yabove, y)
+
+
+def interp(x, xp, fp):
+    """`jnp.interp(x, xp, fp)` for increasing `xp` (1-D tensors)."""
+    x = torch.as_tensor(x, dtype=fp.dtype, device=fp.device)
+    i = torch.clamp(torch.searchsorted(xp.detach(), x.detach(), right=True),
+                    1, xp.shape[0] - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    zero = dx.abs() <= _EPS
+    f = torch.where(zero, fp[i - 1],
+                    fp[i - 1] + delta / torch.where(zero, torch.ones_like(dx), dx) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)

@@ -39,6 +39,8 @@ def pytest_configure(config):
         "markers", "nightly: slow integration tests (deselect with -m 'not nightly')")
     config.addinivalue_line(
         "markers", "smoke: fast numerics tier (~5 min: pytest -m smoke)")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA card (skips without one)")
 
 
 # Fast numerics tier (VERDICT r4 weak#6/next#8): every file NOT in this set
