@@ -3,7 +3,10 @@
 The model has no trained weights: its state is the sample-space parameter
 dict (`model.reparam(model.fiduc, inv=True)` plus `white_mesh_`, optionally
 the observed `count_mesh`) and the config dict, which the port's
-`FieldLevelModel(**conf, device=...)` takes unchanged.
+`FieldLevelModel(**conf, device=...)` takes unchanged.  The N-body
+evolution (`evolution='nbody'`) adds no parameter and no state: its latents
+are the 2LPT model's, and `tests/test_torch_nbody.py` holds the gradient of
+every one of them against the JAX package.
 """
 from typing import Mapping
 

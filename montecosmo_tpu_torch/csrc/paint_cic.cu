@@ -1,4 +1,5 @@
-// Interlaced CIC paint (K1) and its adjoint (K2) for lattice-ordered particles.
+// Interlaced CIC paint (K1) and its adjoint (K2) for lattice-ordered
+// particles; the C-channel CIC read (K4) and its adjoint (K5).
 //
 // Replaces, on the model's main path, the XLA window paint
 // montecosmo_tpu/ops/paint_window.py::paint_window (with _clip_to_sites and
@@ -30,6 +31,26 @@
 // No atomics; bounded by the scattered 4-byte reads (8*n per particle), which
 // are as local as K1's writes.  Double backward is not supported (the
 // autograd wrapper is once_differentiable).
+//
+// K4 reads C fields of a channel-last (X, Y, Z, C) mesh at the same
+// (clamped) positions: the N-body force read.  It replaces
+// montecosmo_tpu/ops/paint_window.py::read_window (clip=True, as
+// ops/pm.py::pm_forces calls it from every BullFrog step) and
+// ops/paint.py::read / read_multi (no lattice, no clamp).  The TPU formulation
+// contracted one-hot windows against a wrap-padded mesh on the MXU to avoid
+// gathers; on Hopper a gather is cheap when it is local.  Bound: at 224^3 and
+// C = 3 it reads 135 MB of positions and at least 135 MB of mesh and writes
+// 135 MB of values, >= 0.12 ms at 3.35 TB/s.  Design: one thread per
+// particle in lattice order, so a warp's corners share L2 lines; each corner
+// is C contiguous floats; no atomics.
+//
+// K5 is K4's VJP in one particle pass: the C-channel CIC paint of the
+// cotangent into dmesh (8*C float atomics per particle, 270M at 224^3 with
+// C = 3, so it is bound by the L2 atomic rate as K1 is, ~3 ms at K1's
+// measured 89 G atomics/s, against ~0.2 ms of bytes) and the position
+// gradient from the derivative window, zeroed on clamped axes (K2's rule).
+// Channel-last leaves room for sm_90's vector atomicAdd on float2/float4
+// (C padded to 4) in a later version.
 //
 // Plain C interface, loaded with ctypes; each entry point returns
 // cudaGetLastError() of its launch.
@@ -168,6 +189,102 @@ __global__ void paint_cic_adjoint_kernel(const float* __restrict__ pos,
   dpos[3 * p + 2] = wp * acc_z;
 }
 
+// Periodic cells and CIC weights of a (placed) position on one axis.
+__device__ __forceinline__ void cic_axis(float x, int n, int i[2], float w[2]) {
+  const float x0 = floorf(x);
+  const float f = x - x0;
+  i[0] = wrap((int)x0, n);
+  i[1] = wrap((int)x0 + 1, n);
+  w[0] = 1.f - f;
+  w[1] = f;
+}
+
+// K4: vals[p, c] = sum over the 8 corners of W(corner - x_p) mesh[corner, c],
+// x_p the (clamped) position; the mesh is channel-last (X, Y, Z, C).
+__global__ void read_cic_forward_kernel(const float* __restrict__ pos,
+                                        const float* __restrict__ mesh, int64_t P, int C,
+                                        Geom g, float* __restrict__ out) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (g.clamp) site_of(p, g, qx, qy, qz);
+  float x, y, z;
+  place(pos[3 * p], qx, g.Hx, g.clamp, x);
+  place(pos[3 * p + 1], qy, g.Hy, g.clamp, y);
+  place(pos[3 * p + 2], qz, g.Hz, g.clamp, z);
+  int ix[2], iy[2], iz[2];
+  float wx[2], wy[2], wz[2];
+  cic_axis(x, g.X, ix, wx);
+  cic_axis(y, g.Y, iy, wy);
+  cic_axis(z, g.Z, iz, wz);
+  int64_t cell[8];
+  float wt[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int a = k >> 2, b = (k >> 1) & 1, c = k & 1;
+    cell[k] = (((int64_t)ix[a] * g.Y + iy[b]) * g.Z + iz[c]) * C;
+    wt[k] = wx[a] * wy[b] * wz[c];
+  }
+  float* o = out + p * C;
+  for (int ch = 0; ch < C; ++ch) {
+    float acc = 0.f;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) acc += wt[k] * __ldg(mesh + cell[k] + ch);
+    o[ch] = acc;
+  }
+}
+
+// K5: the VJP of K4 for a cotangent ct (P, C).  dmesh (zeroed by the caller)
+// gets the C-channel CIC paint of ct (atomics); dpos gets
+// sum_c ct[p, c] sum_corners grad W . mesh[corner, c], zero on the axes where
+// the clamp was active (K2's rule, strict |d| < H).
+__global__ void read_cic_adjoint_kernel(const float* __restrict__ pos,
+                                        const float* __restrict__ mesh,
+                                        const float* __restrict__ ct, int64_t P, int C,
+                                        Geom g, float* __restrict__ dmesh,
+                                        float* __restrict__ dpos) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= P) return;
+  float qx = 0.f, qy = 0.f, qz = 0.f;
+  if (g.clamp) site_of(p, g, qx, qy, qz);
+  float x, y, z;
+  const bool ax = place(pos[3 * p], qx, g.Hx, g.clamp, x);
+  const bool ay = place(pos[3 * p + 1], qy, g.Hy, g.clamp, y);
+  const bool az = place(pos[3 * p + 2], qz, g.Hz, g.clamp, z);
+  int ix[2], iy[2], iz[2];
+  float wx[2], wy[2], wz[2];
+  cic_axis(x, g.X, ix, wx);
+  cic_axis(y, g.Y, iy, wy);
+  cic_axis(z, g.Z, iz, wz);
+  const float sg[2] = {-1.f, 1.f};
+  int64_t cell[8];
+  float wt[8], gx[8], gy[8], gz[8];
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+    const int a = k >> 2, b = (k >> 1) & 1, c = k & 1;
+    cell[k] = (((int64_t)ix[a] * g.Y + iy[b]) * g.Z + iz[c]) * C;
+    wt[k] = wx[a] * wy[b] * wz[c];
+    gx[k] = sg[a] * wy[b] * wz[c];
+    gy[k] = wx[a] * sg[b] * wz[c];
+    gz[k] = wx[a] * wy[b] * sg[c];
+  }
+  float sx = 0.f, sy = 0.f, sz = 0.f;
+  for (int ch = 0; ch < C; ++ch) {
+    const float t = ct[p * C + ch];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      atomicAdd(dmesh + cell[k] + ch, wt[k] * t);
+      const float v = t * __ldg(mesh + cell[k] + ch);
+      sx += v * gx[k];
+      sy += v * gy[k];
+      sz += v * gz[k];
+    }
+  }
+  dpos[3 * p] = ax ? sx : 0.f;
+  dpos[3 * p + 1] = ay ? sy : 0.f;
+  dpos[3 * p + 2] = az ? sz : 0.f;
+}
+
 constexpr int kThreads = 256;
 
 Geom make_geom(int X, int Y, int Z, int Lx, int Ly, int Lz, float sx, float sy, float sz,
@@ -200,6 +317,33 @@ extern "C" int paint_cic_adjoint(const float* pos, const float* w, const float* 
     const unsigned blocks = (unsigned)((P + kThreads - 1) / kThreads);
     paint_cic_adjoint_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(pos, w, grad, P,
                                                                             g, dpos, dw);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int read_cic_forward(const float* pos, const float* mesh, long long P, int C, int X,
+                                int Y, int Z, int Lx, int Ly, int Lz, float sx, float sy,
+                                float sz, float Hx, float Hy, float Hz, int clamp, int n_shift,
+                                float* out, void* stream) {
+  if (P > 0) {
+    const Geom g = make_geom(X, Y, Z, Lx, Ly, Lz, sx, sy, sz, Hx, Hy, Hz, clamp, n_shift);
+    const unsigned blocks = (unsigned)((P + kThreads - 1) / kThreads);
+    read_cic_forward_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(pos, mesh, P, C, g,
+                                                                           out);
+  }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int read_cic_adjoint(const float* pos, const float* mesh, const float* ct,
+                                long long P, int C, int X, int Y, int Z, int Lx, int Ly, int Lz,
+                                float sx, float sy, float sz, float Hx, float Hy, float Hz,
+                                int clamp, int n_shift, float* dmesh, float* dpos,
+                                void* stream) {
+  if (P > 0) {
+    const Geom g = make_geom(X, Y, Z, Lx, Ly, Lz, sx, sy, sz, Hx, Hy, Hz, clamp, n_shift);
+    const unsigned blocks = (unsigned)((P + kThreads - 1) / kThreads);
+    read_cic_adjoint_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(pos, mesh, ct, P, C,
+                                                                           g, dmesh, dpos);
   }
   return (int)cudaGetLastError();
 }

@@ -1,9 +1,11 @@
-"""Field-level cosmological model on the main path: prior -> 2LPT evolve ->
-quad-Gaussian field likelihood, with the handler algebra of `Model`.
+"""Field-level cosmological model on the main path: prior -> 2LPT or BullFrog
+N-body evolve -> quad-Gaussian field likelihood, with the handler algebra of
+`Model`.
 
 Parity: `montecosmo_tpu/models/model.py` (default_config:56-154,
 Model:157-403, FieldLevelModel:420-962 and 1096-1280).  The port covers
-evolution='lpt', bias_type='lagrangian', flat sky without AP or PNG,
+evolution='lpt' and 'nbody' (BullFrog, at one scale factor `a_obs`),
+bias_type='lagrangian', flat sky without AP or PNG,
 observable='field' with lik_type='quad_gauss', and precond 'kaiser', 'real'
 or 'fourier'; any other value raises NotImplementedError naming its ROADMAP
 item.  `reparam` works on plain dicts (no `Chains`).
@@ -29,7 +31,7 @@ from montecosmo_tpu_torch.ops.hermitian import (
     cgh2rg, chreshape, masked2mesh, mesh2masked, r2chshape, scale_shape,
 )
 from montecosmo_tpu_torch.ops.paint import nufft
-from montecosmo_tpu_torch.ops.pm import lpt
+from montecosmo_tpu_torch.ops.pm import lpt, nbody_bf
 from montecosmo_tpu_torch.ops.power import lin_power_mesh
 from montecosmo_tpu_torch.utils import to_tensor
 from montecosmo_tpu_torch.utils.safe import safe_div
@@ -137,7 +139,7 @@ default_config = {
 
 
 _ROADMAP = {
-    "evolution": "ROADMAP Queue A item 11 (N-body) / item 12 (Kaiser evolution)",
+    "evolution": "ROADMAP Queue A item 12 (Kaiser evolution)",
     "lik_type": "ROADMAP Queue A item 12 (likelihoods and observables)",
     "bias_type": "ROADMAP Queue A item 12 (Eulerian bias)",
     "png_type": "ROADMAP Queue A item 12 (PNG)",
@@ -148,7 +150,7 @@ _ROADMAP = {
     "paint_order": "ROADMAP Queue B, B1 (paint orders 1, 3, 4)",
     "register": "ROADMAP Queue A item 13 (register files)",
 }
-_SUPPORTED = {"evolution": ("lpt",), "lik_type": ("quad_gauss",),
+_SUPPORTED = {"evolution": ("lpt", "nbody"), "lik_type": ("quad_gauss",),
               "bias_type": ("lagrangian",), "png_type": (None,), "ap_auto": (None,),
               "curved_sky": (False,), "observable": ("field",),
               "kernel_type": ("rectangular",), "paint_order": (2,), "register": (None,)}
@@ -224,9 +226,10 @@ class Model:
 
 @dataclass
 class FieldLevelModel(Model):
-    """Field-level model on the main path: 2LPT, Lagrangian bias, flat-sky
-    RSD, quad-Gaussian field likelihood.  Takes every key of
-    `default_config` plus `device`."""
+    """Field-level model on the main path: 2LPT or BullFrog N-body,
+    Lagrangian bias, flat-sky RSD, quad-Gaussian field likelihood.  Takes
+    every key of `default_config` plus `device`, the card ("cuda") unless
+    the caller names another."""
 
     final_shape: tuple
     cell_length: float
@@ -261,7 +264,7 @@ class FieldLevelModel(Model):
     precond: str
     latents: dict
     powspec_kedges: object = None
-    device: object = "cpu"
+    device: object = "cuda"
 
     def __post_init__(self):
         self.device = torch.device(self.device)
@@ -269,6 +272,9 @@ class FieldLevelModel(Model):
             if getattr(self, key) not in allowed:
                 raise NotImplementedError(
                     f"{key}={getattr(self, key)!r} is not ported yet ({_ROADMAP[key]})")
+        if self.evolution == "nbody" and self.a_obs is None:
+            raise NotImplementedError("the N-body light cone (a_obs=None, nbody_bf_lightcone) "
+                                      "is not ported yet (ROADMAP Queue A item 11)")
         self.lin_kpow = None
         self.white_mesh = None
         self.count_mesh = None
@@ -390,8 +396,8 @@ class FieldLevelModel(Model):
         return cosmology, bias, png, stoch, ap, syst, init
 
     def evolve(self, params: tuple):
-        """Linear field -> 2LPT -> Lagrangian bias -> RSD -> painted galaxy
-        mesh (1 + delta_obs) on the paint mesh."""
+        """Linear field -> 2LPT or BullFrog N-body -> Lagrangian bias -> RSD
+        -> painted galaxy mesh (1 + delta_obs) on the paint mesh."""
         cosmology, bias, png, stoch, ap, syst, init = params
         bg = Background.create(cosmology, self.device)
 
@@ -404,10 +410,24 @@ class FieldLevelModel(Model):
                                    self.evol_shape, bg, self.a_obs, self.curved_sky)
         lbe_weights, dvel, phi = lagrangian_bias(cosmology, pos, a, self.box_size,
                                                  init_mesh, bias, bg, self.evol_sites)
-        dpos, vel = lpt(bg, init_mesh, pos=pos, a=a, lpt_order=self.lpt_order,
-                        read_order=1, sites_shape=self.evol_sites)
-        pos = pos + dpos
-        pos, vel = ppl.deterministic("lpt_ptcl", torch.stack((pos, vel)))
+        if self.evolution == "lpt":
+            dpos, vel = lpt(bg, init_mesh, pos=pos, a=a, lpt_order=self.lpt_order,
+                            read_order=1, sites_shape=self.evol_sites)
+            pos = pos + dpos
+            pos, vel = ppl.deterministic("lpt_ptcl", torch.stack((pos, vel)))
+        else:
+            # the force paints run on the evol mesh: rescale the window
+            # bound from paint cells to evol cells
+            max_disp_evol = int(np.ceil(self.max_disp * np.max(
+                np.divide(self.evol_shape, self.paint_shape))))
+            pos, vel = nbody_bf(bg, init_mesh, pos=pos, a0=self.nbody_a_start, a1=a,
+                                n_steps=self.nbody_n_steps, paint_order=self.paint_order,
+                                lpt_order=self.lpt_order, paint_deconv=False,
+                                snapshots=self.nbody_snapshots,
+                                lattice_shape=self.paint_lattice, max_disp=max_disp_evol,
+                                sites_shape=self.evol_sites)
+            pos, vel = ppl.deterministic("nbody_ptcl", torch.stack((pos, vel)))
+            pos, vel = pos[-1], vel[-1]
 
         los, a = los_scalefactor_pos(pos, self.box_center, self.box_rot, self.box_size,
                                      self.evol_shape, bg, self.a_obs, self.curved_sky)

@@ -65,6 +65,10 @@ def cuda_library(rebuild=False):
     lib.paint_cic_forward.restype = _I
     lib.paint_cic_adjoint.argtypes = [_P, _P, _P, _L, *_GEOM, _P, _P, _P]
     lib.paint_cic_adjoint.restype = _I
+    lib.read_cic_forward.argtypes = [_P, _P, _L, _I, *_GEOM, _P, _P]
+    lib.read_cic_forward.restype = _I
+    lib.read_cic_adjoint.argtypes = [_P, _P, _P, _L, _I, *_GEOM, _P, _P, _P]
+    lib.read_cic_adjoint.restype = _I
     _LIB = lib
     return lib
 

@@ -5,8 +5,9 @@
 * `Background.create(cosmo)` integrates the 1st/2nd-order growth ODE and the
   comoving-distance integral with fixed-step RK4 loops and returns
   differentiable tables.
-* Lookups (`a2g`, `a2g2`, `a2f`, `a2dg2dg`, `g2a`, `chi2a`) interpolate
-  those tables.
+* Lookups (`a2g`, `a2g2`, `a2f`, `a2dg2dg`, `chi2a`, and the growth-time
+  `g2a`, `g2g2`, `g2f`, `g2f2`, `g2dg2dg` that BullFrog steps in)
+  interpolate those tables.
 
 The RK4 loops are 127 + 255 sequential steps of scalar tensor operations; on
 the card every one of them is a kernel launch.
@@ -191,6 +192,19 @@ class Background(NamedTuple):
 
     def g2a(self, g):
         return interp(g, self.g_tab, self.a_tab)
+
+    def g2g2(self, g):
+        return interp(g, self.g_tab, self.g2_tab) * (-3.0 / 7)
+
+    def g2f(self, g):
+        return interp(g, self.g_tab, self.f_tab)
+
+    def g2f2(self, g):
+        return interp(g, self.g_tab, self.f2_tab)
+
+    def g2dg2dg(self, g):
+        g2, f, f2 = self.g2g2(g), self.g2f(g), self.g2f2(g)
+        return safe_div(g2 * f2, g * f)
 
     def chi2a(self, chi):
         return uniform_interp(chi, 0.0, CHI_GRID_MAX / (CHI_STEPS - 1), self.a_chi_tab)

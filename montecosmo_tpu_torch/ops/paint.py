@@ -1,6 +1,6 @@
-"""Mass assignment (paint), lattice-site reads, interlacing and the NUFFT.
+"""Mass assignment (paint), reads, interlacing and the NUFFT.
 
-The particle work of every model evaluation goes through three hand-written
+The particle work of every model evaluation goes through five hand-written
 kernels (sources in `montecosmo_tpu_torch/csrc/`):
 
 * K1 `paint_cic`: CIC scatter of lattice-ordered particles, every interlace
@@ -12,15 +12,19 @@ kernels (sources in `montecosmo_tpu_torch/csrc/`):
 * K3 `nufft_epilogue`: the interlace phase sum, units jacobian and window
   deconvolution in one pass over the rfft grid; Triton.  Its backward is the
   same kernel with the conjugated phase.
+* K4 `read_cic`: the CIC read of C channel-last fields at (clamped)
+  particle positions, behind `read_window`, `read_multi` and `read`; CUDA,
+  no atomics.
+* K5 `read_cic_adjoint`: its VJP in one particle pass, the C-channel paint
+  of the cotangent (atomics) and the position gradient; CUDA.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises), and runs the
 kernel's plain PyTorch version, kept in this module, for a CPU tensor.
 `LAUNCHES` counts kernel launches.
 
-Parity: `montecosmo_tpu/ops/paint.py:57-240` (paint, read_sites, interlace,
-nufft) and `montecosmo_tpu/ops/paint_window.py:103-130` (window geometry and
-the clamp to sites).  `read`, `read_multi` and `read_window` are not ported
-yet (ROADMAP Queue B, B3).
+Parity: `montecosmo_tpu/ops/paint.py:57-240` (paint, read, read_multi,
+read_sites, interlace, nufft) and `montecosmo_tpu/ops/paint_window.py:103-130`
+and `:330-401` (window geometry, the clamp to sites, read_window).
 """
 import ctypes
 from dataclasses import dataclass
@@ -33,7 +37,8 @@ from torch.autograd.function import once_differentiable
 from montecosmo_tpu_torch.ops.fourier import bspline_hat, rfftk, rfftn
 from montecosmo_tpu_torch.ops.hermitian import chreshape, r2chshape, scale_shape
 
-LAUNCHES = {"paint_cic": 0, "paint_cic_adjoint": 0, "nufft_epilogue": 0}
+LAUNCHES = {"paint_cic": 0, "paint_cic_adjoint": 0, "nufft_epilogue": 0, "read_cic": 0,
+            "read_cic_adjoint": 0}
 
 
 def reset_launches():
@@ -109,6 +114,23 @@ def _flat(ix, iy, iz, shape):
     return (ix * shape[1] + iy) * shape[2] + iz
 
 
+def _corner_terms(x, shape, grad=False):
+    """The 8 (flat wrapped cell, weight, weight gradient (P, 3) or None) of
+    CIC at x; the gradient only with `grad` (the adjoints)."""
+    lo, hi, f = _corners(x, shape)
+    for a, b, c in product((0, 1), repeat=3):
+        idx = _flat((hi if a else lo)[:, 0], (hi if b else lo)[:, 1],
+                    (hi if c else lo)[:, 2], shape)
+        wx = f[:, 0] if a else 1 - f[:, 0]
+        wy = f[:, 1] if b else 1 - f[:, 1]
+        wz = f[:, 2] if c else 1 - f[:, 2]
+        if not grad:
+            yield idx, wx * wy * wz, None
+            continue
+        sx, sy, sz = (1.0 if a else -1.0), (1.0 if b else -1.0), (1.0 if c else -1.0)
+        yield idx, wx * wy * wz, torch.stack([sx * wy * wz, wx * sy * wz, wx * wy * sz], -1)
+
+
 # ------------------------------------------------------------ K1 / K2 plain
 def paint_cic_plain(pos, weights, geom: CICGeometry):
     """Plain PyTorch K1: (S, X, Y, Z) meshes, differentiable by autograd."""
@@ -117,16 +139,9 @@ def paint_cic_plain(pos, weights, geom: CICGeometry):
     N = int(np.prod(geom.shape))
     meshes = []
     for _, x, _ in _shifted(pos, geom):
-        lo, hi, f = _corners(x, geom.shape)
         mesh = pos.new_zeros(N)
-        for a, b, c in product((0, 1), repeat=3):
-            ix = (hi if a else lo)[:, 0]
-            iy = (hi if b else lo)[:, 1]
-            iz = (hi if c else lo)[:, 2]
-            wx = f[:, 0] if a else 1 - f[:, 0]
-            wy = f[:, 1] if b else 1 - f[:, 1]
-            wz = f[:, 2] if c else 1 - f[:, 2]
-            mesh = mesh.index_add(0, _flat(ix, iy, iz, geom.shape), w * (wx * wy * wz))
+        for idx, wc, _ in _corner_terms(x, geom.shape):
+            mesh = mesh.index_add(0, idx, w * wc)
         meshes.append(mesh.reshape(geom.shape))
     return torch.stack(meshes)
 
@@ -138,19 +153,12 @@ def paint_cic_adjoint_plain(pos, weights, grads, geom: CICGeometry):
     dw = torch.zeros_like(weights)
     dpos = torch.zeros_like(pos)
     for s, (v, x, sites) in enumerate(_shifted(pos, geom)):
-        lo, hi, f = _corners(x, geom.shape)
         g = grads[s].reshape(-1)
         ds = torch.zeros_like(pos)
-        for a, b, c in product((0, 1), repeat=3):
-            val = g[_flat((hi if a else lo)[:, 0], (hi if b else lo)[:, 1],
-                          (hi if c else lo)[:, 2], geom.shape)]
-            wx = f[:, 0] if a else 1 - f[:, 0]
-            wy = f[:, 1] if b else 1 - f[:, 1]
-            wz = f[:, 2] if c else 1 - f[:, 2]
-            sx, sy, sz = (1.0 if a else -1.0), (1.0 if b else -1.0), (1.0 if c else -1.0)
-            dw = dw + val * (wx * wy * wz)
-            ds = ds + val[:, None] * torch.stack(
-                [sx * wy * wz, wx * sy * wz, wx * wy * sz], -1)
+        for idx, wc, dwc in _corner_terms(x, geom.shape, grad=True):
+            val = g[idx]
+            dw = dw + val * wc
+            ds = ds + val[:, None] * dwc
         if sites is not None:
             H = torch.tensor(geom.H, dtype=pos.dtype, device=pos.device)
             ds = torch.where((v - sites).abs() < H, ds, torch.zeros_like(ds))
@@ -276,6 +284,156 @@ def paint(pos, shape: tuple, weights=1.0, order: int = 2, kernel_type="rectangul
     clip=True, positions are clamped to +-max_disp around their sites."""
     _cic_only(order, kernel_type)
     return paint_cic(pos, shape, weights, 1, lattice_shape, max_disp, clip)[0]
+
+
+# ------------------------------------------------------------ K4 / K5 plain
+def read_cic_plain(pos, mesh, geom: CICGeometry):
+    """Plain PyTorch K4: (P, C) values of the (X, Y, Z, C) mesh at the
+    (clamped) positions, differentiable by autograd."""
+    ((_, x, _),) = _shifted(pos, geom)
+    flat = mesh.reshape(-1, mesh.shape[-1])
+    out = 0.0
+    for idx, w, _ in _corner_terms(x, geom.shape):
+        out = out + flat[idx] * w[:, None]
+    return out
+
+
+def read_cic_adjoint_plain(pos, mesh, ct, geom: CICGeometry):
+    """Plain PyTorch K5: (dpos (P, 3), dmesh (X, Y, Z, C)) for the (P, C)
+    cotangent `ct`.  dpos is zero on the axes where the clamp was active."""
+    ((v, x, sites),) = _shifted(pos, geom)
+    C = mesh.shape[-1]
+    flat = mesh.reshape(-1, C)
+    dmesh = mesh.new_zeros(flat.shape)
+    dpos = torch.zeros_like(pos)
+    for idx, w, dw in _corner_terms(x, geom.shape, grad=True):
+        dmesh = dmesh.index_add(0, idx, ct * w[:, None])
+        dpos = dpos + (flat[idx] * ct).sum(-1, keepdim=True) * dw
+    if sites is not None:
+        H = torch.tensor(geom.H, dtype=pos.dtype, device=pos.device)
+        dpos = torch.where((v - sites).abs() < H, dpos, torch.zeros_like(dpos))
+    return dpos, dmesh.reshape(mesh.shape)
+
+
+# ---------------------------------------------------------- K4 / K5 launch
+def _check_read_inputs(pos, mesh, geom):
+    _require(pos.dtype == mesh.dtype == torch.float32, "float32 positions and mesh only")
+    _require(pos.ndim == 2 and pos.shape[1] == 3, f"positions (P, 3), got {tuple(pos.shape)}")
+    _require(mesh.ndim == 4 and tuple(mesh.shape[:3]) == geom.shape,
+             f"channel-last mesh {geom.shape} + (C,) expected, got {tuple(mesh.shape)}")
+    _require(pos.is_contiguous() and mesh.is_contiguous(), "contiguous buffers only")
+    _require(mesh.device == pos.device, "positions and mesh on one device")
+    _require(geom.n_shift == 1, "a read has one shift")
+    _require(geom.lattice is None or int(np.prod(geom.lattice)) == pos.shape[0],
+             "lattice read: one particle per lattice site, in lattice order")
+
+
+def read_cic_kernel(pos, mesh, geom: CICGeometry):
+    """K4 on the card: (P, C) float32 values."""
+    from montecosmo_tpu_torch.ops import _kernels
+
+    _check_read_inputs(pos, mesh, geom)
+    lib = _kernels.cuda_library()
+    out = torch.empty((pos.shape[0], mesh.shape[-1]), dtype=torch.float32, device=pos.device)
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    code = lib.read_cic_forward(_ptr(pos), _ptr(mesh), ctypes.c_longlong(pos.shape[0]),
+                                ctypes.c_int(mesh.shape[-1]), *_geom_args(geom), _ptr(out),
+                                ctypes.c_void_p(stream))
+    LAUNCHES["read_cic"] += 1
+    _launch_status(code, "read_cic")
+    return out
+
+
+def read_cic_adjoint_kernel(pos, mesh, ct, geom: CICGeometry):
+    """K5 on the card: (dpos (P, 3), dmesh (X, Y, Z, C))."""
+    from montecosmo_tpu_torch.ops import _kernels
+
+    _check_read_inputs(pos, mesh, geom)
+    ct = ct.contiguous()
+    _require(ct.dtype == torch.float32 and ct.shape == (pos.shape[0], mesh.shape[-1]),
+             f"cotangent {(pos.shape[0], mesh.shape[-1])} float32 expected")
+    lib = _kernels.cuda_library()
+    dmesh = torch.zeros_like(mesh)
+    dpos = torch.empty_like(pos)
+    stream = torch.cuda.current_stream(pos.device).cuda_stream
+    code = lib.read_cic_adjoint(_ptr(pos), _ptr(mesh), _ptr(ct), ctypes.c_longlong(pos.shape[0]),
+                                ctypes.c_int(mesh.shape[-1]), *_geom_args(geom), _ptr(dmesh),
+                                _ptr(dpos), ctypes.c_void_p(stream))
+    LAUNCHES["read_cic_adjoint"] += 1
+    _launch_status(code, "read_cic_adjoint")
+    return dpos, dmesh
+
+
+class _ReadCIC(torch.autograd.Function):
+    """K4 forward, K5 backward.  Double backward is not supported."""
+
+    @staticmethod
+    def forward(ctx, pos, mesh, geom):
+        ctx.geom = geom
+        ctx.save_for_backward(pos, mesh)
+        if pos.is_cuda:
+            return read_cic_kernel(pos, mesh, geom)
+        return read_cic_plain(pos, mesh, geom)
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, ct):
+        pos, mesh = ctx.saved_tensors
+        if ct.is_cuda:
+            dpos, dmesh = read_cic_adjoint_kernel(pos, mesh, ct, ctx.geom)
+        else:
+            dpos, dmesh = read_cic_adjoint_plain(pos, mesh, ct, ctx.geom)
+        return dpos, dmesh, None
+
+
+def _channels_last(meshes):
+    """(X, Y, Z), (X, Y, Z, C) or a list of (X, Y, Z) -> ((X, Y, Z, C), squeeze)."""
+    if isinstance(meshes, (list, tuple)):
+        return torch.stack(meshes, -1), False
+    if meshes.ndim == 3:
+        return meshes[..., None], True
+    return meshes, False
+
+
+def read_cic(pos, mesh, lattice_shape=None, max_disp=8, clip=False):
+    """CIC read of (X, Y, Z, C) fields at (P, 3) positions: K4 forward, K5
+    backward; with `lattice_shape` and clip=True each position is first
+    clamped to +-max_disp cells around its lattice site, as K1 paints it."""
+    mesh = mesh.contiguous()
+    geom = cic_geometry(mesh.shape[:3], 1, lattice_shape, max_disp, clip)
+    return _ReadCIC.apply(pos.reshape(-1, 3).contiguous(), mesh, geom)
+
+
+def read_window(pos, meshes, lattice_shape: tuple, order: int = 2, kernel_type="rectangular",
+                max_disp=8, clip=False):
+    """Mesh read at lattice-ordered positions (the adjoint of the lattice
+    paint), as `paint_window.read_window`: (P,) values for one (X, Y, Z)
+    mesh, (P, C) for an (X, Y, Z, C) mesh or a list of C meshes.  With
+    clip=True positions are clamped to +-max_disp around their sites; without
+    it the read is the unclamped one, which equals the JAX window read
+    whenever its displacement contract |pos - site| <= max_disp holds."""
+    _cic_only(order, kernel_type)
+    mesh, squeeze = _channels_last(meshes)
+    shape, lattice = tuple(mesh.shape[:3]), tuple(int(s) for s in lattice_shape)
+    _require(all(m % l == 0 for m, l in zip(shape, lattice)),
+             f"mesh {shape} must be a multiple of lattice {lattice}")
+    vals = read_cic(pos, mesh, lattice, max_disp, clip)
+    return vals[:, 0] if squeeze else vals
+
+
+def read_multi(pos, meshes, order: int = 2, kernel_type="rectangular"):
+    """Read several fields at the same (..., 3) positions, unclamped and
+    periodic: `meshes` is a list of (X, Y, Z), one (X, Y, Z, C) or one
+    (X, Y, Z) (C = 1); returns (..., C)."""
+    _cic_only(order, kernel_type)
+    mesh, _ = _channels_last(meshes)
+    return read_cic(pos, mesh).reshape(pos.shape[:-1] + (mesh.shape[-1],))
+
+
+def read(pos, mesh, order: int = 2, kernel_type="rectangular"):
+    """Read one (X, Y, Z) mesh at (..., 3) positions (the adjoint of `paint`
+    w.r.t. the weights): (...,) values."""
+    return read_multi(pos, mesh, order, kernel_type)[..., 0]
 
 
 def read_sites(meshes, sites_shape: tuple):

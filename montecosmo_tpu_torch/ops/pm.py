@@ -1,36 +1,59 @@
-"""Particle-mesh forces and 1/2LPT on the regular particle lattice.
+"""Particle-mesh forces, 1/2LPT, and the BullFrog growth-time leapfrog.
 
 The Fourier filters (-1/k^2, i k_i, Hessian products) are plain torch
 elementwise ops around `torch.fft` (cuFFT on the card); fusing them into
-kernels is ROADMAP Queue B, B4.
+kernels is ROADMAP Queue B, B4.  The particle work of a force evaluation is
+K1 (paint) and K4/K5 (the force read) of `ops/paint.py`.
 
-Parity: `montecosmo_tpu/ops/pm.py:32-134` (the `sites_shape` path: forces
-read at the undisplaced lattice by strided slicing).  The painted-density
-and off-lattice forms of `pm_forces` and the N-body integrators are ROADMAP
+The N-body loop is a Python loop over steps; with `checkpoint=True` each
+step runs under `torch.utils.checkpoint`, so the backward pass keeps only
+(pos, vel) per step and recomputes the step's paint, FFTs and read.
+
+Parity: `montecosmo_tpu/ops/pm.py:32-275` (pm_forces, delta2_source,
+pm_forces2, lpt, alpha_bullfrog, alpha_fastpm, bullfrog_step, nbody_bf).
+`nbody_bf_lightcone`, `lpt_fpm`, `nbody_rk4` and `nbody_tsit5` are ROADMAP
 Queue A item 11.
 """
+import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint as torch_checkpoint
 
-from montecosmo_tpu_torch.ops.background import Background
-from montecosmo_tpu_torch.ops.fourier import gradient_hat, invlaplace_hat, irfftn, rfftk, rfftn
+from montecosmo_tpu_torch.ops.background import Background, Esqr
+from montecosmo_tpu_torch.ops.fourier import (
+    bspline_hat, gradient_hat, invlaplace_hat, irfftn, rfftk, rfftn,
+)
 from montecosmo_tpu_torch.ops.hermitian import ch2rshape
-from montecosmo_tpu_torch.ops.paint import read_sites
+from montecosmo_tpu_torch.ops.paint import paint, read_multi, read_sites, read_window
 
 
-def _lattice_only(pos, sites_shape, read_order):
-    if sites_shape is None or read_order > 2 or torch.is_tensor(pos) and pos.ndim != 2:
-        raise NotImplementedError(
-            "forces at off-lattice positions need `read` (ROADMAP Queue B, B3)")
+def pm_forces(pos, mesh, read_order: int = 2, paint_deconv: bool = False, lattice_shape=None,
+              max_disp=8, sites_shape=None):
+    """Gravitational forces at particle positions from a density mesh.
 
+    mesh : a shape tuple -> paint the particles first (K1, clamped to their
+           lattice sites when `lattice_shape` is given), then rfft;
+           an rfft mesh -> the density itself.
+    Poisson solve, the 3 gradient components stacked channel-last, then the
+    read: strided slicing at the lattice sites (`sites_shape`, order <= 2),
+    the clamped lattice read (`lattice_shape`), or the plain read.
+    """
+    if isinstance(mesh, tuple):
+        mesh_shape = mesh
+        mesh = rfftn(paint(pos, mesh_shape, order=read_order, lattice_shape=lattice_shape,
+                           max_disp=max_disp, clip=True))
+        if paint_deconv:
+            # painted AND read at this order: deconvolve twice
+            mesh = mesh / bspline_hat(rfftk(mesh_shape, device=mesh.device), read_order) ** 2
 
-def pm_forces(pos, mesh, read_order: int = 2, sites_shape=None):
-    """Gravitational forces at the lattice sites from an rfft density mesh:
-    Poisson solve, then the 3 gradient components read by strided slicing."""
-    _lattice_only(pos, sites_shape, read_order)
     kvec = rfftk(ch2rshape(mesh.shape), device=mesh.device)
     pot = mesh * invlaplace_hat(kvec)
     grads = torch.stack([irfftn(-gradient_hat(kvec, i) * pot) for i in range(3)], -1)
-    return read_sites(grads, sites_shape)
+    if sites_shape is not None and read_order <= 2:
+        return read_sites(grads, sites_shape)
+    if lattice_shape is not None:
+        return read_window(pos.reshape(-1, 3), grads, lattice_shape, read_order,
+                           max_disp=max_disp, clip=True)
+    return read_multi(pos, grads, read_order)
 
 
 def delta2_source(mesh):
@@ -71,3 +94,93 @@ def lpt(bg: Background, init_mesh, pos, a, lpt_order: int = 2, read_order: int =
     elif lpt_order != 1:
         raise ValueError(f"lpt_order must be 1 or 2, got {lpt_order}")
     return dpos, vel
+
+
+# ----------------------------------------------------------------- BullFrog
+def alpha_bullfrog(bg: Background, g0, dg):
+    """BullFrog kick coefficient (List & Hahn arXiv:2309.10865 eq. 2.3)."""
+    g1 = g0 + dg / 2
+    g2 = g0 + dg
+    dg2dg0, dg2dg2 = bg.g2dg2dg(g0), bg.g2dg2dg(g2)
+    # linearization of (D2 - D1^2)/D1 around g0, evaluated at midpoint g1
+    lin_ratio = (bg.g2g2(g0) + dg2dg0 * dg / 2) / g1 - g1
+    return (dg2dg2 - lin_ratio) / (dg2dg0 - lin_ratio)
+
+
+def alpha_fastpm(bg: Background, g0, dg):
+    """FastPM kick coefficient (List & Hahn arXiv:2309.10865 eq. 3.16)."""
+    g2 = g0 + dg
+    a0, a2 = bg.g2a(g0), bg.g2a(g2)
+    c0 = torch.sqrt(Esqr(bg.cosmo, a0)) * g0 * bg.g2f(g0) * a0**2
+    c2 = torch.sqrt(Esqr(bg.cosmo, a2)) * g2 * bg.g2f(g2) * a2**2
+    return c0 / c2
+
+
+def bullfrog_step(bg: Background, dg, mesh_shape: tuple, paint_order: int = 2,
+                  paint_deconv=False, alpha_fn=alpha_bullfrog, lattice_shape=None, max_disp=8):
+    """One drift-kick-drift BullFrog step in growth time, as a function
+    (pos, vel, g0) -> (pos, vel), vel = dpos/dD1 and g0 the step's start."""
+    mesh_shape = tuple(int(s) for s in mesh_shape)
+
+    def step(pos, vel, g0):
+        pos = pos + vel * (dg / 2)                                       # drift
+        forces = pm_forces(pos, mesh_shape, paint_order, paint_deconv=paint_deconv,
+                           lattice_shape=lattice_shape, max_disp=max_disp)  # kick
+        alpha = alpha_fn(bg, g0, dg)
+        g1 = g0 + dg / 2
+        vel = alpha * vel + (1 - alpha) * forces / g1
+        pos = pos + vel * (dg / 2)                                       # drift
+        return pos, vel
+
+    return step
+
+
+def nbody_bf(bg: Background, init_mesh, pos, a0=0.0, a1=1.0, n_steps=5, paint_order: int = 2,
+             lpt_order: int = 2, paint_deconv=False, snapshots=None, alpha_fn=alpha_bullfrog,
+             checkpoint=True, lattice_shape=None, max_disp=8, sites_shape=None,
+             init_read_order: int = 1):
+    """BullFrog N-body from `a0` to `a1`: LPT initialization, then `n_steps`
+    growth-time DKD steps.
+
+    snapshots : None -> the final state with a leading singleton axis;
+                int k >= 2 -> k states growth-equispaced in [g0, g1], snapped
+                to step ends; a list of scale factors -> the step ends
+                nearest to them.
+    init_read_order : window order of the LPT force reads (1: exact at the
+                undisplaced integer lattice).
+    Returns (pos, vel), each stacked over snapshots on the leading axis.
+    """
+    n_steps = int(n_steps)
+    g0 = bg.a2g(a0)
+    g1 = bg.a2g(a1)
+    dg = (g1 - g0) / n_steps
+
+    mesh_shape = ch2rshape(init_mesh.shape)
+    dpos, vel = lpt(bg, init_mesh, pos, a0, lpt_order, init_read_order, sites_shape)
+    pos = pos + dpos
+
+    step = bullfrog_step(bg, dg, mesh_shape, paint_order, paint_deconv, alpha_fn,
+                         lattice_shape, max_disp)
+    keep = not (snapshots is None or isinstance(snapshots, int) and snapshots <= 1)
+    states = []
+    for i in range(n_steps):
+        gi = g0 + dg * i
+        if checkpoint and torch.is_grad_enabled():
+            # O(1)-per-step reverse-mode memory; the recomputed paint sums
+            # its atomics in another order than the forward's
+            pos, vel = torch_checkpoint(step, pos, vel, gi, use_reentrant=False)
+        else:
+            pos, vel = step(pos, vel, gi)
+        if keep:
+            states.append((pos, vel))
+
+    if not keep:
+        return pos[None], vel[None]
+    if isinstance(snapshots, int):
+        ts = np.linspace(0.0, 1.0, snapshots)
+        idx = np.unique(np.rint(ts * (n_steps - 1)).astype(int))
+    else:
+        g_req = bg.a2g(torch.as_tensor(np.asarray(snapshots, np.float32), device=pos.device))
+        step_ends = g0 + dg * torch.arange(1, n_steps + 1, device=pos.device)
+        idx = torch.argmin((step_ends[None, :] - g_req[:, None]).abs(), -1).tolist()
+    return (torch.stack([states[i][0] for i in idx]), torch.stack([states[i][1] for i in idx]))

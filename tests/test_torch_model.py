@@ -18,16 +18,16 @@ torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 
 
-def test_golden_forward_lpt_32():
+def golden_forward_32(evolution):
     """The port's `predict` on the golden white mesh, held to the committed
-    gxy_lpt at test_golden_bundle.py's tolerances (transfer within 2e-3,
-    coherence above 1 - 1e-5, multipoles rtol 5e-3)."""
+    gxy_<evolution> at test_golden_bundle.py's tolerances (transfer within
+    2e-3, coherence above 1 - 1e-5, multipoles rtol 5e-3)."""
     import test_golden_bundle as tg
     from montecosmo_tpu.metrics import powtranscoh
 
     conf = dict(default_config)
     conf.update(final_shape=3 * (tg.FINAL,), cell_length=tg.BOX / tg.FINAL,
-                evolution="lpt", lpt_order=2, a_obs=tg.A_OBS, curved_sky=False,
+                evolution=evolution, lpt_order=2, a_obs=tg.A_OBS, curved_sky=False,
                 box_center=(0.0, 0.0, 2000.0), ap_auto=None, lik_type="quad_gauss",
                 precond="real")
     model = FieldLevelModel(**conf, device="cpu")
@@ -37,7 +37,7 @@ def test_golden_forward_lpt_32():
     params["white_mesh_"] = torch.as_tensor(g["white"])
     gxy = model.predict(seed=1, samples=params, hide_base=False, hide_det=False,
                         hide_samp=False)["gxy_mesh"].numpy()
-    ref = g["gxy_lpt"]
+    ref = g[f"gxy_{evolution}"]
     assert gxy.shape == ref.shape and np.isfinite(gxy).all()
     _, _, trans, coh = (np.asarray(x) for x in powtranscoh(
         gxy - 1.0, ref - 1.0, box_size=3 * (tg.BOX,), include_corners=False))
@@ -59,10 +59,14 @@ def test_golden_forward_lpt_32():
     np.testing.assert_allclose(pp, pq, rtol=5e-3, atol=2e-3 * np.abs(pq[0]).max())
 
 
-def test_logpdf_and_grad_match_jax_16():
+def test_golden_forward_lpt_32():
+    golden_forward_32("lpt")
+
+
+def logpdf_and_grad_16(evolution):
     """logpdf value and gradient (white_mesh_ and every scalar latent) at the
-    __graft_entry__._small_model(final=16) configuration, same numpy inputs
-    and the same count_mesh for both packages.
+    __graft_entry__._small_model(final=16, evolution) configuration, same
+    numpy inputs and the same count_mesh for both packages.
 
     Tolerances: logpdf relative 1e-5 (a float32 sum of ~10^4 terms taken in
     another order); gradients rtol 1e-3 with atol 1e-4 * max|g_jax| per
@@ -79,9 +83,9 @@ def test_logpdf_and_grad_match_jax_16():
 
     import __graft_entry__ as ge
 
-    jm = ge._small_model(final=16)
+    jm = ge._small_model(final=16, evolution=evolution)
     conf = dict(default_config)
-    conf.update(final_shape=(16, 16, 16), cell_length=8.0, evolution="lpt", a_obs=0.5,
+    conf.update(final_shape=(16, 16, 16), cell_length=8.0, evolution=evolution, a_obs=0.5,
                 curved_sky=False, box_center=(0.0, 0.0, 1000.0), lik_type="quad_gauss",
                 precond="kaiser", init_oversamp=1.0, evol_oversamp=1.0,
                 ptcl_oversamp=1.0, paint_oversamp=1.0)
@@ -115,6 +119,10 @@ def test_logpdf_and_grad_match_jax_16():
                                    atol=1e-4 * max(np.abs(gjk).max(), 1e-30), err_msg=k)
 
 
+def test_logpdf_and_grad_match_jax_16():
+    logpdf_and_grad_16("lpt")
+
+
 def test_port_never_imports_jax():
     """A fresh interpreter that imports the port and builds a model leaves
     jax out of sys.modules."""
@@ -124,7 +132,8 @@ def test_port_never_imports_jax():
             "from montecosmo_tpu_torch.csrc import nufft_epilogue\n"
             "c = dict(m.default_config); c.update(final_shape=(8, 8, 8), curved_sky=False,"
             " a_obs=0.5, box_center=(0, 0, 500.0))\n"
-            "m.FieldLevelModel(**c)\n"
+            "m.FieldLevelModel(**c, device='cpu')\n"
+            "m.FieldLevelModel(**{**c, 'evolution': 'nbody'}, device='cpu')\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib',"
             " 'montecosmo_tpu.')) or k == 'montecosmo_tpu')\n"
             "assert not bad, bad\n")

@@ -388,3 +388,26 @@ def test_kernels_match_plain_on_card():
     fk = torch.randn((2, 32, 32, 17), dtype=torch.complex64, device=dev)
     torch.testing.assert_close(tpa.nufft_epilogue_kernel(fk, eg), tpa.nufft_epilogue_plain(fk, eg),
                                rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_read_kernels_match_plain_on_card():
+    """K4/K5 against their plain versions on the card, clamped and unclamped
+    (skips without one).  K5's mesh gradient sums with atomics in run-dependent
+    order, hence the 1e-5 relative tolerance on it as on the values."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K4/K5 are CUDA")
+    dev = torch.device("cuda")
+    pos, _ = _lattice_particles((16, 16, 16), (2, 2, 2), 4, 16)
+    pos = torch.tensor(pos, device=dev)
+    mesh = torch.randn((32, 32, 32, 3), device=dev)
+    ct = torch.randn((pos.shape[0], 3), device=dev)
+    for geom in (tpa.cic_geometry((32, 32, 32), 1, (16, 16, 16), 4, True),
+                 tpa.cic_geometry((32, 32, 32), 1)):
+        ref = tpa.read_cic_plain(pos, mesh, geom)
+        out = tpa.read_cic_kernel(pos, mesh, geom)
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+        dpos, dmesh = tpa.read_cic_adjoint_kernel(pos, mesh, ct, geom)
+        rpos, rmesh = tpa.read_cic_adjoint_plain(pos, mesh, ct, geom)
+        torch.testing.assert_close(dpos, rpos, rtol=1e-5, atol=1e-5 * float(rpos.abs().max()))
+        torch.testing.assert_close(dmesh, rmesh, rtol=1e-5, atol=1e-5 * float(rmesh.abs().max()))
