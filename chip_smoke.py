@@ -11,13 +11,26 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. hold K1 (paint), K2 (paint adjoint) and K3 (NUFFT epilogue) against
      their plain PyTorch versions at 32^3 and at the 128^3 flagship shapes
      (224^3 paint mesh, 11.24M particles): values and gradients, with the
-     max relative errors, both times and the bound;
-  3b. the same for K4 (C-channel CIC read) and K5 (its adjoint), clamped to
-     the lattice sites and unclamped, at 32^3 and 224^3 with C = 3; K5 is
-     held against autograd of K4's plain version; grid_sample (trilinear
-     on a wrap-padded mesh, the unclamped read) is their library yardstick;
+     max relative errors, both times and the bound; at B-spline order 2
+     (CIC) clamped to the lattice sites, then at orders 1, 3 and 4 (NGP,
+     TSC, PCS) clamped and unclamped, a quarter of the particles on ties
+     (exactly on their sites or half a cell off, odd NGP window bases);
+     grid_sample(mode='nearest') of the cotangents is K2's NGP yardstick;
+  3b. the same for K4 (C-channel B-spline read) and K5 (its adjoint),
+     clamped and unclamped, at 32^3 and 224^3 with C = 3, at orders 2, 1, 3
+     and 4; at order 2 K5 is held against autograd of K4's plain version;
+     grid_sample (trilinear, and nearest at order 1, on a wrap-padded mesh:
+     the unclamped read) and its backward are the library yardsticks; then
+     K4/K5 on C = 6 channels (two launches each);
   4. the golden 32^3 2LPT forward (tests/golden/golden_32.npz) on the card;
   4b. the golden 32^3 BullFrog N-body forward on the card;
+  4c. the 32^3 BullFrog light cone (a_obs=None) on the golden white mesh at
+     TSC, then NGP and PCS: the card's forward against the CPU's (the same
+     port, the same inputs) at phase 4's tolerances (coherence 1 - 1e-3 at
+     NGP; there the card with K1/K4/K3 against the card with their plain
+     versions is held at phase 4's, and the CPU with the white mesh moved by
+     one ulp is printed); at NGP and PCS also one value+grad on the card,
+     whose launches are those orders' counts;
   5. the flagship configuration of bench.py (128^3, 2LPT, Lagrangian bias,
      RSD, quad-Gaussian likelihood, Kaiser preconditioning, float32) on the
      card: draw the observation with `predict`, then 2 warm-up and 5 timed
@@ -25,7 +38,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches of its kernels (K1, K2, K3), counted from 0 over those 7;
   5b. the same flagship with evolution='nbody' (10 BullFrog steps, force
      paints and reads at 224^3): K1, K2, K3, K4 and K5 must each launch;
-  6. last lines: the kernels JSON (launches from phase 5b), then
+  5c. the same N-body flagship on the light cone (a_obs=None) at TSC
+     (paint_order=3): K1-K5 must each launch at order 3;
+  6. last lines: the kernels JSON (one row per kernel and order; launches
+     from phase 5b at CIC, 5c at TSC, 4c at NGP and PCS), then
      {"ok": true, "device": {...}}.
 """
 import json
@@ -42,6 +58,7 @@ QUICK = "--quick" in sys.argv
 TOL = 1e-5  # max |kernel - plain| / max |plain|: float32 sums in another order
 # (K1's and K5's atomics add in a run-dependent order; the same bound holds)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published, at 700 W
+ORDERS = (2, 1, 3, 4)      # B-spline orders: CIC (the earlier rows) first
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
 
 
@@ -74,7 +91,8 @@ def bound(n_bytes, n_flop):
 def rel_err(a, b):
     a, b = torch.view_as_real(a) if a.is_complex() else a, torch.view_as_real(b) if b.is_complex() else b
     err = float((a - b).abs().max())
-    return err, err / float(b.abs().max())
+    # an NGP position gradient is exactly 0 in both: its relative error is 0
+    return err, err / max(float(b.abs().max()), 1e-30)
 
 
 # ----------------------------------------------------------------- phase 1
@@ -99,13 +117,18 @@ def phase_build():
     wall = time.perf_counter() - t0
     log(f"# build: nvcc {_kernels.BUILD_INFO['seconds']:.2f} s, load {wall:.2f} s (sm_90a)")
     for line in _kernels.BUILD_INFO["log"].splitlines():
+        if "Compiling entry function" in line:
+            log(f"#   ptxas: {line.split('function')[-1].strip()}")
         if "registers" in line or "spill" in line:
             log(f"#   ptxas: {line.strip()}")
 
 
 # ----------------------------------------------------------------- phase 3
-def _particles(lattice, stride, H, gen, device):
-    """Lattice-ordered positions: sites + N(0, 2.5 cells), 1% pushed past H."""
+def _particles(lattice, stride, H, gen, device, ties=False):
+    """Lattice-ordered positions: sites + N(0, 2.5 cells), 1% pushed past H;
+    with `ties`, a quarter of the others exactly on their sites or half a
+    cell off per axis (the round-half-to-even ties of the odd orders, and of
+    the NGP window base, odd at the H used here: margin H + 2)."""
     from montecosmo_tpu_torch.ops.paint import _sites, cic_geometry
 
     geom = cic_geometry(tuple(l * s for l, s in zip(lattice, stride)), 2, lattice, H, True)
@@ -114,17 +137,39 @@ def _particles(lattice, stride, H, gen, device):
     disp = 2.5 * torch.randn((P, 3), generator=gen, device=device)
     out = torch.rand((P, 1), generator=gen, device=device) < 0.01
     disp = torch.where(out, torch.sign(disp) * (H + 3.0) + disp, disp)
+    if ties:
+        tie = (torch.rand((P, 1), generator=gen, device=device) < 0.25) & ~out
+        half = 0.5 * torch.randint(-1, 2, (P, 3), generator=gen, device=device).float()
+        disp = torch.where(tie, half, disp)
     w = 1 + 0.3 * torch.randn(P, generator=gen, device=device)
     return geom, (sites + disp).contiguous(), w.contiguous()
 
 
-def check_kernels(lattice, stride, H, tag, reps):
+def rel_err_pair(a, ref_a, b, ref_b):
+    """Worst (max_abs_err, max_rel_err) of two outputs."""
+    ea, eb = rel_err(a, ref_a), rel_err(b, ref_b)
+    return max(ea[0], eb[0]), max(ea[1], eb[1])
+
+
+def ops_scale(order):
+    """Operations of an order-`order` kernel per operation of its order-2
+    (CIC) version: the P^3 corners, each an atomic or a gather with its
+    weights."""
+    return order**3 / 8
+
+
+def check_kernels(lattice, stride, H, tag, reps, order=2):
+    """K1, K2 at `order` (clamped to the sites, and at orders other than
+    CIC also unclamped), and K3 deconvolving at `order`."""
     from montecosmo_tpu_torch.ops import paint as P
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    geom, pos, w = _particles(lattice, stride, H, gen, dev)
+    # ties at the orders other than CIC, whose inputs stay as they were
+    geom, pos, w = _particles(lattice, stride, H, gen, dev, ties=order != 2)
+    geom = P.cic_geometry(geom.shape, 2, lattice, H, True, order)
     res = {}
+    sfx = "" if order == 2 else f"_order{order}"
 
     # K1 forward
     ker = P.paint_cic_kernel(pos, w, geom)
@@ -132,19 +177,37 @@ def check_kernels(lattice, stride, H, tag, reps):
     k1 = rel_err(ker, ref)
     t_k1 = cuda_ms(lambda: P.paint_cic_kernel(pos, w, geom), reps)
     t_p1 = cuda_ms(lambda: P.paint_cic_plain(pos, w, geom), max(2, reps // 5))
-    # K2 adjoint against autograd of the plain paint
+    # K2 adjoint: against autograd of the plain paint at CIC; at the other
+    # orders against K2's plain version (held against autograd on the CPU,
+    # and lighter on memory than autograd through order^3 corners)
     g = torch.randn(ker.shape, generator=gen, device=dev)
     dpos, dw = P.paint_cic_adjoint_kernel(pos, w, g, geom)
-    pr, wr = pos.clone().requires_grad_(True), w.clone().requires_grad_(True)
-    rpos, rw = torch.autograd.grad((P.paint_cic_plain(pr, wr, geom) * g).sum(), (pr, wr))
-    e_pos, e_w = rel_err(dpos, rpos), rel_err(dw, rw)
-    k2 = (max(e_pos[0], e_w[0]), max(e_pos[1], e_w[1]))
+    if order == 2:
+        pr, wr = pos.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        rpos, rw = torch.autograd.grad((P.paint_cic_plain(pr, wr, geom) * g).sum(), (pr, wr))
+    else:
+        rpos, rw = P.paint_cic_adjoint_plain(pos, w, g, geom)
+    k2 = rel_err_pair(dpos, rpos, dw, rw)
     t_k2 = cuda_ms(lambda: P.paint_cic_adjoint_kernel(pos, w, g, geom), reps)
     t_p2 = cuda_ms(lambda: P.paint_cic_adjoint_plain(pos, w, g, geom), max(2, reps // 5))
+    lib2 = None
+    if order != 2:
+        geom_u = P.cic_geometry(geom.shape, 2, order=order)
+        e1u = rel_err(P.paint_cic_kernel(pos, w, geom_u), P.paint_cic_plain(pos, w, geom_u))
+        rpos, rw = P.paint_cic_adjoint_plain(pos, w, g, geom_u)
+        dpk, dwk = P.paint_cic_adjoint_kernel(pos, w, g, geom_u)
+        e2u = rel_err_pair(dpk, rpos, dwk, rw)
+        log(f"# {tag} order {order} unclamped: paint_cic max_rel_err {e1u[1]:.3e}, "
+            f"paint_cic_adjoint max_rel_err {e2u[1]:.3e}; kernel "
+            f"{cuda_ms(lambda: P.paint_cic_kernel(pos, w, geom_u), reps):.3f} ms, adjoint "
+            f"{cuda_ms(lambda: P.paint_cic_adjoint_kernel(pos, w, g, geom_u), reps):.3f} ms")
+        assert max(e1u[1], e2u[1]) <= TOL, f"unclamped order {order} disagrees at {tag}"
+        if order == 1:
+            lib2 = _nearest_paint_adjoint(pos, g, dwk, tag, reps)
     # K3 forward and backward
     from montecosmo_tpu_torch.ops.hermitian import r2chshape
 
-    eg = P.EpilogueGeometry(geom.shape, 2, float((7 / 6) ** 3), 2)
+    eg = P.EpilogueGeometry(geom.shape, 2, float((7 / 6) ** 3), order)
     cshape = (2,) + r2chshape(geom.shape)
     fk = torch.complex(torch.randn(cshape, generator=gen, device=dev),
                        torch.randn(cshape, generator=gen, device=dev))
@@ -165,25 +228,51 @@ def check_kernels(lattice, stride, H, tag, reps):
     # operations counted per particle (or rfft cell) from the kernel source
     n_p, n_s, n_c = pos.shape[0], geom.n_shift, int(np.prod(geom.shape))
     n_k = int(np.prod(cshape))
-    b1 = bound(16 * n_p + 4 * n_s * n_c, 50 * n_s * n_p)
-    b2 = bound(16 * n_p + 4 * n_s * n_c + 16 * n_p, 150 * n_s * n_p)
+    b1 = bound(16 * n_p + 4 * n_s * n_c, 50 * n_s * n_p * ops_scale(order))
+    b2 = bound(16 * n_p + 4 * n_s * n_c + 16 * n_p, 150 * n_s * n_p * ops_scale(order))
     b3 = bound(8 * n_k + 8 * n_k // n_s, 10 * n_k)
-    for name, (ea, er), tk, tp, (bm, bb) in (("paint_cic", k1, t_k1, t_p1, b1),
-                                             ("paint_cic_adjoint", k2, t_k2, t_p2, b2),
-                                             ("nufft_epilogue", k3, t_k3, t_p3, b3)):
-        log(f"# {tag} {name:18s} max_abs_err {ea:.3e} max_rel_err {er:.3e}  "
-            f"kernel {tk:.3f} ms  plain {tp:.3f} ms  bound {bm:.4f} ms ({bb})")
-        assert er <= TOL, f"{name} disagrees with its plain version at {tag}: {er:.3e} > {TOL}"
-        res[name] = {"max_abs_err": ea, "ms": tk, "plain_ms": tp, "bound_ms": bm,
-                     "bound_by": bb, "library_ms": None}
+    for name, (ea, er), tk, tp, (bm, bb), lib in (
+            ("paint_cic", k1, t_k1, t_p1, b1, None),
+            ("paint_cic_adjoint", k2, t_k2, t_p2, b2, lib2),
+            ("nufft_epilogue", k3, t_k3, t_p3, b3, None)):
+        log(f"# {tag} {name + sfx:25s} max_abs_err {ea:.3e} max_rel_err {er:.3e}  "
+            f"kernel {tk:.3f} ms  plain {tp:.3f} ms  bound {bm:.4f} ms ({bb})  library {lib} ms")
+        assert er <= TOL, f"{name}{sfx} disagrees with its plain version at {tag}: {er:.3e} > {TOL}"
+        res[name + sfx] = {"max_abs_err": ea, "ms": tk, "plain_ms": tp, "bound_ms": bm,
+                           "bound_by": bb, "library_ms": lib}
     return res
+
+
+def _nearest_paint_adjoint(pos, g, dw_unclamped, tag, reps):
+    """K2's library yardstick at NGP, timed: one grid_sample(mode='nearest')
+    batched over the S shifts reads each cotangent mesh at its shifted
+    positions, summed over the shifts (K2's weight gradient, unclamped; its
+    position gradient is 0, as K2's).  Its tie rule is not K2's (see
+    `check_read_kernels`), so the error is printed and not held."""
+    import torch.nn.functional as F
+
+    S = g.shape[0]
+    inps, grids = zip(*(_grid_sample_read(pos + s / S, g[s][..., None]) for s in range(S)))
+    inp, grid = torch.cat(inps), torch.cat(grids)
+
+    def read():
+        return F.grid_sample(inp, grid, mode="nearest", padding_mode="border",
+                             align_corners=True).sum(0)
+
+    e = rel_err(read().reshape(-1), dw_unclamped)
+    ms = cuda_ms(read, reps)
+    log(f"# {tag} grid_sample (nearest) of the cotangents vs K2_order1 unclamped: "
+        f"max_rel_err {e[1]:.3e}, share of particles that differ "
+        f"{float((read().reshape(-1) != dw_unclamped).float().mean()):.3e}; {ms:.3f} ms")
+    return ms
 
 
 # ---------------------------------------------------------------- phase 3b
 def _grid_sample_read(pos, mesh):
-    """The unclamped CIC read as one torch call: trilinear grid_sample
-    (align_corners=True) on the mesh wrap-padded by one cell, channels
-    first.  Returns (input, grid) prepared outside the timed call."""
+    """The unclamped CIC (or, with mode='nearest', NGP) read as one torch
+    call: grid_sample (align_corners=True) on the mesh wrap-padded by one
+    cell, channels first.  Returns (input, grid) prepared outside the timed
+    call."""
     n = torch.tensor(mesh.shape[:3], device=pos.device, dtype=pos.dtype)
     padded = torch.cat([mesh, mesh[:1]], 0)
     padded = torch.cat([padded, padded[:, :1]], 1)
@@ -194,14 +283,15 @@ def _grid_sample_read(pos, mesh):
     return inp, grid.reshape(1, -1, 1, 1, 3).contiguous()
 
 
-def check_read_kernels(lattice, stride, H, tag, reps):
+def check_read_kernels(lattice, stride, H, tag, reps, order=2):
     from montecosmo_tpu_torch.ops import paint as P
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    geom_c, pos, _ = _particles(lattice, stride, H, gen, dev)
-    geom_c = P.cic_geometry(geom_c.shape, 1, lattice, H, True)
-    geom_u = P.cic_geometry(geom_c.shape, 1)
+    geom_c, pos, _ = _particles(lattice, stride, H, gen, dev, ties=order != 2)
+    geom_c = P.cic_geometry(geom_c.shape, 1, lattice, H, True, order)
+    geom_u = P.cic_geometry(geom_c.shape, 1, order=order)
+    sfx = "" if order == 2 else f"_order{order}"
     C = 3
     mesh = torch.randn(geom_c.shape + (C,), generator=gen, device=dev)
     ct = torch.randn((pos.shape[0], C), generator=gen, device=dev)
@@ -209,10 +299,13 @@ def check_read_kernels(lattice, stride, H, tag, reps):
     for kind, geom in (("clamped", geom_c), ("unclamped", geom_u)):
         k4 = rel_err(P.read_cic_kernel(pos, mesh, geom), P.read_cic_plain(pos, mesh, geom))
         dpos, dmesh = P.read_cic_adjoint_kernel(pos, mesh, ct, geom)
-        pr, mr = pos.clone().requires_grad_(True), mesh.clone().requires_grad_(True)
-        rpos, rmesh = torch.autograd.grad((P.read_cic_plain(pr, mr, geom) * ct).sum(), (pr, mr))
-        e_pos, e_mesh = rel_err(dpos, rpos), rel_err(dmesh, rmesh)
-        k5 = (max(e_pos[0], e_mesh[0]), max(e_pos[1], e_mesh[1]))
+        if order == 2:
+            pr, mr = pos.clone().requires_grad_(True), mesh.clone().requires_grad_(True)
+            rpos, rmesh = torch.autograd.grad((P.read_cic_plain(pr, mr, geom) * ct).sum(),
+                                              (pr, mr))
+        else:  # K5's plain version, as for K2 in phase 3
+            rpos, rmesh = P.read_cic_adjoint_plain(pos, mesh, ct, geom)
+        k5 = rel_err_pair(dpos, rpos, dmesh, rmesh)
         t = {"read_cic": (cuda_ms(lambda: P.read_cic_kernel(pos, mesh, geom), reps),
                           cuda_ms(lambda: P.read_cic_plain(pos, mesh, geom), max(2, reps // 5))),
              "read_cic_adjoint": (
@@ -222,55 +315,87 @@ def check_read_kernels(lattice, stride, H, tag, reps):
                      "read_cic_adjoint": (k5, *t["read_cic_adjoint"])}
 
     # library yardstick: grid_sample forward (= K4 unclamped) and its
-    # backward (= K5 unclamped: the paint of the cotangent and d/dpos)
+    # backward (= K5 unclamped: the paint of the cotangent and d/dpos,
+    # which at NGP is 0 in both) at CIC and, with mode='nearest', at NGP
+    # (it rounds half to even the coordinate it rebuilds from the normalised
+    # grid, so ties may go the other way); none at TSC and PCS
     import torch.nn.functional as F
 
-    inp, grid = _grid_sample_read(pos, mesh)
-    inp.requires_grad_(True)
-    grid.requires_grad_(True)
-    sample = lambda: F.grid_sample(inp, grid, mode="bilinear", padding_mode="border",
-                                   align_corners=True)
+    lib = {"read_cic": None, "read_cic_adjoint": None}
+    if order in (1, 2):
+        inp, grid = _grid_sample_read(pos, mesh)
+        inp.requires_grad_(True)
+        grid.requires_grad_(True)
+        mode = "bilinear" if order == 2 else "nearest"
+        sample = lambda: F.grid_sample(inp, grid, mode=mode, padding_mode="border",
+                                       align_corners=True)
 
-    def forward_only():
-        with torch.no_grad():
-            return sample()
+        def forward_only():
+            with torch.no_grad():
+                return sample()
 
-    ref = P.read_cic_kernel(pos, mesh, geom_u)
-    gs = sample()
-    e_gs = rel_err(gs.detach().reshape(C, -1).T, ref)
-    gct = ct.T.reshape(gs.shape).contiguous()
-    lib = {"read_cic": cuda_ms(forward_only, reps),
-           "read_cic_adjoint": cuda_ms(
-               lambda: torch.autograd.grad(gs, (inp, grid), gct, retain_graph=True), reps)}
-    log(f"# {tag} grid_sample vs K4 unclamped: max_rel_err {e_gs[1]:.3e}; "
-        f"fwd {lib['read_cic']:.3f} ms, bwd {lib['read_cic_adjoint']:.3f} ms")
+        ref = P.read_cic_kernel(pos, mesh, geom_u)
+        gs = sample()
+        e_gs = rel_err(gs.detach().reshape(C, -1).T, ref)
+        lib["read_cic"] = cuda_ms(forward_only, reps)
+        gct = ct.T.reshape(gs.shape).contiguous()
+        lib["read_cic_adjoint"] = cuda_ms(
+            lambda: torch.autograd.grad(gs, (inp, grid), gct, retain_graph=True), reps)
+        log(f"# {tag} grid_sample ({mode}) vs K4{sfx} unclamped: max_rel_err {e_gs[1]:.3e}; "
+            f"fwd {lib['read_cic']:.3f} ms, bwd {lib['read_cic_adjoint']:.3f} ms")
 
     n_p, n_c = pos.shape[0], int(np.prod(geom_c.shape)) * C
-    bounds = {"read_cic": bound(12 * n_p + 4 * n_c + 4 * C * n_p, (25 + 16 * C) * n_p),
+    k = ops_scale(order)
+    bounds = {"read_cic": bound(12 * n_p + 4 * n_c + 4 * C * n_p, (25 + 16 * C) * n_p * k),
               "read_cic_adjoint": bound(12 * n_p + 4 * n_c + 4 * C * n_p + 4 * n_c + 12 * n_p,
-                                        (120 + 64 * C) * n_p)}
+                                        (120 + 64 * C) * n_p * k)}
     res = {}
     for name in ("read_cic", "read_cic_adjoint"):
         bm, bb = bounds[name]
         for kind in ("clamped", "unclamped"):
             (ea, er), tk, tp = out[kind][name]
-            log(f"# {tag} {name:18s} {kind:9s} max_abs_err {ea:.3e} max_rel_err {er:.3e}  "
+            log(f"# {tag} {name + sfx:25s} {kind:9s} max_abs_err {ea:.3e} max_rel_err {er:.3e}  "
                 f"kernel {tk:.3f} ms  plain {tp:.3f} ms  bound {bm:.4f} ms ({bb})  "
-                f"library {lib[name]:.3f} ms")
-            assert er <= TOL, f"{name} ({kind}) disagrees with its plain version at {tag}"
+                f"library {lib[name]} ms")
+            assert er <= TOL, f"{name}{sfx} ({kind}) disagrees with its plain version at {tag}"
         (ea, _), tk, tp = out["clamped"][name]
-        res[name] = {"max_abs_err": ea, "ms": tk, "plain_ms": tp, "bound_ms": bm,
-                     "bound_by": bb, "library_ms": lib[name]}
+        res[name + sfx] = {"max_abs_err": ea, "ms": tk, "plain_ms": tp, "bound_ms": bm,
+                           "bound_by": bb, "library_ms": lib[name]}
     return res
 
 
+def check_wide_read():
+    """K4/K5 wrappers on C = 6 channels (two launches of at most 4) against
+    their plain versions, 32^3 clamped TSC with ties."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    geom, pos, _ = _particles((16, 16, 16), (2, 2, 2), 5, gen, dev, ties=True)
+    geom = P.cic_geometry(geom.shape, 1, (16, 16, 16), 5, True, 3)
+    mesh = torch.randn(geom.shape + (6,), generator=gen, device=dev)
+    ct = torch.randn((pos.shape[0], 6), generator=gen, device=dev)
+    e4 = rel_err(P.read_cic_kernel(pos, mesh, geom), P.read_cic_plain(pos, mesh, geom))
+    e5 = rel_err_pair(*(x for pair in zip(P.read_cic_adjoint_kernel(pos, mesh, ct, geom),
+                                          P.read_cic_adjoint_plain(pos, mesh, ct, geom))
+                        for x in pair))
+    log(f"# 32^3 C = 6 read (2 launches each): read_cic max_rel_err {e4[1]:.3e}, "
+        f"read_cic_adjoint max_rel_err {e5[1]:.3e}")
+    assert max(e4[1], e5[1]) <= TOL, "the 6-channel read disagrees with its plain version"
+
+
 def phase_kernels():
-    check_kernels((16, 16, 16), (2, 2, 2), 4, "32^3", reps=20)
-    check_read_kernels((16, 16, 16), (2, 2, 2), 4, "32^3", reps=20)
+    for order in ORDERS:  # max_disp 5: odd NGP window bases (9 at 224^3)
+        check_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order)
+        check_read_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order)
+    check_wide_read()
     if QUICK:
         return None
-    return {**check_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", reps=10),
-            **check_read_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", reps=10)}
+    res = {}
+    for order in ORDERS:
+        res |= check_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", 10, order)
+        res |= check_read_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", 10, order)
+    return res
 
 
 # ----------------------------------------------------------------- phase 4
@@ -296,7 +421,10 @@ def _transfer_coherence(mesh0, mesh1, box):
     return np.sqrt(p1 / p0), p01 / np.sqrt(p0 * p1)
 
 
-def phase_golden(evolution):
+def golden_predict(device, evolution, ulp=False, **updates):
+    """The golden 32^3 configuration (tests/test_golden_bundle.py) with
+    `updates`, on `device`: (model, params, gxy_mesh) on the golden white
+    mesh (with `ulp`, every value moved up by one float32 ulp)."""
     from montecosmo_tpu_torch import FieldLevelModel, default_config
 
     g = np.load(ROOT / "tests" / "golden" / "golden_32.npz")
@@ -304,53 +432,154 @@ def phase_golden(evolution):
     conf.update(final_shape=(32, 32, 32), cell_length=1000.0 / 32, evolution=evolution,
                 lpt_order=2, a_obs=0.5, curved_sky=False, box_center=(0.0, 0.0, 2000.0),
                 ap_auto=None, lik_type="quad_gauss", precond="real")
-    m = FieldLevelModel(**conf, device="cuda")
+    conf.update(updates)
+    m = FieldLevelModel(**conf, device=device)
     fid = {k: np.asarray(v) for k, v in m.fiduc.items()}
     fid |= {"b1": 0.5, "b2": 0.3, "bs2": -0.2, "b3": 0.1, "bds2": 0.1, "bs3": -0.05,
             "bn2": 0.05, "bnpar": 0.2}
     p = m.reparam(fid, inv=True)
-    p["white_mesh_"] = torch.as_tensor(g["white"], device="cuda")
-    gxy = m.predict(seed=1, samples=p, hide_base=False, hide_det=False,
-                    hide_samp=False)["gxy_mesh"].cpu().numpy()
-    ref = g[f"gxy_{evolution}"]
+    p["white_mesh_"] = torch.as_tensor(g["white"], device=device)
+    if ulp:
+        p["white_mesh_"] = torch.nextafter(p["white_mesh_"], torch.tensor(np.inf, device=device))
+    pred = m.predict(seed=1, samples=p, hide_base=False, hide_det=False, hide_samp=False)
+    return m, p, pred
+
+
+def check_transfer(gxy, ref, what, coh_limit=1e-5, hold=True):
+    """Phase 4's tolerances: transfer within 2e-3, coherence above 1 - 1e-5
+    (or 1 - `coh_limit`); without `hold`, only printed."""
     trans, coh = _transfer_coherence(gxy - 1.0, ref - 1.0, 1000.0)
     dt, dc = float(np.abs(trans - 1).max()), float(1 - coh.min())
-    log(f"# golden 32^3 {evolution} on the card: max|transfer-1| {dt:.3e} (limit 2e-3), "
-        f"1-min coherence {dc:.3e} (limit 1e-5), max|gxy-golden| {np.abs(gxy - ref).max():.3e}")
-    assert np.all(np.isfinite(gxy)) and gxy.shape == ref.shape
-    assert dt <= 2e-3 and dc < 1e-5, f"golden 32^3 {evolution} forward disagrees on the card"
+    log(f"# {what}: max|transfer-1| {dt:.3e} (limit 2e-3), 1-min coherence {dc:.3e} "
+        f"(limit {coh_limit:.0e}), max|difference| {np.abs(gxy - ref).max():.3e}")
+    if hold:
+        assert np.all(np.isfinite(gxy)) and gxy.shape == ref.shape
+        assert dt <= 2e-3 and dc < coh_limit, f"{what}: disagrees"
+
+
+def phase_golden(evolution):
+    g = np.load(ROOT / "tests" / "golden" / "golden_32.npz")
+    _, _, pred = golden_predict("cuda", evolution)
+    check_transfer(pred["gxy_mesh"].cpu().numpy(), g[f"gxy_{evolution}"],
+                   f"golden 32^3 {evolution} on the card")
+
+
+def ngp_witnesses(lc, dev="cuda"):
+    """What moves the NGP light cone between the card and the CPU.  The
+    forward runs on the card, on the CPU, on the card with K1, K4 and K3
+    replaced by their plain versions, and on the CPU with the white mesh
+    moved by one ulp; for the pairs, the largest and mean differences of the
+    final particle positions and of the positions the render paints (paint
+    cells), the expected number of particles that cross an NGP cell edge
+    (shifts x sum of |difference| per axis, edges one cell apart), and the
+    transfer/coherence: held at phase 4's tolerances for the kernels against
+    their plain versions on the card, printed for the others."""
+    from montecosmo_tpu_torch.models import model as M
+    from montecosmo_tpu_torch.ops import paint as P
+
+    nufft, kernels = M.nufft, (P.paint_cic_kernel, P.read_cic_kernel, P.nufft_epilogue_kernel)
+
+    def run(device, plain=False, ulp=False):
+        seen = []
+
+        def capture(pos, final_shape, paint_shape, **kw):
+            ratio = torch.tensor(np.divide(paint_shape, final_shape), dtype=pos.dtype)
+            seen.append((pos.detach().cpu() * ratio, kw["interlace_order"]))
+            return nufft(pos, final_shape, paint_shape, **kw)
+
+        M.nufft = capture
+        if plain:
+            P.paint_cic_kernel, P.read_cic_kernel = P.paint_cic_plain, P.read_cic_plain
+            P.nufft_epilogue_kernel = lambda x, g, backward=False: P._epilogue_math(x, g, backward)
+        try:
+            _, _, pred = golden_predict(device, "nbody", ulp=ulp, **lc)
+        finally:
+            M.nufft = nufft
+            P.paint_cic_kernel, P.read_cic_kernel, P.nufft_epilogue_kernel = kernels
+        return pred["gxy_mesh"].cpu().numpy(), pred["nbody_ptcl"][0].cpu(), *seen[0]
+
+    card, cpu = run(dev), run("cpu")
+    for what, a, b, hold in (("card vs CPU", card, cpu, False),
+                             ("card, kernels vs plain versions", card, run(dev, plain=True), True),
+                             ("CPU, white mesh +1 ulp vs as is", run("cpu", ulp=True), cpu, False)):
+        d_evol, d_paint = (a[1] - b[1]).abs(), (a[2] - b[2]).abs()
+        log(f"# NGP witness, {what}: final positions max|difference| {float(d_evol.max()):.3e} "
+            f"mean {float(d_evol.mean()):.3e} (evol cells); painted positions max "
+            f"{float(d_paint.max()):.3e} mean {float(d_paint.mean()):.3e} (paint cells), "
+            f"expected edge crossings {a[3] * float(d_paint.sum()):.2f}")
+        check_transfer(a[0], b[0], f"NGP witness, {what}", 1e-5 if hold else 1e-3, hold)
+
+
+def phase_lightcone_32(order):
+    """The 32^3 N-body light cone at B-spline `order`, on the card against
+    the CPU; at orders other than TSC (whose launches phase 5c counts) also
+    one value+grad on the card, counted from 0.  Returns its launches."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    lc = dict(a_obs=None, paint_order=order)
+    m, p, pred = golden_predict("cuda", "nbody", **lc)
+    _, _, ref = golden_predict("cpu", "nbody", **lc)
+    # NGP is discontinuous: where the card's arithmetic puts a particle on
+    # the other side of a cell edge than the CPU's, its whole weight moves
+    # (measured 1 - coherence 2.6e-4 at 32^3, from ~1.5 expected crossings),
+    # so the NGP coherence bound is 1e-3; the smooth orders keep phase 4's.
+    # `ngp_witnesses` shows the kernels take no part in it
+    check_transfer(pred["gxy_mesh"].cpu().numpy(), ref["gxy_mesh"].numpy(),
+                   f"32^3 N-body light cone at order {order}, card vs CPU",
+                   1e-3 if order == 1 else 1e-5)
+    if order == 1:
+        ngp_witnesses(lc)
+    if order == 3:
+        return {}
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    P.reset_launches()
+    lp = m.logpdf({**leaves, "count_mesh": pred["count_mesh"]})
+    lp.backward()
+    torch.cuda.synchronize()
+    launches = P.launches_at(order)
+    log(f"# 32^3 light cone order {order} value+grad on the card: logpdf {lp.item():.6e}; "
+        f"launches at order {order} {launches}")
+    assert np.isfinite(lp.item()) and all(bool(torch.isfinite(v.grad).all())
+                                          for v in leaves.values())
+    missing = [k for k in SOURCES if not launches.get(k)]
+    assert not missing, f"order-{order} kernels of the light cone never ran: {missing}"
+    return launches
 
 
 # ----------------------------------------------------------------- phase 5
-def bench_model(final=128, evolution="lpt"):
+def bench_model(final=128, evolution="lpt", **updates):
     from montecosmo_tpu_torch import FieldLevelModel, default_config
 
     conf = dict(default_config)
     conf.update(final_shape=3 * (final,), cell_length=500.0 * 2 / final, evolution=evolution,
                 lpt_order=2, a_obs=0.5, curved_sky=False, box_center=(0.0, 0.0, 1500.0),
                 lik_type="quad_gauss", precond="kaiser", paint_method="auto")
+    conf.update(updates)
     return FieldLevelModel(**conf, device="cuda")
 
 
-def phase_bench(evolution, kernels):
-    """The flagship value+grad with `evolution`; every kernel in `kernels`
-    must launch.  Returns the launch counts of the 7 evaluations."""
+def phase_bench(evolution, kernels, tag=None, **updates):
+    """The flagship value+grad with `evolution` and the config `updates`;
+    every kernel in `kernels` must launch at the model's paint order.
+    Returns the launch counts of the 7 evaluations at that order."""
     from montecosmo_tpu_torch.ops import paint as P
     from montecosmo_tpu_torch.ops.background import Background, get_cosmology
 
     t0 = time.perf_counter()
-    m = bench_model(evolution=evolution)
+    m = bench_model(evolution=evolution, **updates)
+    tag = tag or evolution
     gen = torch.Generator(device="cuda").manual_seed(0)
     params = m.reparam({k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True)
     params["white_mesh_"] = torch.randn(m.init_shape, generator=gen, device="cuda")
     obs = {"count_mesh": m.predict(seed=gen, samples=params, hide_base=False, hide_det=False,
                                    hide_samp=False)["count_mesh"]}
     torch.cuda.synchronize()
-    log(f"# bench model ({evolution}): final {m.final_shape} init {m.init_shape} "
+    log(f"# bench model ({tag}): final {m.final_shape} init {m.init_shape} "
         f"evol {m.evol_shape} paint {m.paint_shape} steps "
         f"{m.nbody_n_steps if evolution == 'nbody' else 0} "
         f"particles {int(np.prod(m.ptcl_shape))} max_disp {m.max_disp} "
-        f"lattice {m.paint_lattice} rbins {m.n_rbins}; set-up {time.perf_counter() - t0:.2f} s")
+        f"lattice {m.paint_lattice} rbins {m.n_rbins} a_obs {m.a_obs} paint_order "
+        f"{m.paint_order}; set-up {time.perf_counter() - t0:.2f} s")
 
     leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
 
@@ -373,18 +602,18 @@ def phase_bench(evolution, kernels):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         values.append(lp.item())
-    launches = dict(P.LAUNCHES)
+    launches = P.launches_at(m.paint_order)
     peak = torch.cuda.max_memory_allocated()
     grads_ok = all(bool(torch.isfinite(v.grad).all()) for v in leaves.values())
-    log(f"# bench ({evolution}) value+grad: ms/eval {[round(1e3 * t, 3) for t in times]} "
+    log(f"# bench ({tag}) value+grad: ms/eval {[round(1e3 * t, 3) for t in times]} "
         f"mean {1e3 * np.mean(times):.3f} median {1e3 * np.median(times):.3f}; "
         f"evals/s {1 / np.median(times):.4f} (median); logpdf {values[-1]:.6e}; "
         f"peak memory {peak / 2**30:.3f} GiB; launches in 7 evals {launches}")
     assert np.all(np.isfinite(values)) and grads_ok, "non-finite logpdf or gradient"
-    log(f"# ({evolution}) launches per value+grad: "
+    log(f"# ({tag}) launches per value+grad at order {m.paint_order}: "
         f"{ {k: v / 7 for k, v in launches.items()} }")
-    missing = [k for k in kernels if launches[k] == 0]
-    assert not missing, f"kernels of the {evolution} path never ran: {missing} ({launches})"
+    missing = [k for k in kernels if not launches.get(k)]
+    assert not missing, f"kernels of the {tag} path never ran: {missing} ({launches})"
 
     # share of the background RK4 tables: the same evaluations with the
     # tables built once, outside the timed loop (the timing changes, the
@@ -406,13 +635,13 @@ def phase_bench(evolution, kernels):
     finally:
         Background.create = create
     share = 1 - np.median(t_fixed) / np.median(times)
-    log(f"# ({evolution}) with the background tables held fixed: ms/eval "
+    log(f"# ({tag}) with the background tables held fixed: ms/eval "
         f"{[round(1e3 * t, 3) for t in t_fixed]} median {1e3 * np.median(t_fixed):.3f}; "
         f"the RK4 tables take {100 * share:.1f}% of an evaluation (median to median)")
     if "--profile" in sys.argv:
         # profiled after every timed phase: a profiler session slows the
         # host's launches in the evaluations timed after it
-        PROFILES.append(lambda: (log(f"# --- profile ({evolution})"),
+        PROFILES.append(lambda: (log(f"# --- profile ({tag})"),
                                  layer_times(m, value_and_grad),
                                  profile_eval(value_and_grad, np.mean(times))))
     return launches
@@ -484,6 +713,10 @@ SOURCES = {
     "read_cic_adjoint": ("cuda", "montecosmo_tpu_torch/csrc/paint_cic.cu",
                          "montecosmo_tpu/ops/paint_window.py:395"),
 }
+# at orders 1, 3 and 4 K1 and K2 replace the deleted Pallas window kernels
+# (git show d9c3c2e^:montecosmo_tpu/ops/paint_window_pallas.py)
+WINDOW_PALLAS = {"paint_cic": "d9c3c2e^:montecosmo_tpu/ops/paint_window_pallas.py:52",
+                 "paint_cic_adjoint": "d9c3c2e^:montecosmo_tpu/ops/paint_window_pallas.py:165"}
 LPT_KERNELS = ("paint_cic", "paint_cic_adjoint", "nufft_epilogue")
 PROFILES = []
 
@@ -497,12 +730,20 @@ def main():
         return
     phase_golden("lpt")
     phase_golden("nbody")
+    launches = {order: phase_lightcone_32(order) for order in (3, 1, 4)}
     phase_bench("lpt", LPT_KERNELS)
-    launches = phase_bench("nbody", tuple(SOURCES))
+    launches[2] = phase_bench("nbody", tuple(SOURCES))
+    launches[3] = phase_bench("nbody", tuple(SOURCES), "nbody light cone, TSC", a_obs=None,
+                              paint_order=3)
     for run in PROFILES:
         run()
-    kernels = [{"name": n, "route": r, "source": s, "replaces": rep, "launches": launches[n],
-                **res[n]} for n, (r, s, rep) in SOURCES.items()]
+    kernels = []
+    for order in ORDERS:
+        sfx = "" if order == 2 else f"_order{order}"
+        for n, (r, s, rep) in SOURCES.items():
+            rep = rep if order == 2 else WINDOW_PALLAS.get(n, rep)
+            kernels.append({"name": n + sfx, "route": r, "source": s, "replaces": rep,
+                            "order": order, "launches": launches[order][n], **res[n + sfx]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,8 @@ N-body evolve -> quad-Gaussian field likelihood, with the handler algebra of
 
 Parity: `montecosmo_tpu/models/model.py` (default_config:56-154,
 Model:157-403, FieldLevelModel:420-962 and 1096-1280).  The port covers
-evolution='lpt' and 'nbody' (BullFrog, at one scale factor `a_obs`),
+evolution='lpt' and 'nbody' (BullFrog, at one scale factor `a_obs` or on
+the light cone with a_obs=None), B-spline paint orders 1-4,
 bias_type='lagrangian', flat sky without AP or PNG,
 observable='field' with lik_type='quad_gauss', and precond 'kaiser', 'real'
 or 'fourier'; any other value raises NotImplementedError naming its ROADMAP
@@ -31,7 +32,7 @@ from montecosmo_tpu_torch.ops.hermitian import (
     cgh2rg, chreshape, masked2mesh, mesh2masked, r2chshape, scale_shape,
 )
 from montecosmo_tpu_torch.ops.paint import nufft
-from montecosmo_tpu_torch.ops.pm import lpt, nbody_bf
+from montecosmo_tpu_torch.ops.pm import lpt, nbody_bf, nbody_bf_lightcone
 from montecosmo_tpu_torch.ops.power import lin_power_mesh
 from montecosmo_tpu_torch.utils import to_tensor
 from montecosmo_tpu_torch.utils.safe import safe_div
@@ -147,13 +148,12 @@ _ROADMAP = {
     "curved_sky": "ROADMAP Queue A item 12 (curved sky)",
     "observable": "ROADMAP Queue A item 12 (likelihoods and observables)",
     "kernel_type": "ROADMAP Queue B, B1 (Kaiser-Bessel windows)",
-    "paint_order": "ROADMAP Queue B, B1 (paint orders 1, 3, 4)",
     "register": "ROADMAP Queue A item 13 (register files)",
 }
 _SUPPORTED = {"evolution": ("lpt", "nbody"), "lik_type": ("quad_gauss",),
               "bias_type": ("lagrangian",), "png_type": (None,), "ap_auto": (None,),
               "curved_sky": (False,), "observable": ("field",),
-              "kernel_type": ("rectangular",), "paint_order": (2,), "register": (None,)}
+              "kernel_type": ("rectangular",), "register": (None,)}
 
 
 @dataclass
@@ -226,8 +226,9 @@ class Model:
 
 @dataclass
 class FieldLevelModel(Model):
-    """Field-level model on the main path: 2LPT or BullFrog N-body,
-    Lagrangian bias, flat-sky RSD, quad-Gaussian field likelihood.  Takes
+    """Field-level model on the main path: 2LPT or BullFrog N-body (at
+    `a_obs`, or on the light cone), Lagrangian bias, flat-sky RSD,
+    quad-Gaussian field likelihood.  Takes
     every key of `default_config` plus `device`, the card ("cuda") unless
     the caller names another."""
 
@@ -268,13 +269,16 @@ class FieldLevelModel(Model):
 
     def __post_init__(self):
         self.device = torch.device(self.device)
+        if self.paint_order not in (1, 2, 3, 4):
+            raise ValueError(f"paint_order must be a B-spline order in 1..4, got "
+                             f"{self.paint_order!r}")
         for key, allowed in _SUPPORTED.items():
             if getattr(self, key) not in allowed:
                 raise NotImplementedError(
                     f"{key}={getattr(self, key)!r} is not ported yet ({_ROADMAP[key]})")
-        if self.evolution == "nbody" and self.a_obs is None:
-            raise NotImplementedError("the N-body light cone (a_obs=None, nbody_bf_lightcone) "
-                                      "is not ported yet (ROADMAP Queue A item 11)")
+        if self.evolution == "nbody" and self.a_obs is None and self.nbody_snapshots is not None:
+            raise ValueError("nbody_snapshots and the N-body light cone (a_obs=None) are "
+                             "exclusive")
         self.lin_kpow = None
         self.white_mesh = None
         self.count_mesh = None
@@ -420,12 +424,21 @@ class FieldLevelModel(Model):
             # bound from paint cells to evol cells
             max_disp_evol = int(np.ceil(self.max_disp * np.max(
                 np.divide(self.evol_shape, self.paint_shape))))
-            pos, vel = nbody_bf(bg, init_mesh, pos=pos, a0=self.nbody_a_start, a1=a,
-                                n_steps=self.nbody_n_steps, paint_order=self.paint_order,
-                                lpt_order=self.lpt_order, paint_deconv=False,
-                                snapshots=self.nbody_snapshots,
-                                lattice_shape=self.paint_lattice, max_disp=max_disp_evol,
-                                sites_shape=self.evol_sites)
+            kw = dict(n_steps=self.nbody_n_steps, paint_order=self.paint_order,
+                      lpt_order=self.lpt_order, paint_deconv=False,
+                      lattice_shape=self.paint_lattice, max_disp=max_disp_evol,
+                      sites_shape=self.evol_sites)
+            if self.a_obs is not None:
+                pos, vel = nbody_bf(bg, init_mesh, pos=pos, a0=self.nbody_a_start, a1=a,
+                                    snapshots=self.nbody_snapshots, **kw)
+            else:
+                # the light cone: each particle seen at the growth of its
+                # Lagrangian radius, the evolution run to the latest one
+                g_tgt = bg.a2g(a)
+                a1 = bg.g2a(g_tgt.max())
+                pos, vel = nbody_bf_lightcone(bg, init_mesh, pos=pos, g_tgt=g_tgt,
+                                              a0=self.nbody_a_start, a1=a1, **kw)
+                pos, vel = pos[None], vel[None]
             pos, vel = ppl.deterministic("nbody_ptcl", torch.stack((pos, vel)))
             pos, vel = pos[-1], vel[-1]
 

@@ -25,7 +25,8 @@ BUILD_INFO = {"seconds": None, "log": ""}
 _LIB = None
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-_GEOM = [_I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I]
+# mesh, lattice, stride, clamp bound, clamp, n_shift, order, NGP tie span and margin
+_GEOM = [_I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I]
 
 
 def nvcc_path():

@@ -101,6 +101,23 @@ def bspline(s, order: int):
     raise ValueError("B-spline order must be in 1..4.")
 
 
+def dbspline(s, order: int):
+    """d/ds of `bspline` at signed distances `s`, as JAX differentiates it
+    (zero at s = 0 and outside the support); the adjoints of the paint and
+    the read use it."""
+    a, sg = s.abs(), torch.sign(s)
+    if order == 1:
+        return torch.zeros_like(s)
+    if order == 2:
+        return -sg
+    if order == 3:
+        return sg * torch.where(a <= 0.5, -2 * a, -torch.clamp(1.5 - a, min=0.0))
+    if order == 4:
+        return sg * torch.where(a <= 1.0, (-12 * a + 9 * a**2) / 6,
+                                -0.5 * torch.clamp(2.0 - a, min=0.0)**2)
+    raise ValueError("B-spline order must be in 1..4.")
+
+
 def bspline_hat(kvec, order: int = 2):
     """Fourier transform of the order-n B-spline window: prod_i sinc(k_i/2pi)^n."""
     out = 1.0

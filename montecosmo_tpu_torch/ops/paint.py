@@ -1,18 +1,20 @@
 """Mass assignment (paint), reads, interlacing and the NUFFT.
 
 The particle work of every model evaluation goes through five hand-written
-kernels (sources in `montecosmo_tpu_torch/csrc/`):
+kernels (sources in `montecosmo_tpu_torch/csrc/`).  K1, K2, K4 and K5 take
+the B-spline window of order 1 (NGP), 2 (CIC), 3 (TSC) or 4 (PCS); their
+names come from the CIC (order-2) version.
 
-* K1 `paint_cic`: CIC scatter of lattice-ordered particles, every interlace
-  shift painted in one particle pass, each shifted position clamped to
-  +-max_disp around its lattice site (the window contract of
+* K1 `paint_cic`: B-spline scatter of lattice-ordered particles, every
+  interlace shift painted in one particle pass, each shifted position
+  clamped to +-max_disp around its lattice site (the window contract of
   `montecosmo_tpu/ops/paint_window.py`); CUDA, atomic adds.
 * K2 `paint_cic_adjoint`: its VJP, a gather of the cotangent meshes giving
   the weight and position gradients; CUDA, no atomics.
 * K3 `nufft_epilogue`: the interlace phase sum, units jacobian and window
   deconvolution in one pass over the rfft grid; Triton.  Its backward is the
   same kernel with the conjugated phase.
-* K4 `read_cic`: the CIC read of C channel-last fields at (clamped)
+* K4 `read_cic`: the B-spline read of C channel-last fields at (clamped)
   particle positions, behind `read_window`, `read_multi` and `read`; CUDA,
   no atomics.
 * K5 `read_cic_adjoint`: its VJP in one particle pass, the C-channel paint
@@ -20,13 +22,15 @@ kernels (sources in `montecosmo_tpu_torch/csrc/`):
 
 Each wrapper launches its kernel for a CUDA tensor (or raises), and runs the
 kernel's plain PyTorch version, kept in this module, for a CPU tensor.
-`LAUNCHES` counts kernel launches.
+`LAUNCHES` counts kernel launches per (kernel, order); K3's order is that of
+its deconvolution, 0 for none.
 
 Parity: `montecosmo_tpu/ops/paint.py:57-240` (paint, read, read_multi,
 read_sites, interlace, nufft) and `montecosmo_tpu/ops/paint_window.py:103-130`
 and `:330-401` (window geometry, the clamp to sites, read_window).
 """
 import ctypes
+from collections import Counter
 from dataclasses import dataclass
 from itertools import product
 
@@ -34,41 +38,65 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from montecosmo_tpu_torch.ops.fourier import bspline_hat, rfftk, rfftn
+from montecosmo_tpu_torch.ops.fourier import bspline, bspline_hat, dbspline, rfftk, rfftn
 from montecosmo_tpu_torch.ops.hermitian import chreshape, r2chshape, scale_shape
 
-LAUNCHES = {"paint_cic": 0, "paint_cic_adjoint": 0, "nufft_epilogue": 0, "read_cic": 0,
-            "read_cic_adjoint": 0}
+LAUNCHES = Counter()
+ORDERS = (1, 2, 3, 4)
 
 
 def reset_launches():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    LAUNCHES.clear()
+
+
+def launches_at(order):
+    """{kernel: launches} at B-spline `order` since the last reset."""
+    return {k: n for (k, o), n in LAUNCHES.items() if o == order}
 
 
 # ----------------------------------------------------------------- geometry
 @dataclass(frozen=True)
 class CICGeometry:
-    """Static description of one interlaced CIC paint."""
+    """Static description of one interlaced B-spline paint or read."""
     shape: tuple            # mesh (X, Y, Z)
     n_shift: int            # interlace shifts s/n_shift, s = 0..n_shift-1
     lattice: tuple = None   # particle lattice when clamping, else None
     stride: tuple = (1, 1, 1)
     H: tuple = (np.inf, np.inf, np.inf)
+    order: int = 2          # B-spline order: 1 NGP, 2 CIC, 3 TSC, 4 PCS
+    # NGP ties (clamped order 1 only): `paint_window` rounds x - b, b the
+    # window base of the particle's lattice group, b = (q // span) * span -
+    # margin for its site q, so a half-integer x goes to the neighbour of b's
+    # parity; zeros: round x itself, as `ops/paint.py::paint`
+    span: tuple = (0, 0, 0)
+    margin: tuple = (0, 0, 0)
 
 
-def cic_geometry(shape, n_shift=1, lattice_shape=None, max_disp=8, clip=False):
+def _pick_group(extent, want):
+    """Largest divisor of `extent` that is <= want (>= 1), as
+    `paint_window._pick_group`."""
+    want = max(1, min(int(want), int(extent)))
+    return next(g for g in range(want, 0, -1) if extent % g == 0)
+
+
+def cic_geometry(shape, n_shift=1, lattice_shape=None, max_disp=8, clip=False, order=2):
     """Geometry checks of `paint_window` (`_window_geometry`): the mesh must
     be a multiple of the particle lattice; the clamp bound is per axis."""
+    _require(order in ORDERS, f"B-spline order must be in 1..4, got {order}")
     shape = tuple(int(s) for s in shape)
     if lattice_shape is None or not clip:
-        return CICGeometry(shape, int(n_shift))
+        return CICGeometry(shape, int(n_shift), order=int(order))
     lattice = tuple(int(s) for s in lattice_shape)
     _require(all(m % l == 0 for m, l in zip(shape, lattice)),
              f"mesh {shape} must be a multiple of lattice {lattice}")
     stride = tuple(m // l for m, l in zip(shape, lattice))
     H = tuple(float(int(h)) for h in np.broadcast_to(max_disp, (3,)))
-    return CICGeometry(shape, int(n_shift), lattice, stride, H)
+    span = margin = (0, 0, 0)
+    if order == 1:  # the default groups and margins of `_window_geometry`
+        want = (8, 8, _pick_group(lattice[2], 64))
+        span = tuple(_pick_group(l, g) * s for l, g, s in zip(lattice, want, stride))
+        margin = tuple(int(h) + order // 2 + 2 for h in H)
+    return CICGeometry(shape, int(n_shift), lattice, stride, H, int(order), span, margin)
 
 
 def _sites(geom, device):
@@ -99,36 +127,50 @@ def _shifted(pos, geom):
     return out
 
 
-def _corners(x, shape):
-    """Floor cell, fraction, and the 8 (flat wrapped index, weight factors)."""
-    i0 = torch.floor(x)
-    f = x - i0
-    i0 = i0.long()
+def _tie_base(sites, geom):
+    """(P, 3) NGP tie origins of the clamped order-1 window (`CICGeometry`),
+    or None."""
+    if sites is None or geom.order != 1:
+        return None
+    span = torch.tensor(geom.span, dtype=sites.dtype, device=sites.device)
+    margin = torch.tensor(geom.margin, dtype=sites.dtype, device=sites.device)
+    return torch.div(sites, span, rounding_mode="floor") * span - margin
+
+
+def _axis_windows(x, order, tie_base=None):
+    """Per axis, the `order` cells around x (order, P, 3) (unwrapped), their
+    B-spline weights and the weights' derivatives d/dx.  The base cell is
+    round(x) (half to even) for odd orders, floor(x) for even ones, and the
+    stencil `arange(order) - (order - 1) // 2`, as `ops/paint.py::paint`."""
+    if order % 2:
+        c0 = torch.round(x) if tie_base is None else torch.round(x - tie_base) + tie_base
+    else:
+        c0 = torch.floor(x)
+    offs = torch.arange(order, dtype=x.dtype, device=x.device) - (order - 1) // 2
+    cells = c0[None] + offs[:, None, None]
+    if order == 2:  # 1 - t and t: K1's arithmetic
+        t = x - c0
+        one = torch.ones_like(t)
+        return cells.long(), torch.stack([1 - t, t]), torch.stack([-one, one])
+    s = cells - x
+    return cells.long(), bspline(s, order), -dbspline(s, order)
+
+
+def _corner_terms(x, shape, order=2, grad=False, tie_base=None):
+    """The order^3 (flat wrapped cell, weight, weight gradient (P, 3) or
+    None) of the B-spline window at x; the gradient only with `grad` (the
+    adjoints)."""
+    cells, w, dw = _axis_windows(x, order, tie_base)
     n = torch.tensor(shape, device=x.device)
-    lo = torch.remainder(i0, n)
-    hi = torch.remainder(i0 + 1, n)
-    return lo, hi, f
-
-
-def _flat(ix, iy, iz, shape):
-    return (ix * shape[1] + iy) * shape[2] + iz
-
-
-def _corner_terms(x, shape, grad=False):
-    """The 8 (flat wrapped cell, weight, weight gradient (P, 3) or None) of
-    CIC at x; the gradient only with `grad` (the adjoints)."""
-    lo, hi, f = _corners(x, shape)
-    for a, b, c in product((0, 1), repeat=3):
-        idx = _flat((hi if a else lo)[:, 0], (hi if b else lo)[:, 1],
-                    (hi if c else lo)[:, 2], shape)
-        wx = f[:, 0] if a else 1 - f[:, 0]
-        wy = f[:, 1] if b else 1 - f[:, 1]
-        wz = f[:, 2] if c else 1 - f[:, 2]
+    cells = torch.remainder(cells, n)
+    for a, b, c in product(range(order), repeat=3):
+        idx = (cells[a, :, 0] * shape[1] + cells[b, :, 1]) * shape[2] + cells[c, :, 2]
+        wx, wy, wz = w[a, :, 0], w[b, :, 1], w[c, :, 2]
         if not grad:
             yield idx, wx * wy * wz, None
             continue
-        sx, sy, sz = (1.0 if a else -1.0), (1.0 if b else -1.0), (1.0 if c else -1.0)
-        yield idx, wx * wy * wz, torch.stack([sx * wy * wz, wx * sy * wz, wx * wy * sz], -1)
+        dx, dy, dz = dw[a, :, 0], dw[b, :, 1], dw[c, :, 2]
+        yield idx, wx * wy * wz, torch.stack([dx * wy * wz, wx * dy * wz, wx * wy * dz], -1)
 
 
 # ------------------------------------------------------------ K1 / K2 plain
@@ -138,9 +180,10 @@ def paint_cic_plain(pos, weights, geom: CICGeometry):
     w = torch.broadcast_to(torch.as_tensor(weights, dtype=pos.dtype, device=pos.device), (P,))
     N = int(np.prod(geom.shape))
     meshes = []
-    for _, x, _ in _shifted(pos, geom):
+    for _, x, sites in _shifted(pos, geom):
         mesh = pos.new_zeros(N)
-        for idx, wc, _ in _corner_terms(x, geom.shape):
+        for idx, wc, _ in _corner_terms(x, geom.shape, geom.order,
+                                        tie_base=_tie_base(sites, geom)):
             mesh = mesh.index_add(0, idx, w * wc)
         meshes.append(mesh.reshape(geom.shape))
     return torch.stack(meshes)
@@ -155,7 +198,8 @@ def paint_cic_adjoint_plain(pos, weights, grads, geom: CICGeometry):
     for s, (v, x, sites) in enumerate(_shifted(pos, geom)):
         g = grads[s].reshape(-1)
         ds = torch.zeros_like(pos)
-        for idx, wc, dwc in _corner_terms(x, geom.shape, grad=True):
+        for idx, wc, dwc in _corner_terms(x, geom.shape, geom.order, True,
+                                          _tie_base(sites, geom)):
             val = g[idx]
             dw = dw + val * wc
             ds = ds + val[:, None] * dwc
@@ -176,7 +220,9 @@ def _geom_args(geom):
     return ([ctypes.c_int(v) for v in geom.shape] + [ctypes.c_int(v) for v in lat]
             + [ctypes.c_float(float(v)) for v in geom.stride]
             + [ctypes.c_float(float(v)) for v in geom.H]
-            + [ctypes.c_int(int(geom.lattice is not None)), ctypes.c_int(geom.n_shift)])
+            + [ctypes.c_int(int(geom.lattice is not None)), ctypes.c_int(geom.n_shift),
+               ctypes.c_int(geom.order)]
+            + [ctypes.c_int(v) for v in geom.span + geom.margin])
 
 
 def _require(ok, msg):
@@ -210,7 +256,7 @@ def paint_cic_kernel(pos, weights, geom: CICGeometry):
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     code = lib.paint_cic_forward(_ptr(pos), _ptr(weights), ctypes.c_longlong(pos.shape[0]),
                                  *_geom_args(geom), _ptr(out), ctypes.c_void_p(stream))
-    LAUNCHES["paint_cic"] += 1
+    LAUNCHES["paint_cic", geom.order] += 1
     _launch_status(code, "paint_cic")
     return out
 
@@ -230,7 +276,7 @@ def paint_cic_adjoint_kernel(pos, weights, grads, geom: CICGeometry):
     code = lib.paint_cic_adjoint(_ptr(pos), _ptr(weights), _ptr(grads),
                                  ctypes.c_longlong(pos.shape[0]), *_geom_args(geom),
                                  _ptr(dpos), _ptr(dw), ctypes.c_void_p(stream))
-    LAUNCHES["paint_cic_adjoint"] += 1
+    LAUNCHES["paint_cic_adjoint", geom.order] += 1
     _launch_status(code, "paint_cic_adjoint")
     return dpos, dw
 
@@ -258,11 +304,12 @@ class _PaintCIC(torch.autograd.Function):
 
 
 def paint_cic(pos, shape, weights=1.0, n_shift=1, lattice_shape=None, max_disp=8,
-              clip=False):
-    """Interlaced CIC paint: (n_shift, *shape) meshes, shift s painted at
-    pos + s/n_shift.  With `lattice_shape` and clip=True, each shifted
-    position is clamped to +-max_disp cells around its lattice site."""
-    geom = cic_geometry(shape, n_shift, lattice_shape, max_disp, clip)
+              clip=False, order=2):
+    """Interlaced B-spline paint of `order`: (n_shift, *shape) meshes, shift
+    s painted at pos + s/n_shift.  With `lattice_shape` and clip=True, each
+    shifted position is clamped to +-max_disp cells around its lattice
+    site."""
+    geom = cic_geometry(shape, n_shift, lattice_shape, max_disp, clip, order)
     pos = pos.reshape(-1, 3).contiguous()
     w = torch.as_tensor(weights, dtype=pos.dtype, device=pos.device)
     w = torch.broadcast_to(w.reshape(-1) if w.ndim else w, pos.shape[:1]).contiguous()
@@ -270,30 +317,34 @@ def paint_cic(pos, shape, weights=1.0, n_shift=1, lattice_shape=None, max_disp=8
 
 
 # ------------------------------------------------------------------ paint
-def _cic_only(order, kernel_type):
-    if order != 2 or kernel_type != "rectangular":
+def _check_window(kernel_type):
+    """The B-spline windows are ported (`cic_geometry` checks the order);
+    Kaiser-Bessel is not."""
+    if kernel_type != "rectangular":
         raise NotImplementedError(
-            "only the order-2 rectangular (CIC) window is ported; orders 1/3/4 and "
-            "Kaiser-Bessel windows are ROADMAP Queue B, B1")
+            f"kernel_type={kernel_type!r} is not ported yet (ROADMAP Queue B, B1: "
+            "Kaiser-Bessel windows)")
 
 
 def paint(pos, shape: tuple, weights=1.0, order: int = 2, kernel_type="rectangular", *,
           lattice_shape=None, max_disp=8, clip=False):
     """Scatter particle `weights` onto a mesh of `shape` (positions in cell
-    units, periodic): K1 with one shift.  With `lattice_shape` and
-    clip=True, positions are clamped to +-max_disp around their sites."""
-    _cic_only(order, kernel_type)
-    return paint_cic(pos, shape, weights, 1, lattice_shape, max_disp, clip)[0]
+    units, periodic) with the B-spline window of `order`: K1 with one shift.
+    With `lattice_shape` and clip=True, positions are clamped to +-max_disp
+    around their sites."""
+    _check_window(kernel_type)
+    return paint_cic(pos, shape, weights, 1, lattice_shape, max_disp, clip, order)[0]
 
 
 # ------------------------------------------------------------ K4 / K5 plain
 def read_cic_plain(pos, mesh, geom: CICGeometry):
     """Plain PyTorch K4: (P, C) values of the (X, Y, Z, C) mesh at the
     (clamped) positions, differentiable by autograd."""
-    ((_, x, _),) = _shifted(pos, geom)
+    ((_, x, sites),) = _shifted(pos, geom)
     flat = mesh.reshape(-1, mesh.shape[-1])
     out = 0.0
-    for idx, w, _ in _corner_terms(x, geom.shape):
+    for idx, w, _ in _corner_terms(x, geom.shape, geom.order,
+                                   tie_base=_tie_base(sites, geom)):
         out = out + flat[idx] * w[:, None]
     return out
 
@@ -306,7 +357,7 @@ def read_cic_adjoint_plain(pos, mesh, ct, geom: CICGeometry):
     flat = mesh.reshape(-1, C)
     dmesh = mesh.new_zeros(flat.shape)
     dpos = torch.zeros_like(pos)
-    for idx, w, dw in _corner_terms(x, geom.shape, grad=True):
+    for idx, w, dw in _corner_terms(x, geom.shape, geom.order, True, _tie_base(sites, geom)):
         dmesh = dmesh.index_add(0, idx, ct * w[:, None])
         dpos = dpos + (flat[idx] * ct).sum(-1, keepdim=True) * dw
     if sites is not None:
@@ -321,6 +372,7 @@ def _check_read_inputs(pos, mesh, geom):
     _require(pos.ndim == 2 and pos.shape[1] == 3, f"positions (P, 3), got {tuple(pos.shape)}")
     _require(mesh.ndim == 4 and tuple(mesh.shape[:3]) == geom.shape,
              f"channel-last mesh {geom.shape} + (C,) expected, got {tuple(mesh.shape)}")
+    _require(mesh.shape[-1] >= 1, "a mesh of at least one channel")
     _require(pos.is_contiguous() and mesh.is_contiguous(), "contiguous buffers only")
     _require(mesh.device == pos.device, "positions and mesh on one device")
     _require(geom.n_shift == 1, "a read has one shift")
@@ -328,30 +380,48 @@ def _check_read_inputs(pos, mesh, geom):
              "lattice read: one particle per lattice site, in lattice order")
 
 
+# channels of one K4/K5 launch (kMaxC in paint_cic.cu); more go in several
+MAX_CHANNELS = 4
+
+
+def _channel_chunks(*ts):
+    """The channel-last tensors `ts` cut into chunks of at most MAX_CHANNELS
+    channels, each contiguous."""
+    C = ts[0].shape[-1]
+    return [[t[..., c:c + MAX_CHANNELS].contiguous() for t in ts]
+            for c in range(0, C, MAX_CHANNELS)]
+
+
 def read_cic_kernel(pos, mesh, geom: CICGeometry):
-    """K4 on the card: (P, C) float32 values."""
+    """K4 on the card: (P, C) float32 values, one launch per 4 channels."""
     from montecosmo_tpu_torch.ops import _kernels
 
     _check_read_inputs(pos, mesh, geom)
+    if mesh.shape[-1] > MAX_CHANNELS:
+        return torch.cat([read_cic_kernel(pos, m, geom) for (m,) in _channel_chunks(mesh)], -1)
     lib = _kernels.cuda_library()
     out = torch.empty((pos.shape[0], mesh.shape[-1]), dtype=torch.float32, device=pos.device)
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     code = lib.read_cic_forward(_ptr(pos), _ptr(mesh), ctypes.c_longlong(pos.shape[0]),
                                 ctypes.c_int(mesh.shape[-1]), *_geom_args(geom), _ptr(out),
                                 ctypes.c_void_p(stream))
-    LAUNCHES["read_cic"] += 1
+    LAUNCHES["read_cic", geom.order] += 1
     _launch_status(code, "read_cic")
     return out
 
 
 def read_cic_adjoint_kernel(pos, mesh, ct, geom: CICGeometry):
-    """K5 on the card: (dpos (P, 3), dmesh (X, Y, Z, C))."""
+    """K5 on the card: (dpos (P, 3), dmesh (X, Y, Z, C)), one launch per 4
+    channels (their position gradients summed)."""
     from montecosmo_tpu_torch.ops import _kernels
 
     _check_read_inputs(pos, mesh, geom)
     ct = ct.contiguous()
     _require(ct.dtype == torch.float32 and ct.shape == (pos.shape[0], mesh.shape[-1]),
              f"cotangent {(pos.shape[0], mesh.shape[-1])} float32 expected")
+    if mesh.shape[-1] > MAX_CHANNELS:
+        parts = [read_cic_adjoint_kernel(pos, m, c, geom) for m, c in _channel_chunks(mesh, ct)]
+        return sum(d for d, _ in parts), torch.cat([m for _, m in parts], -1)
     lib = _kernels.cuda_library()
     dmesh = torch.zeros_like(mesh)
     dpos = torch.empty_like(pos)
@@ -359,7 +429,7 @@ def read_cic_adjoint_kernel(pos, mesh, ct, geom: CICGeometry):
     code = lib.read_cic_adjoint(_ptr(pos), _ptr(mesh), _ptr(ct), ctypes.c_longlong(pos.shape[0]),
                                 ctypes.c_int(mesh.shape[-1]), *_geom_args(geom), _ptr(dmesh),
                                 _ptr(dpos), ctypes.c_void_p(stream))
-    LAUNCHES["read_cic_adjoint"] += 1
+    LAUNCHES["read_cic_adjoint", geom.order] += 1
     _launch_status(code, "read_cic_adjoint")
     return dpos, dmesh
 
@@ -395,12 +465,13 @@ def _channels_last(meshes):
     return meshes, False
 
 
-def read_cic(pos, mesh, lattice_shape=None, max_disp=8, clip=False):
-    """CIC read of (X, Y, Z, C) fields at (P, 3) positions: K4 forward, K5
-    backward; with `lattice_shape` and clip=True each position is first
-    clamped to +-max_disp cells around its lattice site, as K1 paints it."""
+def read_cic(pos, mesh, lattice_shape=None, max_disp=8, clip=False, order=2):
+    """B-spline read of `order` of (X, Y, Z, C) fields at (P, 3) positions: K4
+    forward, K5 backward; with `lattice_shape` and clip=True each position is
+    first clamped to +-max_disp cells around its lattice site, as K1 paints
+    it."""
     mesh = mesh.contiguous()
-    geom = cic_geometry(mesh.shape[:3], 1, lattice_shape, max_disp, clip)
+    geom = cic_geometry(mesh.shape[:3], 1, lattice_shape, max_disp, clip, order)
     return _ReadCIC.apply(pos.reshape(-1, 3).contiguous(), mesh, geom)
 
 
@@ -411,13 +482,14 @@ def read_window(pos, meshes, lattice_shape: tuple, order: int = 2, kernel_type="
     mesh, (P, C) for an (X, Y, Z, C) mesh or a list of C meshes.  With
     clip=True positions are clamped to +-max_disp around their sites; without
     it the read is the unclamped one, which equals the JAX window read
-    whenever its displacement contract |pos - site| <= max_disp holds."""
-    _cic_only(order, kernel_type)
+    whenever its displacement contract |pos - site| <= max_disp holds (NGP
+    ties aside: unclamped, they round the position itself)."""
+    _check_window(kernel_type)
     mesh, squeeze = _channels_last(meshes)
     shape, lattice = tuple(mesh.shape[:3]), tuple(int(s) for s in lattice_shape)
     _require(all(m % l == 0 for m, l in zip(shape, lattice)),
              f"mesh {shape} must be a multiple of lattice {lattice}")
-    vals = read_cic(pos, mesh, lattice, max_disp, clip)
+    vals = read_cic(pos, mesh, lattice, max_disp, clip, order)
     return vals[:, 0] if squeeze else vals
 
 
@@ -425,9 +497,9 @@ def read_multi(pos, meshes, order: int = 2, kernel_type="rectangular"):
     """Read several fields at the same (..., 3) positions, unclamped and
     periodic: `meshes` is a list of (X, Y, Z), one (X, Y, Z, C) or one
     (X, Y, Z) (C = 1); returns (..., C)."""
-    _cic_only(order, kernel_type)
+    _check_window(kernel_type)
     mesh, _ = _channels_last(meshes)
-    return read_cic(pos, mesh).reshape(pos.shape[:-1] + (mesh.shape[-1],))
+    return read_cic(pos, mesh, order=order).reshape(pos.shape[:-1] + (mesh.shape[-1],))
 
 
 def read(pos, mesh, order: int = 2, kernel_type="rectangular"):
@@ -510,7 +582,7 @@ def nufft_epilogue_kernel(x, geom: EpilogueGeometry, backward=False):
     out_shape = ((geom.n_shift,) + cshape) if backward else cshape
     dst = torch.empty(out_shape + (2,), dtype=torch.float32, device=x.device)
     _kernels.launch_nufft_epilogue(src, dst, geom, backward)
-    LAUNCHES["nufft_epilogue"] += 1
+    LAUNCHES["nufft_epilogue", geom.order] += 1
     return torch.view_as_complex(dst)
 
 
@@ -546,9 +618,10 @@ def interlace(pos, shape: tuple, weights=1.0, paint_order: int = 2,
     rffts of `interlace_order` diagonally shifted paints, averaged (K1 paints
     every shift in one particle pass), times `scale`, divided by the paint
     window when `deconv` (K3 does all of it in one pass)."""
-    _cic_only(paint_order, kernel_type)
+    _check_window(kernel_type)
     shape = tuple(int(s) for s in shape)
-    meshes = paint_cic(pos, shape, weights, interlace_order, lattice_shape, max_disp, clip)
+    meshes = paint_cic(pos, shape, weights, interlace_order, lattice_shape, max_disp, clip,
+                       paint_order)
     return nufft_epilogue(rfftn(meshes), shape, scale, paint_order if deconv else 0)
 
 

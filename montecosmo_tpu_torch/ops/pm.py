@@ -9,9 +9,9 @@ The N-body loop is a Python loop over steps; with `checkpoint=True` each
 step runs under `torch.utils.checkpoint`, so the backward pass keeps only
 (pos, vel) per step and recomputes the step's paint, FFTs and read.
 
-Parity: `montecosmo_tpu/ops/pm.py:32-275` (pm_forces, delta2_source,
-pm_forces2, lpt, alpha_bullfrog, alpha_fastpm, bullfrog_step, nbody_bf).
-`nbody_bf_lightcone`, `lpt_fpm`, `nbody_rk4` and `nbody_tsit5` are ROADMAP
+Parity: `montecosmo_tpu/ops/pm.py:32-334` (pm_forces, delta2_source,
+pm_forces2, lpt, alpha_bullfrog, alpha_fastpm, bullfrog_step, nbody_bf,
+nbody_bf_lightcone).  `lpt_fpm`, `nbody_rk4` and `nbody_tsit5` are ROADMAP
 Queue A item 11.
 """
 import numpy as np
@@ -35,7 +35,8 @@ def pm_forces(pos, mesh, read_order: int = 2, paint_deconv: bool = False, lattic
            an rfft mesh -> the density itself.
     Poisson solve, the 3 gradient components stacked channel-last, then the
     read: strided slicing at the lattice sites (`sites_shape`, order <= 2),
-    the clamped lattice read (`lattice_shape`), or the plain read.
+    the clamped lattice read (`lattice_shape`), or the plain read.  Paint and
+    read use the B-spline window of `read_order` (1-4).
     """
     if isinstance(mesh, tuple):
         mesh_shape = mesh
@@ -135,6 +136,34 @@ def bullfrog_step(bg: Background, dg, mesh_shape: tuple, paint_order: int = 2,
     return step
 
 
+def _bf_start(bg: Background, init_mesh, pos, a0, a1, n_steps, paint_order, lpt_order,
+              paint_deconv, alpha_fn, lattice_shape, max_disp, sites_shape, init_read_order):
+    """What `nbody_bf` and `nbody_bf_lightcone` share before their steps:
+    (g0, g1, dg, LPT-initialized pos, vel, the BullFrog step function)."""
+    g0 = bg.a2g(a0)
+    g1 = bg.a2g(a1)
+    dg = (g1 - g0) / int(n_steps)
+    dpos, vel = lpt(bg, init_mesh, pos, a0, lpt_order, init_read_order, sites_shape)
+    step = bullfrog_step(bg, dg, ch2rshape(init_mesh.shape), paint_order, paint_deconv,
+                         alpha_fn, lattice_shape, max_disp)
+    return g0, g1, dg, pos + dpos, vel, step
+
+
+def _run_steps(body, state, g0, dg, n_steps, checkpoint):
+    """Yield the state after each of `n_steps` calls state = body(*state, g_i),
+    g_i = g0 + i dg; with `checkpoint` (and autograd on) each call runs under
+    `torch.utils.checkpoint`."""
+    for i in range(int(n_steps)):
+        args = (*state, g0 + dg * i)
+        if checkpoint and torch.is_grad_enabled():
+            # O(1)-per-step reverse-mode memory; the recomputed paint sums
+            # its atomics in another order than the forward's
+            state = torch_checkpoint(body, *args, use_reentrant=False)
+        else:
+            state = body(*args)
+        yield state
+
+
 def nbody_bf(bg: Background, init_mesh, pos, a0=0.0, a1=1.0, n_steps=5, paint_order: int = 2,
              lpt_order: int = 2, paint_deconv=False, snapshots=None, alpha_fn=alpha_bullfrog,
              checkpoint=True, lattice_shape=None, max_disp=8, sites_shape=None,
@@ -151,26 +180,12 @@ def nbody_bf(bg: Background, init_mesh, pos, a0=0.0, a1=1.0, n_steps=5, paint_or
     Returns (pos, vel), each stacked over snapshots on the leading axis.
     """
     n_steps = int(n_steps)
-    g0 = bg.a2g(a0)
-    g1 = bg.a2g(a1)
-    dg = (g1 - g0) / n_steps
-
-    mesh_shape = ch2rshape(init_mesh.shape)
-    dpos, vel = lpt(bg, init_mesh, pos, a0, lpt_order, init_read_order, sites_shape)
-    pos = pos + dpos
-
-    step = bullfrog_step(bg, dg, mesh_shape, paint_order, paint_deconv, alpha_fn,
-                         lattice_shape, max_disp)
+    g0, _, dg, pos, vel, step = _bf_start(bg, init_mesh, pos, a0, a1, n_steps, paint_order,
+                                          lpt_order, paint_deconv, alpha_fn, lattice_shape,
+                                          max_disp, sites_shape, init_read_order)
     keep = not (snapshots is None or isinstance(snapshots, int) and snapshots <= 1)
     states = []
-    for i in range(n_steps):
-        gi = g0 + dg * i
-        if checkpoint and torch.is_grad_enabled():
-            # O(1)-per-step reverse-mode memory; the recomputed paint sums
-            # its atomics in another order than the forward's
-            pos, vel = torch_checkpoint(step, pos, vel, gi, use_reentrant=False)
-        else:
-            pos, vel = step(pos, vel, gi)
+    for pos, vel in _run_steps(step, (pos, vel), g0, dg, n_steps, checkpoint):
         if keep:
             states.append((pos, vel))
 
@@ -184,3 +199,39 @@ def nbody_bf(bg: Background, init_mesh, pos, a0=0.0, a1=1.0, n_steps=5, paint_or
         step_ends = g0 + dg * torch.arange(1, n_steps + 1, device=pos.device)
         idx = torch.argmin((step_ends[None, :] - g_req[:, None]).abs(), -1).tolist()
     return (torch.stack([states[i][0] for i in idx]), torch.stack([states[i][1] for i in idx]))
+
+
+def nbody_bf_lightcone(bg: Background, init_mesh, pos, g_tgt, a0=0.0, a1=1.0, n_steps=5,
+                       paint_order: int = 2, lpt_order: int = 2, paint_deconv=False,
+                       alpha_fn=alpha_bullfrog, checkpoint=True, lattice_shape=None, max_disp=8,
+                       sites_shape=None, init_read_order: int = 1):
+    """BullFrog N-body seen on the light cone: each particle's (pos, vel)
+    interpolated linearly in growth between the two step-boundary states
+    that bracket its crossing growth `g_tgt` (broadcastable to pos[..., :1],
+    clipped to [g0, g1]).
+
+    The hat weights w_i = relu(1 - |g_tgt - g_i| / dg) over the uniform
+    step boundaries g_i are a partition of unity, so the blend is summed
+    inside the step loop (acc += w_i state_i): no stack of snapshots.  With
+    `checkpoint`, each step and its share of the blend run under
+    `torch.utils.checkpoint`, as in `nbody_bf`.
+    Returns (pos, vel), without a snapshot axis.
+    """
+    g0, g1, dg, pos, vel, step = _bf_start(bg, init_mesh, pos, a0, a1, n_steps, paint_order,
+                                           lpt_order, paint_deconv, alpha_fn, lattice_shape,
+                                           max_disp, sites_shape, init_read_order)
+    gt = torch.minimum(torch.maximum(g_tgt, g0), g1)  # jnp.clip
+
+    def hat(gi):
+        return torch.relu(1.0 - (gt - gi).abs() / dg)
+
+    def step_and_blend(pos, vel, acc_pos, acc_vel, gi):
+        pos, vel = step(pos, vel, gi)
+        w = hat(gi + dg)
+        return pos, vel, acc_pos + w * pos, acc_vel + w * vel
+
+    w = hat(g0)
+    state = (pos, vel, w * pos, w * vel)
+    for state in _run_steps(step_and_blend, state, g0, dg, n_steps, checkpoint):
+        pass
+    return state[2], state[3]

@@ -63,10 +63,10 @@ def test_golden_forward_lpt_32():
     golden_forward_32("lpt")
 
 
-def logpdf_and_grad_16(evolution):
+def logpdf_and_grad_16(evolution, **updates):
     """logpdf value and gradient (white_mesh_ and every scalar latent) at the
-    __graft_entry__._small_model(final=16, evolution) configuration, same
-    numpy inputs and the same count_mesh for both packages.
+    __graft_entry__._small_model(final=16, evolution) configuration with
+    `updates`, same numpy inputs and the same count_mesh for both packages.
 
     Tolerances: logpdf relative 1e-5 (a float32 sum of ~10^4 terms taken in
     another order); gradients rtol 1e-3 with atol 1e-4 * max|g_jax| per
@@ -81,15 +81,16 @@ def logpdf_and_grad_16(evolution):
     import jax
     from jax import numpy as jnp
 
-    import __graft_entry__ as ge
+    from montecosmo_tpu import FieldLevelModel as JaxModel, default_config as jax_default
 
-    jm = ge._small_model(final=16, evolution=evolution)
-    conf = dict(default_config)
-    conf.update(final_shape=(16, 16, 16), cell_length=8.0, evolution=evolution, a_obs=0.5,
+    # __graft_entry__._small_model(final=16, evolution), then `updates`
+    conf = dict(final_shape=(16, 16, 16), cell_length=8.0, evolution=evolution, a_obs=0.5,
                 curved_sky=False, box_center=(0.0, 0.0, 1000.0), lik_type="quad_gauss",
                 precond="kaiser", init_oversamp=1.0, evol_oversamp=1.0,
                 ptcl_oversamp=1.0, paint_oversamp=1.0)
-    tm = FieldLevelModel(**conf, device="cpu")
+    conf.update(updates)
+    jm = JaxModel(**{**jax_default, **conf})
+    tm = FieldLevelModel(**{**default_config, **conf}, device="cpu")
     assert (tm.max_disp, tm.paint_lattice) == (jm.max_disp, jm.paint_lattice)
 
     rng = np.random.default_rng(0)

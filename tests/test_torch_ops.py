@@ -221,6 +221,18 @@ def _lattice_particles(lattice, stride, H, seed, n_out=20):
     return (sites + disp).astype(np.float32), w.astype(np.float32)
 
 
+def _with_ties(pos, lattice, stride, rng):
+    """`pos` with a quarter of the particles put exactly on their lattice
+    sites or half a cell off, per axis: the ties of the odd B-spline orders
+    (round half to even) and of the interlace shift of 1/2."""
+    sites = np.stack(np.meshgrid(*[np.arange(l) * s for l, s in zip(lattice, stride)],
+                                 indexing="ij"), -1).reshape(-1, 3).astype(np.float32)
+    pos = pos.copy()
+    tie = rng.choice(len(pos), len(pos) // 4, replace=False)
+    pos[tie] = sites[tie] + rng.choice([-0.5, 0.0, 0.5], (len(tie), 3)).astype(np.float32)
+    return pos
+
+
 def _vjp_both(tfun, jfun, pos, w, g):
     pt, wt = T(pos, True), T(w, True)
     tfun(pt, wt).backward(torch.tensor(g))
@@ -253,8 +265,8 @@ def test_paint_unclamped_matches_scatter_paint():
     g = rng.standard_normal(shape).astype(np.float32)
     tf = lambda p, ww: tpa.paint(p, shape, ww, 2)
     jf = lambda p, ww: jpaint(p, shape, ww, 2)
-    with pytest.raises(NotImplementedError):
-        tpa.paint(T(pos), shape, T(w), 3)
+    with pytest.raises(NotImplementedError, match="Kaiser-Bessel"):
+        tpa.paint(T(pos), shape, T(w), 3, "kaiser_bessel")
     close(tf(T(pos), T(w)), jf(jnp.asarray(pos), jnp.asarray(w)))
     (dpt, dpj), (dwt, dwj) = _vjp_both(tf, jf, pos, w, g)
     close(dwt, dwj)
@@ -369,41 +381,52 @@ def test_set_radial_count_bins():
 
 @pytest.mark.cuda
 def test_kernels_match_plain_on_card():
-    """K1/K2/K3 against their plain versions on the card (skips without one)."""
+    """K1/K2/K3 against their plain versions on the card at B-spline orders
+    1-4, K1/K2 clamped and unclamped, a quarter of the particles on ties
+    (skips without one).  max_disp 5 makes every NGP window base odd (margin
+    5 + 2), so a wrong tie origin would move the tied particles."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: K1/K2 are CUDA and K3 is Triton")
     dev = torch.device("cuda")
-    pos, w = _lattice_particles((16, 16, 16), (2, 2, 2), 4, 15)
+    pos, w = _lattice_particles((16, 16, 16), (2, 2, 2), 5, 15)
+    pos = _with_ties(pos, (16, 16, 16), (2, 2, 2), np.random.default_rng(17))
     pos, w = torch.tensor(pos, device=dev), torch.tensor(w, device=dev)
-    geom = tpa.cic_geometry((32, 32, 32), 2, (16, 16, 16), 4, True)
-    ref = tpa.paint_cic_plain(pos, w, geom)
-    out = tpa.paint_cic_kernel(pos, w, geom)
-    torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
-    g = torch.randn(out.shape, device=dev)
-    dpos, dw = tpa.paint_cic_adjoint_kernel(pos, w, g, geom)
-    rpos, rw = tpa.paint_cic_adjoint_plain(pos, w, g, geom)
-    torch.testing.assert_close(dpos, rpos, rtol=1e-5, atol=1e-5 * float(rpos.abs().max()))
-    torch.testing.assert_close(dw, rw, rtol=1e-5, atol=1e-5 * float(rw.abs().max()))
-    eg = tpa.EpilogueGeometry((32, 32, 32), 2, 1.0, 2)
-    fk = torch.randn((2, 32, 32, 17), dtype=torch.complex64, device=dev)
-    torch.testing.assert_close(tpa.nufft_epilogue_kernel(fk, eg), tpa.nufft_epilogue_plain(fk, eg),
-                               rtol=1e-5, atol=1e-5)
+    for order in (1, 2, 3, 4):
+        for clip in (True, False):
+            geom = tpa.cic_geometry((32, 32, 32), 2, (16, 16, 16), 5, clip, order)
+            ref = tpa.paint_cic_plain(pos, w, geom)
+            out = tpa.paint_cic_kernel(pos, w, geom)
+            torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+            g = torch.randn(out.shape, device=dev)
+            dpos, dw = tpa.paint_cic_adjoint_kernel(pos, w, g, geom)
+            rpos, rw = tpa.paint_cic_adjoint_plain(pos, w, g, geom)
+            torch.testing.assert_close(dpos, rpos, rtol=1e-5,
+                                       atol=1e-5 * float(rpos.abs().max()))
+            torch.testing.assert_close(dw, rw, rtol=1e-5, atol=1e-5 * float(rw.abs().max()))
+        eg = tpa.EpilogueGeometry((32, 32, 32), 2, 1.0, order)
+        fk = torch.randn((2, 32, 32, 17), dtype=torch.complex64, device=dev)
+        torch.testing.assert_close(tpa.nufft_epilogue_kernel(fk, eg),
+                                   tpa.nufft_epilogue_plain(fk, eg), rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda
 def test_read_kernels_match_plain_on_card():
-    """K4/K5 against their plain versions on the card, clamped and unclamped
-    (skips without one).  K5's mesh gradient sums with atomics in run-dependent
-    order, hence the 1e-5 relative tolerance on it as on the values."""
+    """K4/K5 against their plain versions on the card at B-spline orders 1-4,
+    clamped and unclamped, with ties as above, for C = 3 and for C = 6 (two
+    launches of at most 4 channels) (skips without one).  K5's mesh gradient
+    sums with atomics in run-dependent order, hence the 1e-5 relative
+    tolerance on it as on the values."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: K4/K5 are CUDA")
     dev = torch.device("cuda")
-    pos, _ = _lattice_particles((16, 16, 16), (2, 2, 2), 4, 16)
+    pos, _ = _lattice_particles((16, 16, 16), (2, 2, 2), 5, 16)
+    pos = _with_ties(pos, (16, 16, 16), (2, 2, 2), np.random.default_rng(18))
     pos = torch.tensor(pos, device=dev)
-    mesh = torch.randn((32, 32, 32, 3), device=dev)
-    ct = torch.randn((pos.shape[0], 3), device=dev)
-    for geom in (tpa.cic_geometry((32, 32, 32), 1, (16, 16, 16), 4, True),
-                 tpa.cic_geometry((32, 32, 32), 1)):
+    for C, order, clip in [(3, o, c) for o in (1, 2, 3, 4) for c in (True, False)] + [
+            (6, 3, True)]:
+        geom = tpa.cic_geometry((32, 32, 32), 1, (16, 16, 16), 5, clip, order)
+        mesh = torch.randn((32, 32, 32, C), device=dev)
+        ct = torch.randn((pos.shape[0], C), device=dev)
         ref = tpa.read_cic_plain(pos, mesh, geom)
         out = tpa.read_cic_kernel(pos, mesh, geom)
         torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
