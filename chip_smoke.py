@@ -11,17 +11,20 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. hold K1 (paint), K2 (paint adjoint) and K3 (NUFFT epilogue) against
      their plain PyTorch versions at 32^3 and at the 128^3 flagship shapes
      (224^3 paint mesh, 11.24M particles): values and gradients, with the
-     max relative errors, both times and the bound; at B-spline order 2
+     max relative errors (K3's element by element), both times and the bound; at B-spline order 2
      (CIC) clamped to the lattice sites, then at orders 1, 3 and 4 (NGP,
-     TSC, PCS) clamped and unclamped, a quarter of the particles on ties
-     (exactly on their sites or half a cell off, odd NGP window bases);
-     grid_sample(mode='nearest') of the cotangents is K2's NGP yardstick;
-  3b. the same for K4 (C-channel B-spline read) and K5 (its adjoint),
-     clamped and unclamped, at 32^3 and 224^3 with C = 3, at orders 2, 1, 3
-     and 4; at order 2 K5 is held against autograd of K4's plain version;
-     grid_sample (trilinear, and nearest at order 1, on a wrap-padded mesh:
-     the unclamped read) and its backward are the library yardsticks; then
-     K4/K5 on C = 6 channels (two launches each);
+     TSC, PCS), then with the Kaiser-Bessel window of support 1-4 (at the
+     flagship render's cutoff optim_kcut(192/224)), clamped and unclamped,
+     a quarter of the particles on ties (exactly on their sites or half a
+     cell off per axis, odd NGP window bases); grid_sample(mode='nearest')
+     of the cotangents is K2's NGP yardstick;
+  3b. the same for K4 (C-channel read) and K5 (its adjoint), clamped and
+     unclamped, at 32^3 and 224^3 with C = 3, at B-spline orders 2, 1, 3
+     and 4 and Kaiser-Bessel supports 1-4; at B-spline order 2 K5 is held
+     against autograd of K4's plain version; grid_sample (trilinear, and
+     nearest at order 1, on a wrap-padded mesh: the unclamped read) and its
+     backward are the B-spline library yardsticks; then K4/K5 on C = 6
+     channels (two launches each);
   4. the golden 32^3 2LPT forward (tests/golden/golden_32.npz) on the card;
   4b. the golden 32^3 BullFrog N-body forward on the card;
   4c. the 32^3 BullFrog light cone (a_obs=None) on the golden white mesh at
@@ -31,6 +34,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      versions is held at phase 4's, and the CPU with the white mesh moved by
      one ulp is printed); at NGP and PCS also one value+grad on the card,
      whose launches are those orders' counts;
+  4d. the 32^3 curved-sky 2LPT light cone with the Kaiser-Bessel window of
+     support 4 on the golden white mesh, card against CPU at phase 4's
+     tolerances; one value+grad on the card at supports 1-3 (their
+     launches); FieldLevelModel(**default_config) (64^3, curved sky, light
+     cone) value+grad on the card and on the CPU, finite and agreeing;
   5. the flagship configuration of bench.py (128^3, 2LPT, Lagrangian bias,
      RSD, quad-Gaussian likelihood, Kaiser preconditioning, float32) on the
      card: draw the observation with `predict`, then 2 warm-up and 5 timed
@@ -40,9 +48,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      paints and reads at 224^3): K1, K2, K3, K4 and K5 must each launch;
   5c. the same N-body flagship on the light cone (a_obs=None) at TSC
      (paint_order=3): K1-K5 must each launch at order 3;
-  6. last lines: the kernels JSON (one row per kernel and order; launches
-     from phase 5b at CIC, 5c at TSC, 4c at NGP and PCS), then
-     {"ok": true, "device": {...}}.
+  5d. the 2LPT flagship on the curved sky and the light cone (curved_sky=True,
+     a_obs=None) with the Kaiser-Bessel window of support 4: K1, K2 and K3
+     must each launch at Kaiser-Bessel support 4;
+  6. last lines: the kernels JSON (one row per kernel, window and order;
+     launches from phase 5b at CIC, 5c at TSC, 4c at NGP and PCS, 5d at
+     Kaiser-Bessel 4, 4d at Kaiser-Bessel 1-3; K4/K5 run on no
+     Kaiser-Bessel path of the model, 0), then {"ok": true, "device": {...}}.
 """
 import json
 import subprocess
@@ -58,8 +70,10 @@ QUICK = "--quick" in sys.argv
 TOL = 1e-5  # max |kernel - plain| / max |plain|: float32 sums in another order
 # (K1's and K5's atomics add in a run-dependent order; the same bound holds)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published, at 700 W
-ORDERS = (2, 1, 3, 4)      # B-spline orders: CIC (the earlier rows) first
+ORDERS = (2, 1, 3, 4)      # window orders: CIC (the earlier rows) first
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
+KB = "kaiser_bessel"
+KB_OVERSAMP = 192 / 224    # the flagship render's window factor (nufft, 192^3 init, 224^3 paint)
 
 
 def log(*a):
@@ -93,6 +107,12 @@ def rel_err(a, b):
     err = float((a - b).abs().max())
     # an NGP position gradient is exactly 0 in both: its relative error is 0
     return err, err / max(float(b.abs().max()), 1e-30)
+
+
+def elem_err(a, b, scale):
+    """(max |a - b|, max |a - b| / scale) element by element."""
+    d = (a - b).abs()
+    return float(d.max()), float((d / scale).max())
 
 
 # ----------------------------------------------------------------- phase 1
@@ -158,18 +178,28 @@ def ops_scale(order):
     return order**3 / 8
 
 
-def check_kernels(lattice, stride, H, tag, reps, order=2):
-    """K1, K2 at `order` (clamped to the sites, and at orders other than
-    CIC also unclamped), and K3 deconvolving at `order`."""
+def _suffix(order, kernel):
+    """Row-name suffix: none at CIC, `_order{P}` at the other B-splines,
+    `_kb_order{P}` for the Kaiser-Bessel window."""
+    if kernel == KB:
+        return f"_kb_order{order}"
+    return "" if order == 2 else f"_order{order}"
+
+
+def check_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangular"):
+    """K1, K2 at `order` of `kernel` (clamped to the sites and, except at
+    B-spline CIC, also unclamped), and K3 deconvolving at `order`."""
     from montecosmo_tpu_torch.ops import paint as P
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    # ties at the orders other than CIC, whose inputs stay as they were
-    geom, pos, w = _particles(lattice, stride, H, gen, dev, ties=order != 2)
-    geom = P.cic_geometry(geom.shape, 2, lattice, H, True, order)
+    # ties but at B-spline CIC, whose inputs stay as they were
+    kb = kernel == KB
+    plain_cic = order == 2 and not kb
+    geom, pos, w = _particles(lattice, stride, H, gen, dev, ties=not plain_cic)
+    geom = P.cic_geometry(geom.shape, 2, lattice, H, True, order, kernel, KB_OVERSAMP)
     res = {}
-    sfx = "" if order == 2 else f"_order{order}"
+    sfx = _suffix(order, kernel)
 
     # K1 forward
     ker = P.paint_cic_kernel(pos, w, geom)
@@ -177,12 +207,13 @@ def check_kernels(lattice, stride, H, tag, reps, order=2):
     k1 = rel_err(ker, ref)
     t_k1 = cuda_ms(lambda: P.paint_cic_kernel(pos, w, geom), reps)
     t_p1 = cuda_ms(lambda: P.paint_cic_plain(pos, w, geom), max(2, reps // 5))
-    # K2 adjoint: against autograd of the plain paint at CIC; at the other
-    # orders against K2's plain version (held against autograd on the CPU,
-    # and lighter on memory than autograd through order^3 corners)
+    # K2 adjoint: against autograd of the plain paint at B-spline CIC; else
+    # against K2's plain version (held against autograd on the CPU, lighter
+    # on memory than autograd through order^3 corners, and at the support
+    # edge of a tied Kaiser-Bessel window the finite limit)
     g = torch.randn(ker.shape, generator=gen, device=dev)
     dpos, dw = P.paint_cic_adjoint_kernel(pos, w, g, geom)
-    if order == 2:
+    if plain_cic:
         pr, wr = pos.clone().requires_grad_(True), w.clone().requires_grad_(True)
         rpos, rw = torch.autograd.grad((P.paint_cic_plain(pr, wr, geom) * g).sum(), (pr, wr))
     else:
@@ -191,23 +222,24 @@ def check_kernels(lattice, stride, H, tag, reps, order=2):
     t_k2 = cuda_ms(lambda: P.paint_cic_adjoint_kernel(pos, w, g, geom), reps)
     t_p2 = cuda_ms(lambda: P.paint_cic_adjoint_plain(pos, w, g, geom), max(2, reps // 5))
     lib2 = None
-    if order != 2:
-        geom_u = P.cic_geometry(geom.shape, 2, order=order)
+    if not plain_cic:
+        geom_u = P.cic_geometry(geom.shape, 2, order=order, kernel_type=kernel,
+                                oversamp=KB_OVERSAMP)
         e1u = rel_err(P.paint_cic_kernel(pos, w, geom_u), P.paint_cic_plain(pos, w, geom_u))
         rpos, rw = P.paint_cic_adjoint_plain(pos, w, g, geom_u)
         dpk, dwk = P.paint_cic_adjoint_kernel(pos, w, g, geom_u)
         e2u = rel_err_pair(dpk, rpos, dwk, rw)
-        log(f"# {tag} order {order} unclamped: paint_cic max_rel_err {e1u[1]:.3e}, "
+        log(f"# {tag} {kernel} order {order} unclamped: paint_cic max_rel_err {e1u[1]:.3e}, "
             f"paint_cic_adjoint max_rel_err {e2u[1]:.3e}; kernel "
             f"{cuda_ms(lambda: P.paint_cic_kernel(pos, w, geom_u), reps):.3f} ms, adjoint "
             f"{cuda_ms(lambda: P.paint_cic_adjoint_kernel(pos, w, g, geom_u), reps):.3f} ms")
-        assert max(e1u[1], e2u[1]) <= TOL, f"unclamped order {order} disagrees at {tag}"
-        if order == 1:
+        assert max(e1u[1], e2u[1]) <= TOL, f"unclamped {kernel} {order} disagrees at {tag}"
+        if order == 1 and not kb:
             lib2 = _nearest_paint_adjoint(pos, g, dwk, tag, reps)
     # K3 forward and backward
     from montecosmo_tpu_torch.ops.hermitian import r2chshape
 
-    eg = P.EpilogueGeometry(geom.shape, 2, float((7 / 6) ** 3), order)
+    eg = P.EpilogueGeometry(geom.shape, 2, float((7 / 6) ** 3), order, geom.kcut)
     cshape = (2,) + r2chshape(geom.shape)
     fk = torch.complex(torch.randn(cshape, generator=gen, device=dev),
                        torch.randn(cshape, generator=gen, device=dev))
@@ -219,23 +251,37 @@ def check_kernels(lattice, stride, H, tag, reps, order=2):
     # a real loss L = Re<gc, out>: torch's gradient convention for complex z
     (gref,) = torch.autograd.grad((torch.view_as_real(plain) * torch.view_as_real(gc)).sum(), fr)
     gk = P.nufft_epilogue_kernel(gc, eg, backward=True)
-    e_f, e_b = rel_err(out, plain.detach()), rel_err(gk, gref)
+    # K3 element by element, each error over the float32 scale of that
+    # element's sum, sum_s |F_s| |c(k)| (the backward's one term |g| |c(k)|),
+    # c(k) = scale / (n W(k)): near a zero of the KB window's transform 1/W
+    # is ~1e9 times its typical value, and an error over max|plain| would
+    # see only those modes
+    mag = [f.abs() for f in P._epilogue_factors(eg, dev)]
+    e_f = elem_err(out, plain.detach(), sum(m * fk[s].abs() for s, m in enumerate(mag)))
+    e_b = elem_err(gk, gref, torch.stack([m * gc.abs() for m in mag]))
+    log(f"# {tag} nufft_epilogue{sfx}: over max|plain|: forward "
+        f"{rel_err(out, plain.detach())[1]:.3e}, backward {rel_err(gk, gref)[1]:.3e}; "
+        f"max|plain| {float(plain.detach().abs().max()):.3e}")
     k3 = (max(e_f[0], e_b[0]), max(e_f[1], e_b[1]))
     t_k3 = cuda_ms(lambda: P.nufft_epilogue_kernel(fk, eg), reps)
     t_p3 = cuda_ms(lambda: P.nufft_epilogue_plain(fk, eg), reps)
 
     # bounds: bytes of the inputs read once and outputs written once;
-    # operations counted per particle (or rfft cell) from the kernel source
+    # operations counted per particle (or rfft cell) from the kernel source,
+    # K3's 3 sinh-or-sin per cell included; the Kaiser-Bessel weights' Bessel
+    # evaluations are counted as no operations (their library count is not
+    # known here), so at KB the bound is a lower one
     n_p, n_s, n_c = pos.shape[0], geom.n_shift, int(np.prod(geom.shape))
     n_k = int(np.prod(cshape))
-    b1 = bound(16 * n_p + 4 * n_s * n_c, 50 * n_s * n_p * ops_scale(order))
-    b2 = bound(16 * n_p + 4 * n_s * n_c + 16 * n_p, 150 * n_s * n_p * ops_scale(order))
-    b3 = bound(8 * n_k + 8 * n_k // n_s, 10 * n_k)
+    b1 = bound(16 * n_p + 4 * n_s * n_c, n_s * n_p * 50 * ops_scale(order))
+    b2 = bound(16 * n_p + 4 * n_s * n_c + 16 * n_p, n_s * n_p * 150 * ops_scale(order))
+    b3 = bound(8 * n_k + 8 * n_k // n_s, (70 if kb else 10) * n_k)
     for name, (ea, er), tk, tp, (bm, bb), lib in (
             ("paint_cic", k1, t_k1, t_p1, b1, None),
             ("paint_cic_adjoint", k2, t_k2, t_p2, b2, lib2),
             ("nufft_epilogue", k3, t_k3, t_p3, b3, None)):
-        log(f"# {tag} {name + sfx:25s} max_abs_err {ea:.3e} max_rel_err {er:.3e}  "
+        kind = " (element by element)" if name == "nufft_epilogue" else ""
+        log(f"# {tag} {name + sfx:25s} max_abs_err {ea:.3e} max_rel_err {er:.3e}{kind}  "
             f"kernel {tk:.3f} ms  plain {tp:.3f} ms  bound {bm:.4f} ms ({bb})  library {lib} ms")
         assert er <= TOL, f"{name}{sfx} disagrees with its plain version at {tag}: {er:.3e} > {TOL}"
         res[name + sfx] = {"max_abs_err": ea, "ms": tk, "plain_ms": tp, "bound_ms": bm,
@@ -283,15 +329,18 @@ def _grid_sample_read(pos, mesh):
     return inp, grid.reshape(1, -1, 1, 1, 3).contiguous()
 
 
-def check_read_kernels(lattice, stride, H, tag, reps, order=2):
+def check_read_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangular"):
     from montecosmo_tpu_torch.ops import paint as P
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
-    geom_c, pos, _ = _particles(lattice, stride, H, gen, dev, ties=order != 2)
-    geom_c = P.cic_geometry(geom_c.shape, 1, lattice, H, True, order)
-    geom_u = P.cic_geometry(geom_c.shape, 1, order=order)
-    sfx = "" if order == 2 else f"_order{order}"
+    kb = kernel == KB
+    plain_cic = order == 2 and not kb
+    geom_c, pos, _ = _particles(lattice, stride, H, gen, dev, ties=not plain_cic)
+    geom_c = P.cic_geometry(geom_c.shape, 1, lattice, H, True, order, kernel, KB_OVERSAMP)
+    geom_u = P.cic_geometry(geom_c.shape, 1, order=order, kernel_type=kernel,
+                            oversamp=KB_OVERSAMP)
+    sfx = _suffix(order, kernel)
     C = 3
     mesh = torch.randn(geom_c.shape + (C,), generator=gen, device=dev)
     ct = torch.randn((pos.shape[0], C), generator=gen, device=dev)
@@ -299,7 +348,7 @@ def check_read_kernels(lattice, stride, H, tag, reps, order=2):
     for kind, geom in (("clamped", geom_c), ("unclamped", geom_u)):
         k4 = rel_err(P.read_cic_kernel(pos, mesh, geom), P.read_cic_plain(pos, mesh, geom))
         dpos, dmesh = P.read_cic_adjoint_kernel(pos, mesh, ct, geom)
-        if order == 2:
+        if plain_cic:
             pr, mr = pos.clone().requires_grad_(True), mesh.clone().requires_grad_(True)
             rpos, rmesh = torch.autograd.grad((P.read_cic_plain(pr, mr, geom) * ct).sum(),
                                               (pr, mr))
@@ -322,7 +371,7 @@ def check_read_kernels(lattice, stride, H, tag, reps, order=2):
     import torch.nn.functional as F
 
     lib = {"read_cic": None, "read_cic_adjoint": None}
-    if order in (1, 2):
+    if order in (1, 2) and not kb:
         inp, grid = _grid_sample_read(pos, mesh)
         inp.requires_grad_(True)
         grid.requires_grad_(True)
@@ -346,9 +395,10 @@ def check_read_kernels(lattice, stride, H, tag, reps, order=2):
 
     n_p, n_c = pos.shape[0], int(np.prod(geom_c.shape)) * C
     k = ops_scale(order)
-    bounds = {"read_cic": bound(12 * n_p + 4 * n_c + 4 * C * n_p, (25 + 16 * C) * n_p * k),
+    # as K1/K2's: the Kaiser-Bessel Bessel evaluations count no operations
+    bounds = {"read_cic": bound(12 * n_p + 4 * n_c + 4 * C * n_p, (25 + 16 * C) * k * n_p),
               "read_cic_adjoint": bound(12 * n_p + 4 * n_c + 4 * C * n_p + 4 * n_c + 12 * n_p,
-                                        (120 + 64 * C) * n_p * k)}
+                                        (120 + 64 * C) * k * n_p)}
     res = {}
     for name in ("read_cic", "read_cic_adjoint"):
         bm, bb = bounds[name]
@@ -384,17 +434,20 @@ def check_wide_read():
     assert max(e4[1], e5[1]) <= TOL, "the 6-channel read disagrees with its plain version"
 
 
+WINDOWS = [(k, o) for k in ("rectangular", KB) for o in ORDERS]
+
+
 def phase_kernels():
-    for order in ORDERS:  # max_disp 5: odd NGP window bases (9 at 224^3)
-        check_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order)
-        check_read_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order)
+    for kernel, order in WINDOWS:  # max_disp 5: odd NGP window bases (9 at 224^3)
+        check_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order, kernel)
+        check_read_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order, kernel)
     check_wide_read()
     if QUICK:
         return None
     res = {}
-    for order in ORDERS:
-        res |= check_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", 10, order)
-        res |= check_read_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", 10, order)
+    for kernel, order in WINDOWS:
+        res |= check_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", 10, order, kernel)
+        res |= check_read_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", 10, order, kernel)
     return res
 
 
@@ -514,8 +567,6 @@ def phase_lightcone_32(order):
     """The 32^3 N-body light cone at B-spline `order`, on the card against
     the CPU; at orders other than TSC (whose launches phase 5c counts) also
     one value+grad on the card, counted from 0.  Returns its launches."""
-    from montecosmo_tpu_torch.ops import paint as P
-
     lc = dict(a_obs=None, paint_order=order)
     m, p, pred = golden_predict("cuda", "nbody", **lc)
     _, _, ref = golden_predict("cpu", "nbody", **lc)
@@ -531,19 +582,84 @@ def phase_lightcone_32(order):
         ngp_witnesses(lc)
     if order == 3:
         return {}
-    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
-    P.reset_launches()
-    lp = m.logpdf({**leaves, "count_mesh": pred["count_mesh"]})
-    lp.backward()
-    torch.cuda.synchronize()
-    launches = P.launches_at(order)
-    log(f"# 32^3 light cone order {order} value+grad on the card: logpdf {lp.item():.6e}; "
+    lp, launches = _value_and_grad_launches(m, p, {"count_mesh": pred["count_mesh"]}, "bspline")
+    log(f"# 32^3 light cone order {order} value+grad on the card: logpdf {lp:.6e}; "
         f"launches at order {order} {launches}")
-    assert np.isfinite(lp.item()) and all(bool(torch.isfinite(v.grad).all())
-                                          for v in leaves.values())
     missing = [k for k in SOURCES if not launches.get(k)]
     assert not missing, f"order-{order} kernels of the light cone never ran: {missing}"
     return launches
+
+
+def _value_and_grad_launches(m, p, obs, window):
+    """One logpdf value+grad of `m` on the card, counted from 0: (logpdf,
+    launches at the model's order of `window`)."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    P.reset_launches()
+    lp = m.logpdf({**leaves, **obs})
+    lp.backward()
+    torch.cuda.synchronize()
+    assert np.isfinite(lp.item()) and all(bool(torch.isfinite(v.grad).all())
+                                          for v in leaves.values()), "non-finite logpdf or gradient"
+    return lp.item(), P.launches_at(m.paint_order, window)
+
+
+def phase_curved_32():
+    """Phase 4d: the 32^3 curved-sky 2LPT light cone with the Kaiser-Bessel
+    window of support 4 on the golden white mesh, card against CPU at phase
+    4's tolerances; one value+grad on the card at supports 1-3, whose
+    launches are those supports' counts (4's come from phase 5d); then the
+    JAX package's own default configuration (64^3, curved sky, light cone,
+    observer at the box center) on the card and on the CPU.  Returns the
+    launches at supports 1-3."""
+    lc = dict(a_obs=None, curved_sky=True, kernel_type=KB)
+    m, p, pred = golden_predict("cuda", "lpt", paint_order=4, **lc)
+    _, _, ref = golden_predict("cpu", "lpt", paint_order=4, **lc)
+    check_transfer(pred["gxy_mesh"].cpu().numpy(), ref["gxy_mesh"].numpy(),
+                   "32^3 curved-sky 2LPT light cone, Kaiser-Bessel support 4, card vs CPU")
+    launches = {}
+    for order in (1, 2, 3):
+        m, p, pred = golden_predict("cuda", "lpt", paint_order=order, **lc)
+        lp, launches[order] = _value_and_grad_launches(
+            m, p, {"count_mesh": pred["count_mesh"]}, "kb")
+        log(f"# 32^3 curved-sky light cone, Kaiser-Bessel support {order}, value+grad on the "
+            f"card: logpdf {lp:.6e}; launches {launches[order]}")
+        missing = [k for k in LPT_KERNELS if not launches[order].get(k)]
+        assert not missing, f"Kaiser-Bessel support-{order} kernels never ran: {missing}"
+    default_config_both()
+    return launches
+
+
+def default_config_both():
+    """FieldLevelModel(**default_config) value+grad on the card and on the
+    CPU, from one white mesh and the card's count mesh: both finite, the
+    logpdfs within 1e-4 relative (float32 sums of ~10^6 terms in another
+    order)."""
+    from montecosmo_tpu_torch import FieldLevelModel, default_config
+
+    white, obs, lps = None, None, {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        m = FieldLevelModel(**default_config, device=dev)
+        p = m.reparam({k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True)
+        if white is None:
+            white = np.random.default_rng(0).standard_normal(m.init_shape).astype(np.float32)
+        p["white_mesh_"] = torch.as_tensor(white, device=dev)
+        if obs is None:
+            obs = m.predict(seed=1, samples=p, hide_samp=False)["count_mesh"]
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+        lp = m.logpdf({**leaves, "count_mesh": obs.to(dev)})
+        lp.backward()
+        lps[dev] = lp.item()
+        assert np.isfinite(lps[dev]) and all(bool(torch.isfinite(v.grad).all())
+                                             for v in leaves.values()), f"default_config on {dev}"
+        log(f"# default_config ({m.final_shape} final, curved sky {m.curved_sky}, a_obs "
+            f"{m.a_obs}, box_center {m.box_center.tolist()}) value+grad on {dev}: logpdf "
+            f"{lps[dev]:.6e}, {time.perf_counter() - t0:.2f} s with set-up")
+    rel = abs(lps["cuda"] - lps["cpu"]) / abs(lps["cpu"])
+    log(f"# default_config logpdf, card vs CPU: relative difference {rel:.3e} (limit 1e-4)")
+    assert rel <= 1e-4, "default_config: the card and the CPU disagree"
 
 
 # ----------------------------------------------------------------- phase 5
@@ -560,8 +676,8 @@ def bench_model(final=128, evolution="lpt", **updates):
 
 def phase_bench(evolution, kernels, tag=None, **updates):
     """The flagship value+grad with `evolution` and the config `updates`;
-    every kernel in `kernels` must launch at the model's paint order.
-    Returns the launch counts of the 7 evaluations at that order."""
+    every kernel in `kernels` must launch at the model's paint order and
+    window.  Returns the launch counts of the 7 evaluations there."""
     from montecosmo_tpu_torch.ops import paint as P
     from montecosmo_tpu_torch.ops.background import Background, get_cosmology
 
@@ -578,8 +694,9 @@ def phase_bench(evolution, kernels, tag=None, **updates):
         f"evol {m.evol_shape} paint {m.paint_shape} steps "
         f"{m.nbody_n_steps if evolution == 'nbody' else 0} "
         f"particles {int(np.prod(m.ptcl_shape))} max_disp {m.max_disp} "
-        f"lattice {m.paint_lattice} rbins {m.n_rbins} a_obs {m.a_obs} paint_order "
-        f"{m.paint_order}; set-up {time.perf_counter() - t0:.2f} s")
+        f"lattice {m.paint_lattice} rbins {m.n_rbins} a_obs {m.a_obs} curved_sky "
+        f"{m.curved_sky} paint_order {m.paint_order} kernel_type {m.kernel_type}; set-up "
+        f"{time.perf_counter() - t0:.2f} s")
 
     leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
 
@@ -602,7 +719,8 @@ def phase_bench(evolution, kernels, tag=None, **updates):
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t)
         values.append(lp.item())
-    launches = P.launches_at(m.paint_order)
+    window = "kb" if m.kernel_type == KB else "bspline"
+    launches = P.launches_at(m.paint_order, window)
     peak = torch.cuda.max_memory_allocated()
     grads_ok = all(bool(torch.isfinite(v.grad).all()) for v in leaves.values())
     log(f"# bench ({tag}) value+grad: ms/eval {[round(1e3 * t, 3) for t in times]} "
@@ -610,7 +728,7 @@ def phase_bench(evolution, kernels, tag=None, **updates):
         f"evals/s {1 / np.median(times):.4f} (median); logpdf {values[-1]:.6e}; "
         f"peak memory {peak / 2**30:.3f} GiB; launches in 7 evals {launches}")
     assert np.all(np.isfinite(values)) and grads_ok, "non-finite logpdf or gradient"
-    log(f"# ({tag}) launches per value+grad at order {m.paint_order}: "
+    log(f"# ({tag}) launches per value+grad at {window} order {m.paint_order}: "
         f"{ {k: v / 7 for k, v in launches.items()} }")
     missing = [k for k in kernels if not launches.get(k)]
     assert not missing, f"kernels of the {tag} path never ran: {missing} ({launches})"
@@ -717,6 +835,13 @@ SOURCES = {
 # (git show d9c3c2e^:montecosmo_tpu/ops/paint_window_pallas.py)
 WINDOW_PALLAS = {"paint_cic": "d9c3c2e^:montecosmo_tpu/ops/paint_window_pallas.py:52",
                  "paint_cic_adjoint": "d9c3c2e^:montecosmo_tpu/ops/paint_window_pallas.py:165"}
+# the Kaiser-Bessel windows, which that Pallas kernel handed back to XLA
+# (its :98-102): the XLA window weights, the read's, and the deconvolution
+KB_REPLACES = {"paint_cic": "montecosmo_tpu/ops/paint_window.py:54",
+               "paint_cic_adjoint": "montecosmo_tpu/ops/paint_window.py:54",
+               "nufft_epilogue": "montecosmo_tpu/ops/fourier.py:238",
+               "read_cic": "montecosmo_tpu/ops/paint_window.py:378",
+               "read_cic_adjoint": "montecosmo_tpu/ops/paint_window.py:395"}
 LPT_KERNELS = ("paint_cic", "paint_cic_adjoint", "nufft_epilogue")
 PROFILES = []
 
@@ -730,20 +855,28 @@ def main():
         return
     phase_golden("lpt")
     phase_golden("nbody")
-    launches = {order: phase_lightcone_32(order) for order in (3, 1, 4)}
+    launches = {("rectangular", order): phase_lightcone_32(order) for order in (3, 1, 4)}
+    launches |= {(KB, order): n for order, n in phase_curved_32().items()}
     phase_bench("lpt", LPT_KERNELS)
-    launches[2] = phase_bench("nbody", tuple(SOURCES))
-    launches[3] = phase_bench("nbody", tuple(SOURCES), "nbody light cone, TSC", a_obs=None,
-                              paint_order=3)
+    launches["rectangular", 2] = phase_bench("nbody", tuple(SOURCES))
+    launches["rectangular", 3] = phase_bench("nbody", tuple(SOURCES), "nbody light cone, TSC",
+                                             a_obs=None, paint_order=3)
+    # the flagship on the JAX package's default sky: curved, the light cone
+    launches[KB, 4] = phase_bench("lpt", LPT_KERNELS, "curved-sky light cone, Kaiser-Bessel 4",
+                                  a_obs=None, curved_sky=True, kernel_type=KB, paint_order=4)
     for run in PROFILES:
         run()
     kernels = []
-    for order in ORDERS:
-        sfx = "" if order == 2 else f"_order{order}"
+    for kernel, order in WINDOWS:
+        sfx = _suffix(order, kernel)
         for n, (r, s, rep) in SOURCES.items():
-            rep = rep if order == 2 else WINDOW_PALLAS.get(n, rep)
+            if kernel == KB:
+                rep = KB_REPLACES[n]
+            elif order != 2:
+                rep = WINDOW_PALLAS.get(n, rep)
             kernels.append({"name": n + sfx, "route": r, "source": s, "replaces": rep,
-                            "order": order, "launches": launches[order][n], **res[n + sfx]})
+                            "window": "kb" if kernel == KB else "bspline", "order": order,
+                            "launches": launches[kernel, order].get(n, 0), **res[n + sfx]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

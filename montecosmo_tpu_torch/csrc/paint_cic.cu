@@ -1,7 +1,9 @@
-// Interlaced B-spline paint (K1) and its adjoint (K2) for lattice-ordered
-// particles; the C-channel B-spline read (K4) and its adjoint (K5).  Every
-// kernel is a template on the B-spline order P = 1 (NGP), 2 (CIC), 3 (TSC)
-// or 4 (PCS); the file and kernel names come from the CIC (order-2) version.
+// Interlaced paint (K1) and its adjoint (K2) for lattice-ordered particles;
+// the C-channel read (K4) and its adjoint (K5).  Every kernel is a template
+// on its window W: the B-spline BSpline<P> of order P = 1 (NGP), 2 (CIC),
+// 3 (TSC) or 4 (PCS), or the Kaiser-Bessel window KaiserBessel<P> of
+// support P = 1-4; the file and kernel names come from the CIC (order-2)
+// version.
 //
 // Replaces, on the model's main path, the XLA window paint
 // montecosmo_tpu/ops/paint_window.py::paint_window (with _clip_to_sites and
@@ -17,12 +19,26 @@
 // Per axis, the base cell c0 is rint(x) for odd P (round half to even, as
 // jnp.round) and floor(x) for even P; the P cells c0 - (P-1)/2 + k,
 // k = 0..P-1, get the weights bspline(cell - x, P) (ops/fourier.py), and
-// the P^3 products go to the periodic cells of mesh s.  Without a lattice
+// the P^3 products go to the periodic cells of mesh s (the Kaiser-Bessel
+// window: the same cells, weights w(c - x) below).  Without a lattice
 // there is no clamp (the plain scatter of ops/paint.py::paint).  NGP ties:
 // paint_window rounds x - b, b its lattice group's window base, so a
 // half-integer x goes to the neighbour of b's parity; with the group span B
 // and margin M of that geometry (Geom::B, M) the kernels do the same, and
 // without them (B = 0) they round x itself, as ops/paint.py::paint does.
+//
+// Kaiser-Bessel (ops/fourier.py::kaiser_bessel, Barnett et al. 2019; the
+// JAX package's kernel_type='kaiser_bessel', which its Pallas window kernel
+// handed back to XLA): with u = 2 (c - x) / P and z = beta sqrt(max(1 - u^2,
+// 0)), w = i0(z) / norm and dw/dx = (i1(z) / z) beta^2 u (2 / P) / norm,
+// i1(z) / z taken as its limit 1/2 at z = 0, where the JAX window path's
+// autodiff gives NaN; beta = kcut P / 2 and 1 / norm = beta / (P sinh(beta))
+// come from the host (Geom).  KB is non-zero at its support edge, and the
+// stencil cells lie within |u| <= 1, so a u of 1 + eps gives the edge value.
+// As in the JAX window path, the clamped window of support 1 is the one-hot
+// NGP whatever W is.  A KB weight costs one cyl_bessel_i0f (the adjoints
+// also one cyl_bessel_i1f) per cell and axis, computed once per particle
+// and shift: 3P Bessel evaluations against P^3 corners.
 //
 // What bounds it on an H100: K1 is P^3 n float atomics per particle
 // (11.24M particles x 2 shifts: 22M at NGP, 180M at CIC, 607M at TSC,
@@ -65,7 +81,8 @@
 //
 // Plain C interface, loaded with ctypes; each entry point returns
 // cudaGetLastError() of its launch (cudaErrorInvalidValue for an order
-// outside 1-4, or for K4/K5 a channel count outside 1-4).
+// outside 1-4, or for K4/K5 a channel count outside 1-4).  The window is
+// chosen at run time among the 8 instantiations of each kernel.
 #include <cuda_runtime.h>
 #include <cstdint>
 
@@ -80,6 +97,8 @@ struct Geom {
   int n_shift;
   int Bx, By, Bz;   // NGP ties: window-group span in mesh cells, 0 for none
   int Mx, My, Mz;   // NGP ties: window margin in mesh cells
+  float beta;       // Kaiser-Bessel: kcut P / 2 (unused by the B-spline)
+  float inv_norm;   // Kaiser-Bessel: beta / (P sinh(beta))
 };
 
 __device__ __forceinline__ int wrap(int i, int n) {
@@ -116,7 +135,7 @@ __device__ __forceinline__ bool place(float v, float q, float H, int clamp, floa
   return fabsf(d) < H;
 }
 
-// The P cells of one axis around x (wrapped to [0, n)), their B-spline
+// The P cells of one axis around x (wrapped to [0, n)), their window
 // weights w and the weights' derivatives d = dw/dx.  b is the NGP tie origin.
 template <int P>
 struct Win {
@@ -126,7 +145,7 @@ struct Win {
 };
 
 template <int P>
-__device__ __forceinline__ void window(float x, int n, float b, Win<P>& o) {
+__device__ __forceinline__ void bspline_window(float x, int n, float b, Win<P>& o) {
   float c0;
   if constexpr (P == 1) {
     c0 = rintf(x - b) + b;
@@ -167,6 +186,39 @@ __device__ __forceinline__ void window(float x, int n, float b, Win<P>& o) {
   for (int k = 0; k < P; ++k) o.i[k] = wrap(first + k, n);
 }
 
+template <int P_>
+struct BSpline {
+  static constexpr int P = P_;
+  static __device__ __forceinline__ void eval(float x, int n, float b, const Geom&, Win<P>& o) {
+    bspline_window<P>(x, n, b, o);
+  }
+};
+
+template <int P_>
+struct KaiserBessel {
+  static constexpr int P = P_;
+  static __device__ __forceinline__ void eval(float x, int n, float b, const Geom& g,
+                                              Win<P>& o) {
+    if constexpr (P == 1) {
+      if (g.clamp) {  // the window path's one-hot NGP
+        bspline_window<1>(x, n, b, o);
+        return;
+      }
+    }
+    const float c0 = (P % 2) ? rintf(x - b) + b : floorf(x);
+    const int first = (int)c0 - (P - 1) / 2;
+    const float dscale = g.beta * g.beta * (2.f / (float)P) * g.inv_norm;
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      const float u = ((float)(first + k) - x) * 2.f / (float)P;
+      const float z = g.beta * sqrtf(fmaxf(1.f - u * u, 0.f));
+      o.w[k] = cyl_bessel_i0f(z) * g.inv_norm;
+      o.d[k] = (z > 0.f ? cyl_bessel_i1f(z) / z : 0.5f) * u * dscale;
+      o.i[k] = wrap(first + k, n);
+    }
+  }
+};
+
 // Site, NGP tie origins of one particle (zeros without a lattice).
 struct Site {
   float qx = 0.f, qy = 0.f, qz = 0.f, bx = 0.f, by = 0.f, bz = 0.f;
@@ -187,12 +239,13 @@ __device__ __forceinline__ Site site(int64_t p, const Geom& g) {
 
 constexpr int kMaxC = 4;  // channels of one K4/K5 launch (the force read has 3)
 
-template <int P>
+template <class W>
 __global__ void paint_cic_forward_kernel(const float* __restrict__ pos,
                                          const float* __restrict__ w, int64_t n_p, Geom g,
                                          float* __restrict__ out) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_p) return;
+  constexpr int P = W::P;
   const float px = pos[3 * p], py = pos[3 * p + 1], pz = pos[3 * p + 2];
   const float wp = w[p];
   const Site q = site<P>(p, g);
@@ -205,9 +258,9 @@ __global__ void paint_cic_forward_kernel(const float* __restrict__ pos,
     place(py + sh, q.qy, g.Hy, g.clamp, y);
     place(pz + sh, q.qz, g.Hz, g.clamp, z);
     Win<P> wx, wy, wz;
-    window<P>(x, g.X, q.bx, wx);
-    window<P>(y, g.Y, q.by, wy);
-    window<P>(z, g.Z, q.bz, wz);
+    W::eval(x, g.X, q.bx, g, wx);
+    W::eval(y, g.Y, q.by, g, wy);
+    W::eval(z, g.Z, q.bz, g, wz);
     float* o = out + (int64_t)s * N;
 #pragma unroll
     for (int a = 0; a < P; ++a)
@@ -221,13 +274,14 @@ __global__ void paint_cic_forward_kernel(const float* __restrict__ pos,
   }
 }
 
-template <int P>
+template <class W>
 __global__ void paint_cic_adjoint_kernel(const float* __restrict__ pos,
                                          const float* __restrict__ w,
                                          const float* __restrict__ grad, int64_t n_p, Geom g,
                                          float* __restrict__ dpos, float* __restrict__ dw) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_p) return;
+  constexpr int P = W::P;
   const float px = pos[3 * p], py = pos[3 * p + 1], pz = pos[3 * p + 2];
   const Site q = site<P>(p, g);
   const int64_t N = (int64_t)g.X * g.Y * g.Z;
@@ -240,9 +294,9 @@ __global__ void paint_cic_adjoint_kernel(const float* __restrict__ pos,
     const bool ay = place(py + sh, q.qy, g.Hy, g.clamp, y);
     const bool az = place(pz + sh, q.qz, g.Hz, g.clamp, z);
     Win<P> wx, wy, wz;
-    window<P>(x, g.X, q.bx, wx);
-    window<P>(y, g.Y, q.by, wy);
-    window<P>(z, g.Z, q.bz, wz);
+    W::eval(x, g.X, q.bx, g, wx);
+    W::eval(y, g.Y, q.by, g, wy);
+    W::eval(z, g.Z, q.bz, g, wz);
     const float* gs = grad + (int64_t)s * N;
     float sw = 0.f, sx = 0.f, sy = 0.f, sz = 0.f;
 #pragma unroll
@@ -278,21 +332,22 @@ __global__ void paint_cic_adjoint_kernel(const float* __restrict__ pos,
 // The corners are unrolled around the channel loop: a corner's C floats are
 // one contiguous load, and no runtime loop encloses the P^3 corner addresses
 // (hoisted out of a channel loop, 64 of them took all 255 registers at PCS).
-template <int P>
+template <class W>
 __global__ void read_cic_forward_kernel(const float* __restrict__ pos,
                                         const float* __restrict__ mesh, int64_t n_p, int C,
                                         Geom g, float* __restrict__ out) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_p) return;
+  constexpr int P = W::P;
   const Site q = site<P>(p, g);
   float x, y, z;
   place(pos[3 * p], q.qx, g.Hx, g.clamp, x);
   place(pos[3 * p + 1], q.qy, g.Hy, g.clamp, y);
   place(pos[3 * p + 2], q.qz, g.Hz, g.clamp, z);
   Win<P> wx, wy, wz;
-  window<P>(x, g.X, q.bx, wx);
-  window<P>(y, g.Y, q.by, wy);
-  window<P>(z, g.Z, q.bz, wz);
+  W::eval(x, g.X, q.bx, g, wx);
+  W::eval(y, g.Y, q.by, g, wy);
+  W::eval(z, g.Z, q.bz, g, wz);
   float acc[kMaxC] = {};
 #pragma unroll
   for (int a = 0; a < P; ++a)
@@ -318,7 +373,7 @@ __global__ void read_cic_forward_kernel(const float* __restrict__ pos,
 // gets the C-channel paint of ct (atomics); dpos gets
 // sum_c ct[p, c] sum_corners grad W . mesh[corner, c], zero on the axes where
 // the clamp was active (K2's rule, strict |d| < H).  Loops as K4's.
-template <int P>
+template <class W>
 __global__ void read_cic_adjoint_kernel(const float* __restrict__ pos,
                                         const float* __restrict__ mesh,
                                         const float* __restrict__ ct, int64_t n_p, int C,
@@ -326,15 +381,16 @@ __global__ void read_cic_adjoint_kernel(const float* __restrict__ pos,
                                         float* __restrict__ dpos) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_p) return;
+  constexpr int P = W::P;
   const Site q = site<P>(p, g);
   float x, y, z;
   const bool ax = place(pos[3 * p], q.qx, g.Hx, g.clamp, x);
   const bool ay = place(pos[3 * p + 1], q.qy, g.Hy, g.clamp, y);
   const bool az = place(pos[3 * p + 2], q.qz, g.Hz, g.clamp, z);
   Win<P> wx, wy, wz;
-  window<P>(x, g.X, q.bx, wx);
-  window<P>(y, g.Y, q.by, wy);
-  window<P>(z, g.Z, q.bz, wz);
+  W::eval(x, g.X, q.bx, g, wx);
+  W::eval(y, g.Y, q.by, g, wy);
+  W::eval(z, g.Z, q.bz, g, wz);
   float t[kMaxC];
 #pragma unroll
   for (int ch = 0; ch < kMaxC; ++ch) t[ch] = ch < C ? ct[p * C + ch] : 0.f;
@@ -371,9 +427,9 @@ constexpr int kThreads = 256;
 
 Geom make_geom(int X, int Y, int Z, int Lx, int Ly, int Lz, float sx, float sy, float sz,
                float Hx, float Hy, float Hz, int clamp, int n_shift, int Bx, int By, int Bz,
-               int Mx, int My, int Mz) {
+               int Mx, int My, int Mz, float beta, float inv_norm) {
   return Geom{X,  Y,  Z,  Lx,    Ly,      Lz, sx, sy, sz, Hx, Hy,
-              Hz, clamp, n_shift, Bx, By, Bz, Mx, My, Mz};
+              Hz, clamp, n_shift, Bx, By, Bz, Mx, My, Mz, beta, inv_norm};
 }
 
 unsigned blocks_for(long long n_p) { return (unsigned)((n_p + kThreads - 1) / kThreads); }
@@ -383,23 +439,29 @@ unsigned blocks_for(long long n_p) { return (unsigned)((n_p + kThreads - 1) / kT
 #define GEOM_PARAMS                                                                       \
   int X, int Y, int Z, int Lx, int Ly, int Lz, float sx, float sy, float sz, float Hx,    \
       float Hy, float Hz, int clamp, int n_shift, int order, int Bx, int By, int Bz,      \
-      int Mx, int My, int Mz
-#define GEOM_ARGS X, Y, Z, Lx, Ly, Lz, sx, sy, sz, Hx, Hy, Hz, clamp, n_shift, Bx, By, Bz, Mx, My, Mz
-// Launches the kernel expression (which names P) at the runtime order, when
-// there are particles; an order outside 1-4 returns cudaErrorInvalidValue.
-#define DISPATCH_ORDER(order, ...)                                          \
-  switch (order) {                                                          \
-    case 1: { constexpr int P = 1; if (n_p > 0) __VA_ARGS__; } break;       \
-    case 2: { constexpr int P = 2; if (n_p > 0) __VA_ARGS__; } break;       \
-    case 3: { constexpr int P = 3; if (n_p > 0) __VA_ARGS__; } break;       \
-    case 4: { constexpr int P = 4; if (n_p > 0) __VA_ARGS__; } break;       \
-    default: return (int)cudaErrorInvalidValue;                             \
+      int Mx, int My, int Mz, int kb, float beta, float inv_norm
+#define GEOM_ARGS \
+  X, Y, Z, Lx, Ly, Lz, sx, sy, sz, Hx, Hy, Hz, clamp, n_shift, Bx, By, Bz, Mx, My, Mz, beta, inv_norm
+// Launches the kernel expression (which names the window W) at the runtime
+// order and window (kb: Kaiser-Bessel, else B-spline), when there are
+// particles; an order outside 1-4 returns cudaErrorInvalidValue.
+#define DISPATCH_WINDOW(order, kb, ...)                                              \
+  switch (2 * (order) + ((kb) ? 1 : 0)) {                                           \
+    case 2: { using W = BSpline<1>; if (n_p > 0) __VA_ARGS__; } break;              \
+    case 3: { using W = KaiserBessel<1>; if (n_p > 0) __VA_ARGS__; } break;         \
+    case 4: { using W = BSpline<2>; if (n_p > 0) __VA_ARGS__; } break;              \
+    case 5: { using W = KaiserBessel<2>; if (n_p > 0) __VA_ARGS__; } break;         \
+    case 6: { using W = BSpline<3>; if (n_p > 0) __VA_ARGS__; } break;              \
+    case 7: { using W = KaiserBessel<3>; if (n_p > 0) __VA_ARGS__; } break;         \
+    case 8: { using W = BSpline<4>; if (n_p > 0) __VA_ARGS__; } break;              \
+    case 9: { using W = KaiserBessel<4>; if (n_p > 0) __VA_ARGS__; } break;         \
+    default: return (int)cudaErrorInvalidValue;                                      \
   }
 
 extern "C" int paint_cic_forward(const float* pos, const float* w, long long n_p, GEOM_PARAMS,
                                  float* out, void* stream) {
   const Geom g = make_geom(GEOM_ARGS);
-  DISPATCH_ORDER(order, paint_cic_forward_kernel<P><<<blocks_for(n_p), kThreads, 0,
+  DISPATCH_WINDOW(order, kb, paint_cic_forward_kernel<W><<<blocks_for(n_p), kThreads, 0,
                                                      (cudaStream_t)stream>>>(pos, w, n_p, g, out));
   return (int)cudaGetLastError();
 }
@@ -408,7 +470,7 @@ extern "C" int paint_cic_adjoint(const float* pos, const float* w, const float* 
                                  long long n_p, GEOM_PARAMS, float* dpos, float* dw,
                                  void* stream) {
   const Geom g = make_geom(GEOM_ARGS);
-  DISPATCH_ORDER(order, paint_cic_adjoint_kernel<P><<<blocks_for(n_p), kThreads, 0,
+  DISPATCH_WINDOW(order, kb, paint_cic_adjoint_kernel<W><<<blocks_for(n_p), kThreads, 0,
                                                       (cudaStream_t)stream>>>(pos, w, grad, n_p,
                                                                               g, dpos, dw));
   return (int)cudaGetLastError();
@@ -418,7 +480,7 @@ extern "C" int read_cic_forward(const float* pos, const float* mesh, long long n
                                 GEOM_PARAMS, float* out, void* stream) {
   if (C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
   const Geom g = make_geom(GEOM_ARGS);
-  DISPATCH_ORDER(order, read_cic_forward_kernel<P><<<blocks_for(n_p), kThreads, 0,
+  DISPATCH_WINDOW(order, kb, read_cic_forward_kernel<W><<<blocks_for(n_p), kThreads, 0,
                                                     (cudaStream_t)stream>>>(pos, mesh, n_p, C,
                                                                             g, out));
   return (int)cudaGetLastError();
@@ -429,7 +491,7 @@ extern "C" int read_cic_adjoint(const float* pos, const float* mesh, const float
                                 void* stream) {
   if (C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
   const Geom g = make_geom(GEOM_ARGS);
-  DISPATCH_ORDER(order, read_cic_adjoint_kernel<P><<<blocks_for(n_p), kThreads, 0,
+  DISPATCH_WINDOW(order, kb, read_cic_adjoint_kernel<W><<<blocks_for(n_p), kThreads, 0,
                                                      (cudaStream_t)stream>>>(pos, mesh, ct, n_p,
                                                                              C, g, dmesh, dpos));
   return (int)cudaGetLastError();

@@ -1,6 +1,6 @@
 """Physics bricks of the main path: reparametrizations, the linear field,
-Kaiser boost, Lagrangian bias, box geometry, RSD and the radial count
-selection.
+Kaiser boost, Lagrangian bias, box geometry (flat or curved sky, at a fixed
+scale factor or on the light cone), RSD and the radial count selection.
 
 Parity: `montecosmo_tpu/models/bricks.py` (cited per function).  Rotations
 are 3x3 matrices (`Rotation`), in place of jax.scipy's Rotation objects.
@@ -12,7 +12,7 @@ from montecosmo_tpu_torch.models.truncnorm import std2trunc, trunc2std
 from montecosmo_tpu_torch.ops.background import Background, Cosmology
 from montecosmo_tpu_torch.ops.fourier import gradient_hat, invlaplace_hat, irfftn, rfftk, rfftn
 from montecosmo_tpu_torch.ops.hermitian import cgh2rg, ch2rshape, rg2cgh
-from montecosmo_tpu_torch.ops.paint import read_sites
+from montecosmo_tpu_torch.ops.paint import read_multi, read_sites
 from montecosmo_tpu_torch.ops.power import lin_power_mesh
 from montecosmo_tpu_torch.utils import to_tensor
 from montecosmo_tpu_torch.utils.safe import safe_div, safe_sqrt
@@ -132,15 +132,18 @@ def samp2base_mesh(init: dict, precond, transfer, inv=False, temp=1.0) -> dict:
 def lagrangian_bias(cosmo: Cosmology, pos, a, box_size, lin_mesh, bias, bg,
                     sites_shape):
     """Lagrangian bias weights up to 3rd order plus the Laplacian operator,
-    read at the undisplaced lattice sites and scaled by growth powers:
+    read at the undisplaced particles and scaled by growth powers:
 
         w = 1 + b1 dL + b2/2 (dL^2 - s2) + bs2 (s^2 - 2/3 s2) + b3/6 (dL^3 - 3 s2 dL)
             + bds2 dL s^2 + bs3 s^3 + bn2 lap(dL)
 
     plus the velocity-bias displacement dvel = bnpar grad(dL) D.  Returns
-    (weights, dvel, phi=0).  No PNG operators (png_type None).
+    (weights, dvel, phi=0).  No PNG operators (png_type None).  The fields
+    are read at the lattice sites by strided slicing when the mesh refines
+    the `sites_shape` lattice, else at `pos` with `read_multi` at order 1
+    (K4 at NGP): the JAX model always passes read_order=1.
 
-    Parity: bricks.py:254-410 (the fused form; lattice-site reads)."""
+    Parity: bricks.py:254-410 (the fused form)."""
     b1, b2, bs2 = bias["b1"], bias["b2"], bias["bs2"]
     b3, bds2, bs3 = bias["b3"], bias["bds2"], bias["bs3"]
     bn2, bnpar = bias["bn2"], bias["bnpar"]
@@ -172,7 +175,11 @@ def lagrangian_bias(cosmo: Cosmology, pos, a, box_size, lin_mesh, bias, bg,
     delta_nab2 = irfftn(-(kmesh**2) * lin_mesh)
     grad_fields = [irfftn(gradient_hat(kvec, i) * lin_mesh) for i in range(3)]
 
-    vals = read_sites([delta, shear2, shear3, delta_nab2, *grad_fields], sites_shape)
+    fields = [delta, shear2, shear3, delta_nab2, *grad_fields]
+    if sites_shape is not None:
+        vals = read_sites(fields, sites_shape)
+    else:
+        vals = read_multi(pos, fields, 1)
     delta_pos = vals[..., 0] * g
     shear2_pos = vals[..., 1] * g**2
     shear3_pos = vals[..., 2] * g**3
@@ -235,31 +242,54 @@ def cell2phys_vel(vel, box_rot: Rotation, box_size, mesh_shape):
 
 def radius_mesh(box_center, box_rot: Rotation, box_size, mesh_shape, curved_sky=True,
                 device="cpu"):
-    """Physical distance of each mesh cell (flat sky: along the line of
-    sight), with the JAX package's float32 rounding order.
+    """Physical distance of each mesh cell from the observer (flat sky: along
+    the line of sight), with the JAX package's float32 rounding order: the
+    per-axis offsets in float64, rounded to float32, plus the rotated box
+    center in float32.
 
     Parity: bricks.py:577-597."""
-    if curved_sky:
-        raise NotImplementedError("curved_sky=True is not ported yet (ROADMAP Queue A item 12)")
     c = box_rot.apply(np.asarray(box_center, float), inverse=True).astype(np.float32)
-    los = (c / np.linalg.norm(c)).astype(np.float32) if np.linalg.norm(c) else np.zeros(3, np.float32)
+    if not curved_sky:
+        los = (c / np.linalg.norm(c)).astype(np.float32) if np.linalg.norm(c) \
+            else np.zeros(3, np.float32)
     out = 0.0
     for ax, (m, b) in enumerate(zip(mesh_shape, box_size)):
         shape = [1, 1, 1]
         shape[ax] = -1
         r = (np.arange(m).reshape(shape) * b / m - b / 2).astype(np.float32)
-        rt = torch.as_tensor(r, device=device)
-        out = out + (rt + float(c[ax])) * float(los[ax])
-    return out.abs()
+        rt = torch.as_tensor(r, device=device) + float(c[ax])
+        out = out + (rt**2 if curved_sky else rt * float(los[ax]))
+    return out**0.5 if curved_sky else out.abs()
+
+
+def pos_mesh(box_center, box_rot: Rotation, box_size, mesh_shape, device="cpu"):
+    """Mesh of physical cell positions, shape (*mesh_shape, 3).
+
+    Parity: bricks.py:600-604."""
+    pos = torch.as_tensor(np.indices(mesh_shape, dtype=np.float32).reshape(3, -1).T,
+                          device=device)
+    pos = cell2phys_pos(pos, box_center, box_rot, box_size, mesh_shape)
+    return pos.reshape(tuple(mesh_shape) + (3,))
+
+
+def _radius_and_los(pos):
+    """(|pos|, pos / |pos|) along the last axis, 0 and 0 at the observer."""
+    r = torch.linalg.vector_norm(pos, dim=-1, keepdim=True)
+    return r, safe_div(pos, r)
 
 
 def los_scalefactor_pos(pos, box_center, box_rot: Rotation, box_size, mesh_shape,
                         bg: Background, a_obs=None, curved_sky=True):
-    """Flat-sky line of sight and per-particle (or fixed) scale factor.
+    """Per-particle line of sight and scale factor: curved sky, the unit
+    vector to each particle (P, 3); flat sky, the box center's direction.
+    With a_obs None (the light cone) a = chi2a of the particle's radius (or
+    its distance along the line of sight), else a_obs.
 
     Parity: bricks.py:633-649."""
     if curved_sky:
-        raise NotImplementedError("curved_sky=True is not ported yet (ROADMAP Queue A item 12)")
+        pos = cell2phys_pos(pos, box_center, box_rot, box_size, mesh_shape)
+        rpos, los = _radius_and_los(pos)
+        return los, (bg.chi2a(rpos) if a_obs is None else a_obs)
     los = safe_div(np.asarray(box_center, float), np.linalg.norm(box_center))
     if a_obs is not None:
         return los, a_obs
@@ -270,20 +300,24 @@ def los_scalefactor_pos(pos, box_center, box_rot: Rotation, box_size, mesh_shape
 
 def los_scalefactor_mesh(box_center, box_rot: Rotation, box_size, mesh_shape,
                          bg: Background, a_obs=None, curved_sky=True):
-    """Flat-sky line of sight and per-cell (or fixed) scale factor.
+    """Per-cell line of sight ((X, Y, Z, 3) on the curved sky) and scale
+    factor (per cell on the light cone, else a_obs).
 
     Parity: bricks.py:652-664."""
+    device = bg.a_tab.device
     if curved_sky:
-        raise NotImplementedError("curved_sky=True is not ported yet (ROADMAP Queue A item 12)")
+        rmesh, los = _radius_and_los(pos_mesh(box_center, box_rot, box_size, mesh_shape, device))
+        rmesh = rmesh[..., 0]
+        return los, (bg.chi2a(rmesh) if a_obs is None else a_obs)
     los = safe_div(np.asarray(box_center, float), np.linalg.norm(box_center))
     if a_obs is not None:
         return los, a_obs
-    rmesh = radius_mesh(box_center, box_rot, box_size, mesh_shape, False, bg.a_tab.device)
-    return los, bg.chi2a(rmesh)
+    return los, bg.chi2a(radius_mesh(box_center, box_rot, box_size, mesh_shape, False, device))
 
 
 def rsd(bg: Background, vel, los, a, box_rot, box_size, mesh_shape, dvel=0.0):
-    """Redshift-space displacement along the line of sight.
+    """Redshift-space displacement along the line of sight: one direction
+    (flat sky) or one per particle (curved sky, `los` (P, 3)).
 
     Parity: bricks.py:667-675."""
     vel = cell2phys_vel(vel, box_rot, box_size, mesh_shape)

@@ -5,8 +5,9 @@ N-body evolve -> quad-Gaussian field likelihood, with the handler algebra of
 Parity: `montecosmo_tpu/models/model.py` (default_config:56-154,
 Model:157-403, FieldLevelModel:420-962 and 1096-1280).  The port covers
 evolution='lpt' and 'nbody' (BullFrog, at one scale factor `a_obs` or on
-the light cone with a_obs=None), B-spline paint orders 1-4,
-bias_type='lagrangian', flat sky without AP or PNG,
+the light cone with a_obs=None), B-spline paint orders 1-4 and Kaiser-Bessel
+windows of support 1-4, bias_type='lagrangian', flat or curved sky without
+AP or PNG,
 observable='field' with lik_type='quad_gauss', and precond 'kaiser', 'real'
 or 'fourier'; any other value raises NotImplementedError naming its ROADMAP
 item.  `reparam` works on plain dicts (no `Chains`).
@@ -145,15 +146,12 @@ _ROADMAP = {
     "bias_type": "ROADMAP Queue A item 12 (Eulerian bias)",
     "png_type": "ROADMAP Queue A item 12 (PNG)",
     "ap_auto": "ROADMAP Queue A item 12 (AP)",
-    "curved_sky": "ROADMAP Queue A item 12 (curved sky)",
     "observable": "ROADMAP Queue A item 12 (likelihoods and observables)",
-    "kernel_type": "ROADMAP Queue B, B1 (Kaiser-Bessel windows)",
     "register": "ROADMAP Queue A item 13 (register files)",
 }
 _SUPPORTED = {"evolution": ("lpt", "nbody"), "lik_type": ("quad_gauss",),
               "bias_type": ("lagrangian",), "png_type": (None,), "ap_auto": (None,),
-              "curved_sky": (False,), "observable": ("field",),
-              "kernel_type": ("rectangular",), "register": (None,)}
+              "observable": ("field",), "register": (None,)}
 
 
 @dataclass
@@ -227,8 +225,8 @@ class Model:
 @dataclass
 class FieldLevelModel(Model):
     """Field-level model on the main path: 2LPT or BullFrog N-body (at
-    `a_obs`, or on the light cone), Lagrangian bias, flat-sky RSD,
-    quad-Gaussian field likelihood.  Takes
+    `a_obs`, or on the light cone), Lagrangian bias, flat- or curved-sky
+    RSD, quad-Gaussian field likelihood.  Takes
     every key of `default_config` plus `device`, the card ("cuda") unless
     the caller names another."""
 
@@ -269,8 +267,14 @@ class FieldLevelModel(Model):
 
     def __post_init__(self):
         self.device = torch.device(self.device)
+        if self.kernel_type not in ("rectangular", "kaiser_bessel"):
+            raise ValueError(f"Unknown kernel type: {self.kernel_type}")
+        if self.kernel_type == "kaiser_bessel" and int(self.paint_order) > 4:
+            raise NotImplementedError(
+                f"Kaiser-Bessel windows of support {self.paint_order} are not ported yet "
+                "(ROADMAP Queue B, B1: supports 1-4 are)")
         if self.paint_order not in (1, 2, 3, 4):
-            raise ValueError(f"paint_order must be a B-spline order in 1..4, got "
+            raise ValueError(f"paint_order must be a window order in 1..4, got "
                              f"{self.paint_order!r}")
         for key, allowed in _SUPPORTED.items():
             if getattr(self, key) not in allowed:
@@ -324,12 +328,11 @@ class FieldLevelModel(Model):
         else:
             raise ValueError(f"Unknown paint_method: {self.paint_method}")
 
+        # reads at the undisplaced lattice (Lagrangian bias, LPT forces) are
+        # strided slices when the evolution mesh refines the particle
+        # lattice, else order-1 reads (K4)
         self.evol_sites = tuple(self.ptcl_shape) if all(
             e % q == 0 for e, q in zip(self.evol_shape, self.ptcl_shape)) else None
-        if self.evol_sites is None:
-            raise NotImplementedError(
-                "an evolution mesh that does not refine the particle lattice needs "
-                "`read` (ROADMAP Queue B, B3)")
 
         # Scale cut
         self.k_funda = 2 * np.pi / np.min(self.box_size)
@@ -401,7 +404,10 @@ class FieldLevelModel(Model):
 
     def evolve(self, params: tuple):
         """Linear field -> 2LPT or BullFrog N-body -> Lagrangian bias -> RSD
-        -> painted galaxy mesh (1 + delta_obs) on the paint mesh."""
+        -> painted galaxy mesh (1 + delta_obs) on the paint mesh.  The
+        render's paint window is `kernel_type`'s; the N-body force paints and
+        reads are B-splines of `paint_order` whatever it is, as in the JAX
+        package."""
         cosmology, bias, png, stoch, ap, syst, init = params
         bg = Background.create(cosmology, self.device)
 

@@ -25,8 +25,10 @@ BUILD_INFO = {"seconds": None, "log": ""}
 _LIB = None
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
-# mesh, lattice, stride, clamp bound, clamp, n_shift, order, NGP tie span and margin
-_GEOM = [_I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I]
+# mesh, lattice, stride, clamp bound, clamp, n_shift, order, NGP tie span and
+# margin, then the window: Kaiser-Bessel (else B-spline), beta, 1 / norm
+_GEOM = [_I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I,
+         _I, _F, _F]
 
 
 def nvcc_path():
@@ -79,4 +81,4 @@ def launch_nufft_epilogue(src, dst, geom, backward):
     from montecosmo_tpu_torch.csrc import nufft_epilogue
 
     nufft_epilogue.launch(src, dst, geom.shape, geom.n_shift, geom.scale, geom.order,
-                          backward)
+                          backward, geom.kcut)

@@ -1,4 +1,5 @@
-"""Wavevectors, Fourier filter kernels and mass-assignment windows.
+"""Wavevectors, Fourier filter kernels and mass-assignment windows (the
+B-splines and the Kaiser-Bessel window, and their Fourier transforms).
 
 Kernel factories return broadcast-shaped float32 tensors ((N,1,1), (1,N,1),
 (1,1,N/2+1)), so `sum(ki**2 for ki in kvec)` broadcasts to the rfft mesh.
@@ -13,7 +14,7 @@ from functools import lru_cache
 import numpy as np
 import torch
 
-from montecosmo_tpu_torch.utils.safe import safe_div
+from montecosmo_tpu_torch.utils.safe import safe_div, safe_sqrt
 
 _DIMS = (-3, -2, -1)
 
@@ -126,9 +127,80 @@ def bspline_hat(kvec, order: int = 2):
     return out
 
 
+def optim_kcut(oversamp, safety=0.98):
+    """Near-optimal k-cutoff for PSWF-like (Kaiser-Bessel) kernels at a given
+    oversampling factor (Barnett+2019 arXiv:1808.06736)."""
+    return safety * np.pi * (2 - 1 / oversamp)
+
+
+def kaiser_bessel_norm(order, kcut):
+    """(beta, norm) of the Kaiser-Bessel window of support `order`:
+    beta = kcut order / 2 and norm = order sinh(beta) / beta."""
+    beta = kcut * order / 2
+    return beta, order * np.sinh(beta) / beta
+
+
+def kaiser_bessel(s, order, kcut):
+    """Kaiser-Bessel window of support `order` cells (Barnett+2019) at signed
+    distances `s`: i0(beta sqrt(1 - u^2)) / norm, u = 2 s / order.  The
+    square root is `safe_sqrt`, so autograd gives a zero (not NaN) derivative
+    where 1 - u^2 <= 0; `dkaiser_bessel` is the derivative itself."""
+    u = s * 2 / order
+    beta, norm = kaiser_bessel_norm(order, kcut)
+    return torch.special.i0(beta * safe_sqrt(1 - u**2)) / np.float32(norm)
+
+
+def dkaiser_bessel(s, order, kcut):
+    """d/ds of `kaiser_bessel`: -(i1(z) / z) beta^2 u (2 / order) / norm with
+    z = beta sqrt(1 - u^2), and i1(z) / z taken as its limit 1/2 at z = 0 (the
+    support edge, where JAX's autodiff of the window gives NaN)."""
+    u = s * 2 / order
+    beta, norm = kaiser_bessel_norm(order, kcut)
+    z = beta * safe_sqrt(1 - u**2)
+    inside = z > 0
+    ratio = torch.where(inside, torch.special.i1(z) / torch.where(inside, z, torch.ones_like(z)),
+                        torch.full_like(z, 0.5))
+    return -ratio * u * np.float32(beta**2 * 2 / order / norm)
+
+
+def kaiser_bessel_hat(kvec, order, kcut):
+    """Fourier transform of the Kaiser-Bessel window (Barnett+2019): per axis
+    sinh(d)/d for |k| <= beta and sin(d)/d beyond, d = |beta^2 - k^2|^1/2
+    (k scaled by order/2), over sinh(beta)/beta.  At d = 0 both are 1 (JAX's
+    formula gives 0/0 there)."""
+    beta = kcut * order / 2
+
+    def kernel(k):
+        k = k * order / 2
+        dist = (beta**2 - k**2).abs() ** 0.5
+        zero = dist == 0
+        safe = torch.where(zero, torch.ones_like(dist), dist)
+        out = torch.where(k.abs() <= beta, torch.sinh(safe) / safe, torch.sin(safe) / safe)
+        out = torch.where(zero, torch.ones_like(out), out)
+        return out / np.float32(np.sinh(beta) / beta)
+
+    out = 1.0
+    for ki in kvec:
+        out = out * kernel(ki)
+    return out
+
+
 def window_hat(kvec, order: int, kernel_type="rectangular", oversamp=1.0):
     """Fourier transform of the selected paint window."""
     if kernel_type == "rectangular":
         return bspline_hat(kvec, order)
-    raise NotImplementedError(
-        "kernel_type='kaiser_bessel' is not ported yet (ROADMAP Queue B, B1)")
+    if kernel_type == "kaiser_bessel":
+        return kaiser_bessel_hat(kvec, order, optim_kcut(oversamp))
+    raise ValueError(f"Unknown kernel type: {kernel_type}")
+
+
+def deconv_paint(mesh, order: int = 2, kernel_type="rectangular", oversamp=1.0):
+    """Deconvolve a painted mesh by its paint window: a real mesh through an
+    rfftn/irfftn pair, an rfft mesh by one elementwise division."""
+    from montecosmo_tpu_torch.ops.hermitian import ch2rshape
+
+    if not mesh.is_complex():
+        kvec = rfftk(mesh.shape, device=mesh.device)
+        return irfftn(rfftn(mesh) / window_hat(kvec, order, kernel_type, oversamp))
+    kvec = rfftk(ch2rshape(mesh.shape), device=mesh.device)
+    return mesh / window_hat(kvec, order, kernel_type, oversamp)

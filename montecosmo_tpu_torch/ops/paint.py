@@ -2,8 +2,11 @@
 
 The particle work of every model evaluation goes through five hand-written
 kernels (sources in `montecosmo_tpu_torch/csrc/`).  K1, K2, K4 and K5 take
-the B-spline window of order 1 (NGP), 2 (CIC), 3 (TSC) or 4 (PCS); their
-names come from the CIC (order-2) version.
+the B-spline window of order 1 (NGP), 2 (CIC), 3 (TSC) or 4 (PCS), or the
+Kaiser-Bessel window (`kernel_type='kaiser_bessel'`) of support 1-4, whose
+cutoff is `optim_kcut(oversamp)`; their names come from the CIC (order-2)
+version.  As in the JAX window path, the clamped (lattice) window of
+support 1 is the one-hot NGP whatever the kernel type.
 
 * K1 `paint_cic`: B-spline scatter of lattice-ordered particles, every
   interlace shift painted in one particle pass, each shifted position
@@ -12,8 +15,8 @@ names come from the CIC (order-2) version.
 * K2 `paint_cic_adjoint`: its VJP, a gather of the cotangent meshes giving
   the weight and position gradients; CUDA, no atomics.
 * K3 `nufft_epilogue`: the interlace phase sum, units jacobian and window
-  deconvolution in one pass over the rfft grid; Triton.  Its backward is the
-  same kernel with the conjugated phase.
+  deconvolution (B-spline or Kaiser-Bessel) in one pass over the rfft grid;
+  Triton.  Its backward is the same kernel with the conjugated phase.
 * K4 `read_cic`: the B-spline read of C channel-last fields at (clamped)
   particle positions, behind `read_window`, `read_multi` and `read`; CUDA,
   no atomics.
@@ -22,12 +25,17 @@ names come from the CIC (order-2) version.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises), and runs the
 kernel's plain PyTorch version, kept in this module, for a CPU tensor.
-`LAUNCHES` counts kernel launches per (kernel, order); K3's order is that of
-its deconvolution, 0 for none.
+`LAUNCHES` counts kernel launches per (kernel, window, order), the window
+"bspline" or "kb"; K3's order is that of its deconvolution, 0 for none.
 
-Parity: `montecosmo_tpu/ops/paint.py:57-240` (paint, read, read_multi,
-read_sites, interlace, nufft) and `montecosmo_tpu/ops/paint_window.py:103-130`
-and `:330-401` (window geometry, the clamp to sites, read_window).
+Parity: `montecosmo_tpu/ops/paint.py:35-240` (the windows, paint, read,
+read_multi, read_sites, interlace, nufft) and
+`montecosmo_tpu/ops/paint_window.py:42-130` and `:330-401` (window weights
+and geometry, the clamp to sites, read_window).  One difference: at an exact
+half-integer position the JAX window path paints a Kaiser-Bessel window of
+odd support on P + 1 cells (its support mask keeps |s| <= P/2 on both
+sides); the port, like the JAX scatter path, on the P cells around
+round(x).
 """
 import ctypes
 from collections import Counter
@@ -38,7 +46,10 @@ import numpy as np
 import torch
 from torch.autograd.function import once_differentiable
 
-from montecosmo_tpu_torch.ops.fourier import bspline, bspline_hat, dbspline, rfftk, rfftn
+from montecosmo_tpu_torch.ops.fourier import (
+    bspline, bspline_hat, dbspline, dkaiser_bessel, kaiser_bessel, kaiser_bessel_hat,
+    kaiser_bessel_norm, optim_kcut, rfftk, rfftn,
+)
 from montecosmo_tpu_torch.ops.hermitian import chreshape, r2chshape, scale_shape
 
 LAUNCHES = Counter()
@@ -49,27 +60,54 @@ def reset_launches():
     LAUNCHES.clear()
 
 
-def launches_at(order):
-    """{kernel: launches} at B-spline `order` since the last reset."""
-    return {k: n for (k, o), n in LAUNCHES.items() if o == order}
+def launches_at(order, window="bspline"):
+    """{kernel: launches} at `order` of `window` ("bspline" or "kb") since
+    the last reset."""
+    return {k: n for (k, w, o), n in LAUNCHES.items() if o == order and w == window}
+
+
+def _check_window(kernel_type, order):
+    """The B-spline windows of orders 1-4 and the Kaiser-Bessel windows of
+    support 1-4 are ported; a wider Kaiser-Bessel window is not."""
+    if kernel_type == "rectangular":
+        _require(order in ORDERS, f"B-spline order must be in 1..4, got {order}")
+    elif kernel_type == "kaiser_bessel":
+        if int(order) > max(ORDERS):
+            raise NotImplementedError(
+                f"Kaiser-Bessel windows of support {order} are not ported yet (ROADMAP "
+                "Queue B, B1: supports 1-4 are)")
+        _require(order in ORDERS, f"Kaiser-Bessel support must be >= 1, got {order}")
+    else:
+        raise ValueError(f"Unknown kernel type: {kernel_type}")
+
+
+def _kcut(kernel_type, oversamp):
+    """The Kaiser-Bessel cutoff of `kernel_type` at `oversamp`, None for the
+    B-spline."""
+    return None if kernel_type == "rectangular" else optim_kcut(oversamp)
 
 
 # ----------------------------------------------------------------- geometry
 @dataclass(frozen=True)
 class CICGeometry:
-    """Static description of one interlaced B-spline paint or read."""
+    """Static description of one interlaced paint or read."""
     shape: tuple            # mesh (X, Y, Z)
     n_shift: int            # interlace shifts s/n_shift, s = 0..n_shift-1
     lattice: tuple = None   # particle lattice when clamping, else None
     stride: tuple = (1, 1, 1)
     H: tuple = (np.inf, np.inf, np.inf)
-    order: int = 2          # B-spline order: 1 NGP, 2 CIC, 3 TSC, 4 PCS
+    order: int = 2          # window order (support): B-spline 1 NGP, 2 CIC, 3 TSC, 4 PCS
     # NGP ties (clamped order 1 only): `paint_window` rounds x - b, b the
     # window base of the particle's lattice group, b = (q // span) * span -
     # margin for its site q, so a half-integer x goes to the neighbour of b's
     # parity; zeros: round x itself, as `ops/paint.py::paint`
     span: tuple = (0, 0, 0)
     margin: tuple = (0, 0, 0)
+    kcut: float = None      # Kaiser-Bessel cutoff; None: the B-spline window
+
+    @property
+    def window(self):
+        return "bspline" if self.kcut is None else "kb"
 
 
 def _pick_group(extent, want):
@@ -79,13 +117,15 @@ def _pick_group(extent, want):
     return next(g for g in range(want, 0, -1) if extent % g == 0)
 
 
-def cic_geometry(shape, n_shift=1, lattice_shape=None, max_disp=8, clip=False, order=2):
+def cic_geometry(shape, n_shift=1, lattice_shape=None, max_disp=8, clip=False, order=2,
+                 kernel_type="rectangular", oversamp=1.0):
     """Geometry checks of `paint_window` (`_window_geometry`): the mesh must
     be a multiple of the particle lattice; the clamp bound is per axis."""
-    _require(order in ORDERS, f"B-spline order must be in 1..4, got {order}")
+    _check_window(kernel_type, order)
     shape = tuple(int(s) for s in shape)
+    kcut = _kcut(kernel_type, oversamp)
     if lattice_shape is None or not clip:
-        return CICGeometry(shape, int(n_shift), order=int(order))
+        return CICGeometry(shape, int(n_shift), order=int(order), kcut=kcut)
     lattice = tuple(int(s) for s in lattice_shape)
     _require(all(m % l == 0 for m, l in zip(shape, lattice)),
              f"mesh {shape} must be a multiple of lattice {lattice}")
@@ -96,7 +136,7 @@ def cic_geometry(shape, n_shift=1, lattice_shape=None, max_disp=8, clip=False, o
         want = (8, 8, _pick_group(lattice[2], 64))
         span = tuple(_pick_group(l, g) * s for l, g, s in zip(lattice, want, stride))
         margin = tuple(int(h) + order // 2 + 2 for h in H)
-    return CICGeometry(shape, int(n_shift), lattice, stride, H, int(order), span, margin)
+    return CICGeometry(shape, int(n_shift), lattice, stride, H, int(order), span, margin, kcut)
 
 
 def _sites(geom, device):
@@ -137,30 +177,37 @@ def _tie_base(sites, geom):
     return torch.div(sites, span, rounding_mode="floor") * span - margin
 
 
-def _axis_windows(x, order, tie_base=None):
+def _axis_windows(x, geom, tie_base=None):
     """Per axis, the `order` cells around x (order, P, 3) (unwrapped), their
-    B-spline weights and the weights' derivatives d/dx.  The base cell is
+    window weights and the weights' derivatives d/dx.  The base cell is
     round(x) (half to even) for odd orders, floor(x) for even ones, and the
-    stencil `arange(order) - (order - 1) // 2`, as `ops/paint.py::paint`."""
+    stencil `arange(order) - (order - 1) // 2`, as `ops/paint.py::paint`.
+    The Kaiser-Bessel derivative is written out (`dkaiser_bessel`), finite
+    at the support edge; the clamped window of order 1 is the one-hot NGP."""
+    order = geom.order
     if order % 2:
         c0 = torch.round(x) if tie_base is None else torch.round(x - tie_base) + tie_base
     else:
         c0 = torch.floor(x)
     offs = torch.arange(order, dtype=x.dtype, device=x.device) - (order - 1) // 2
     cells = c0[None] + offs[:, None, None]
+    s = cells - x
+    if geom.kcut is not None and not (order == 1 and geom.lattice is not None):
+        return (cells.long(), kaiser_bessel(s, order, geom.kcut),
+                -dkaiser_bessel(s, order, geom.kcut))
     if order == 2:  # 1 - t and t: K1's arithmetic
         t = x - c0
         one = torch.ones_like(t)
         return cells.long(), torch.stack([1 - t, t]), torch.stack([-one, one])
-    s = cells - x
     return cells.long(), bspline(s, order), -dbspline(s, order)
 
 
-def _corner_terms(x, shape, order=2, grad=False, tie_base=None):
+def _corner_terms(x, geom, grad=False, tie_base=None):
     """The order^3 (flat wrapped cell, weight, weight gradient (P, 3) or
-    None) of the B-spline window at x; the gradient only with `grad` (the
+    None) of the window at x; the gradient only with `grad` (the
     adjoints)."""
-    cells, w, dw = _axis_windows(x, order, tie_base)
+    shape, order = geom.shape, geom.order
+    cells, w, dw = _axis_windows(x, geom, tie_base)
     n = torch.tensor(shape, device=x.device)
     cells = torch.remainder(cells, n)
     for a, b, c in product(range(order), repeat=3):
@@ -182,8 +229,7 @@ def paint_cic_plain(pos, weights, geom: CICGeometry):
     meshes = []
     for _, x, sites in _shifted(pos, geom):
         mesh = pos.new_zeros(N)
-        for idx, wc, _ in _corner_terms(x, geom.shape, geom.order,
-                                        tie_base=_tie_base(sites, geom)):
+        for idx, wc, _ in _corner_terms(x, geom, tie_base=_tie_base(sites, geom)):
             mesh = mesh.index_add(0, idx, w * wc)
         meshes.append(mesh.reshape(geom.shape))
     return torch.stack(meshes)
@@ -198,8 +244,7 @@ def paint_cic_adjoint_plain(pos, weights, grads, geom: CICGeometry):
     for s, (v, x, sites) in enumerate(_shifted(pos, geom)):
         g = grads[s].reshape(-1)
         ds = torch.zeros_like(pos)
-        for idx, wc, dwc in _corner_terms(x, geom.shape, geom.order, True,
-                                          _tie_base(sites, geom)):
+        for idx, wc, dwc in _corner_terms(x, geom, True, _tie_base(sites, geom)):
             val = g[idx]
             dw = dw + val * wc
             ds = ds + val[:, None] * dwc
@@ -222,7 +267,16 @@ def _geom_args(geom):
             + [ctypes.c_float(float(v)) for v in geom.H]
             + [ctypes.c_int(int(geom.lattice is not None)), ctypes.c_int(geom.n_shift),
                ctypes.c_int(geom.order)]
-            + [ctypes.c_int(v) for v in geom.span + geom.margin])
+            + [ctypes.c_int(v) for v in geom.span + geom.margin]
+            + _window_args(geom))
+
+
+def _window_args(geom):
+    """(Kaiser-Bessel?, beta, 1 / norm) as the kernels take them."""
+    if geom.kcut is None:
+        return [ctypes.c_int(0), ctypes.c_float(0.0), ctypes.c_float(0.0)]
+    beta, norm = kaiser_bessel_norm(geom.order, geom.kcut)
+    return [ctypes.c_int(1), ctypes.c_float(beta), ctypes.c_float(1 / norm)]
 
 
 def _require(ok, msg):
@@ -256,7 +310,7 @@ def paint_cic_kernel(pos, weights, geom: CICGeometry):
     stream = torch.cuda.current_stream(pos.device).cuda_stream
     code = lib.paint_cic_forward(_ptr(pos), _ptr(weights), ctypes.c_longlong(pos.shape[0]),
                                  *_geom_args(geom), _ptr(out), ctypes.c_void_p(stream))
-    LAUNCHES["paint_cic", geom.order] += 1
+    LAUNCHES["paint_cic", geom.window, geom.order] += 1
     _launch_status(code, "paint_cic")
     return out
 
@@ -276,7 +330,7 @@ def paint_cic_adjoint_kernel(pos, weights, grads, geom: CICGeometry):
     code = lib.paint_cic_adjoint(_ptr(pos), _ptr(weights), _ptr(grads),
                                  ctypes.c_longlong(pos.shape[0]), *_geom_args(geom),
                                  _ptr(dpos), _ptr(dw), ctypes.c_void_p(stream))
-    LAUNCHES["paint_cic_adjoint", geom.order] += 1
+    LAUNCHES["paint_cic_adjoint", geom.window, geom.order] += 1
     _launch_status(code, "paint_cic_adjoint")
     return dpos, dw
 
@@ -304,12 +358,13 @@ class _PaintCIC(torch.autograd.Function):
 
 
 def paint_cic(pos, shape, weights=1.0, n_shift=1, lattice_shape=None, max_disp=8,
-              clip=False, order=2):
-    """Interlaced B-spline paint of `order`: (n_shift, *shape) meshes, shift
-    s painted at pos + s/n_shift.  With `lattice_shape` and clip=True, each
-    shifted position is clamped to +-max_disp cells around its lattice
-    site."""
-    geom = cic_geometry(shape, n_shift, lattice_shape, max_disp, clip, order)
+              clip=False, order=2, kernel_type="rectangular", oversamp=1.0):
+    """Interlaced paint with the window of `order` and `kernel_type`:
+    (n_shift, *shape) meshes, shift s painted at pos + s/n_shift.  With
+    `lattice_shape` and clip=True, each shifted position is clamped to
+    +-max_disp cells around its lattice site."""
+    geom = cic_geometry(shape, n_shift, lattice_shape, max_disp, clip, order, kernel_type,
+                        oversamp)
     pos = pos.reshape(-1, 3).contiguous()
     w = torch.as_tensor(weights, dtype=pos.dtype, device=pos.device)
     w = torch.broadcast_to(w.reshape(-1) if w.ndim else w, pos.shape[:1]).contiguous()
@@ -317,23 +372,15 @@ def paint_cic(pos, shape, weights=1.0, n_shift=1, lattice_shape=None, max_disp=8
 
 
 # ------------------------------------------------------------------ paint
-def _check_window(kernel_type):
-    """The B-spline windows are ported (`cic_geometry` checks the order);
-    Kaiser-Bessel is not."""
-    if kernel_type != "rectangular":
-        raise NotImplementedError(
-            f"kernel_type={kernel_type!r} is not ported yet (ROADMAP Queue B, B1: "
-            "Kaiser-Bessel windows)")
-
-
-def paint(pos, shape: tuple, weights=1.0, order: int = 2, kernel_type="rectangular", *,
-          lattice_shape=None, max_disp=8, clip=False):
+def paint(pos, shape: tuple, weights=1.0, order: int = 2, kernel_type="rectangular",
+          oversamp=1.0, *, lattice_shape=None, max_disp=8, clip=False):
     """Scatter particle `weights` onto a mesh of `shape` (positions in cell
-    units, periodic) with the B-spline window of `order`: K1 with one shift.
-    With `lattice_shape` and clip=True, positions are clamped to +-max_disp
-    around their sites."""
-    _check_window(kernel_type)
-    return paint_cic(pos, shape, weights, 1, lattice_shape, max_disp, clip, order)[0]
+    units, periodic) with the window of `order` (the B-spline, or with
+    kernel_type='kaiser_bessel' the Kaiser-Bessel window of cutoff
+    `optim_kcut(oversamp)`): K1 with one shift.  With `lattice_shape` and
+    clip=True, positions are clamped to +-max_disp around their sites."""
+    return paint_cic(pos, shape, weights, 1, lattice_shape, max_disp, clip, order, kernel_type,
+                     oversamp)[0]
 
 
 # ------------------------------------------------------------ K4 / K5 plain
@@ -343,8 +390,7 @@ def read_cic_plain(pos, mesh, geom: CICGeometry):
     ((_, x, sites),) = _shifted(pos, geom)
     flat = mesh.reshape(-1, mesh.shape[-1])
     out = 0.0
-    for idx, w, _ in _corner_terms(x, geom.shape, geom.order,
-                                   tie_base=_tie_base(sites, geom)):
+    for idx, w, _ in _corner_terms(x, geom, tie_base=_tie_base(sites, geom)):
         out = out + flat[idx] * w[:, None]
     return out
 
@@ -357,7 +403,7 @@ def read_cic_adjoint_plain(pos, mesh, ct, geom: CICGeometry):
     flat = mesh.reshape(-1, C)
     dmesh = mesh.new_zeros(flat.shape)
     dpos = torch.zeros_like(pos)
-    for idx, w, dw in _corner_terms(x, geom.shape, geom.order, True, _tie_base(sites, geom)):
+    for idx, w, dw in _corner_terms(x, geom, True, _tie_base(sites, geom)):
         dmesh = dmesh.index_add(0, idx, ct * w[:, None])
         dpos = dpos + (flat[idx] * ct).sum(-1, keepdim=True) * dw
     if sites is not None:
@@ -405,7 +451,7 @@ def read_cic_kernel(pos, mesh, geom: CICGeometry):
     code = lib.read_cic_forward(_ptr(pos), _ptr(mesh), ctypes.c_longlong(pos.shape[0]),
                                 ctypes.c_int(mesh.shape[-1]), *_geom_args(geom), _ptr(out),
                                 ctypes.c_void_p(stream))
-    LAUNCHES["read_cic", geom.order] += 1
+    LAUNCHES["read_cic", geom.window, geom.order] += 1
     _launch_status(code, "read_cic")
     return out
 
@@ -429,7 +475,7 @@ def read_cic_adjoint_kernel(pos, mesh, ct, geom: CICGeometry):
     code = lib.read_cic_adjoint(_ptr(pos), _ptr(mesh), _ptr(ct), ctypes.c_longlong(pos.shape[0]),
                                 ctypes.c_int(mesh.shape[-1]), *_geom_args(geom), _ptr(dmesh),
                                 _ptr(dpos), ctypes.c_void_p(stream))
-    LAUNCHES["read_cic_adjoint", geom.order] += 1
+    LAUNCHES["read_cic_adjoint", geom.window, geom.order] += 1
     _launch_status(code, "read_cic_adjoint")
     return dpos, dmesh
 
@@ -465,47 +511,49 @@ def _channels_last(meshes):
     return meshes, False
 
 
-def read_cic(pos, mesh, lattice_shape=None, max_disp=8, clip=False, order=2):
-    """B-spline read of `order` of (X, Y, Z, C) fields at (P, 3) positions: K4
-    forward, K5 backward; with `lattice_shape` and clip=True each position is
-    first clamped to +-max_disp cells around its lattice site, as K1 paints
-    it."""
+def read_cic(pos, mesh, lattice_shape=None, max_disp=8, clip=False, order=2,
+             kernel_type="rectangular", oversamp=1.0):
+    """Read of (X, Y, Z, C) fields at (P, 3) positions with the window of
+    `order` and `kernel_type`: K4 forward, K5 backward; with `lattice_shape`
+    and clip=True each position is first clamped to +-max_disp cells around
+    its lattice site, as K1 paints it."""
     mesh = mesh.contiguous()
-    geom = cic_geometry(mesh.shape[:3], 1, lattice_shape, max_disp, clip, order)
+    geom = cic_geometry(mesh.shape[:3], 1, lattice_shape, max_disp, clip, order, kernel_type,
+                        oversamp)
     return _ReadCIC.apply(pos.reshape(-1, 3).contiguous(), mesh, geom)
 
 
 def read_window(pos, meshes, lattice_shape: tuple, order: int = 2, kernel_type="rectangular",
-                max_disp=8, clip=False):
+                oversamp=1.0, max_disp=8, clip=False):
     """Mesh read at lattice-ordered positions (the adjoint of the lattice
     paint), as `paint_window.read_window`: (P,) values for one (X, Y, Z)
     mesh, (P, C) for an (X, Y, Z, C) mesh or a list of C meshes.  With
     clip=True positions are clamped to +-max_disp around their sites; without
     it the read is the unclamped one, which equals the JAX window read
     whenever its displacement contract |pos - site| <= max_disp holds (NGP
-    ties aside: unclamped, they round the position itself)."""
-    _check_window(kernel_type)
+    ties aside: unclamped, they round the position itself; and unclamped,
+    the Kaiser-Bessel window of support 1 is not the one-hot NGP)."""
     mesh, squeeze = _channels_last(meshes)
     shape, lattice = tuple(mesh.shape[:3]), tuple(int(s) for s in lattice_shape)
     _require(all(m % l == 0 for m, l in zip(shape, lattice)),
              f"mesh {shape} must be a multiple of lattice {lattice}")
-    vals = read_cic(pos, mesh, lattice, max_disp, clip, order)
+    vals = read_cic(pos, mesh, lattice, max_disp, clip, order, kernel_type, oversamp)
     return vals[:, 0] if squeeze else vals
 
 
-def read_multi(pos, meshes, order: int = 2, kernel_type="rectangular"):
+def read_multi(pos, meshes, order: int = 2, kernel_type="rectangular", oversamp=1.0):
     """Read several fields at the same (..., 3) positions, unclamped and
     periodic: `meshes` is a list of (X, Y, Z), one (X, Y, Z, C) or one
     (X, Y, Z) (C = 1); returns (..., C)."""
-    _check_window(kernel_type)
     mesh, _ = _channels_last(meshes)
-    return read_cic(pos, mesh, order=order).reshape(pos.shape[:-1] + (mesh.shape[-1],))
+    vals = read_cic(pos, mesh, order=order, kernel_type=kernel_type, oversamp=oversamp)
+    return vals.reshape(pos.shape[:-1] + (mesh.shape[-1],))
 
 
-def read(pos, mesh, order: int = 2, kernel_type="rectangular"):
+def read(pos, mesh, order: int = 2, kernel_type="rectangular", oversamp=1.0):
     """Read one (X, Y, Z) mesh at (..., 3) positions (the adjoint of `paint`
     w.r.t. the weights): (...,) values."""
-    return read_multi(pos, mesh, order, kernel_type)[..., 0]
+    return read_multi(pos, mesh, order, kernel_type, oversamp)[..., 0]
 
 
 def read_sites(meshes, sites_shape: tuple):
@@ -528,15 +576,27 @@ def read_sites(meshes, sites_shape: tuple):
 # ---------------------------------------------------------------- K3 plain
 @dataclass(frozen=True)
 class EpilogueGeometry:
-    shape: tuple     # real paint mesh (X, Y, Z)
+    shape: tuple       # real paint mesh (X, Y, Z)
     n_shift: int
-    scale: float     # units jacobian
-    order: int       # B-spline deconvolution order, 0 for none
+    scale: float       # units jacobian
+    order: int         # deconvolution order (window support), 0 for none
+    kcut: float = None  # Kaiser-Bessel cutoff; None: the B-spline window
+
+    @property
+    def window(self):
+        return "bspline" if self.kcut is None else "kb"
+
+
+def _window_hat(kvec, geom):
+    """The Fourier transform of the paint window K3 divides by."""
+    if geom.kcut is None:
+        return bspline_hat(kvec, geom.order)
+    return kaiser_bessel_hat(kvec, geom.order, geom.kcut)
 
 
 def nufft_epilogue_plain(fk, geom: EpilogueGeometry):
     """Plain PyTorch K3, written as `interlace` + `nufft` write it:
-    sum_s F_s exp(i s/n (kx+ky+kz)) / n * scale / bspline_hat(k, order)."""
+    sum_s F_s exp(i s/n (kx+ky+kz)) / n * scale / window_hat(k)."""
     kvec = rfftk(geom.shape, device=fk.device)
     out = 0.0
     for s in range(geom.n_shift):
@@ -546,7 +606,7 @@ def nufft_epilogue_plain(fk, geom: EpilogueGeometry):
         out = out + fk[s] * phase / geom.n_shift
     out = out * geom.scale
     if geom.order:
-        out = out / bspline_hat(kvec, geom.order)
+        out = out / _window_hat(kvec, geom)
     return out
 
 
@@ -555,7 +615,7 @@ def _epilogue_factors(geom, device):
     kvec = rfftk(geom.shape, device=device)
     c = torch.full(r2chshape(geom.shape), geom.scale / geom.n_shift, device=device)
     if geom.order:
-        c = c / bspline_hat(kvec, geom.order)
+        c = c / _window_hat(kvec, geom)
     ksum = kvec[0] + kvec[1] + kvec[2]
     one = torch.ones_like(c)
     return [torch.polar(one, ksum * (s / geom.n_shift)) * c for s in range(geom.n_shift)]
@@ -582,7 +642,7 @@ def nufft_epilogue_kernel(x, geom: EpilogueGeometry, backward=False):
     out_shape = ((geom.n_shift,) + cshape) if backward else cshape
     dst = torch.empty(out_shape + (2,), dtype=torch.float32, device=x.device)
     _kernels.launch_nufft_epilogue(src, dst, geom, backward)
-    LAUNCHES["nufft_epilogue", geom.order] += 1
+    LAUNCHES["nufft_epilogue", geom.window, geom.order] += 1
     return torch.view_as_complex(dst)
 
 
@@ -602,27 +662,29 @@ class _NufftEpilogue(torch.autograd.Function):
         return _epilogue_math(g, ctx.geom, backward=True), None
 
 
-def nufft_epilogue(fk, shape, scale=1.0, order=0):
-    """Interlace phase sum, units jacobian and window deconvolution of the
-    stacked rffts `fk` (S, X, Y, Zc) of S shifted paints."""
+def nufft_epilogue(fk, shape, scale=1.0, order=0, kcut=None):
+    """Interlace phase sum, units jacobian and window deconvolution (the
+    B-spline of `order`, or the Kaiser-Bessel window of support `order` and
+    cutoff `kcut`) of the stacked rffts `fk` (S, X, Y, Zc) of S shifted
+    paints."""
     geom = EpilogueGeometry(tuple(int(s) for s in shape), int(fk.shape[0]),
-                            float(scale), int(order))
+                            float(scale), int(order), kcut)
     return _NufftEpilogue.apply(fk, geom)
 
 
 # ------------------------------------------------------ interlace / nufft
 def interlace(pos, shape: tuple, weights=1.0, paint_order: int = 2,
-              interlace_order: int = 2, kernel_type="rectangular", *, lattice_shape=None,
-              max_disp=8, clip=False, scale=1.0, deconv=False):
+              interlace_order: int = 2, kernel_type="rectangular", paint_oversamp=1.0, *,
+              lattice_shape=None, max_disp=8, clip=False, scale=1.0, deconv=False):
     """Equal-spacing interlaced painting in Fourier space: the phase-rotated
     rffts of `interlace_order` diagonally shifted paints, averaged (K1 paints
     every shift in one particle pass), times `scale`, divided by the paint
     window when `deconv` (K3 does all of it in one pass)."""
-    _check_window(kernel_type)
     shape = tuple(int(s) for s in shape)
     meshes = paint_cic(pos, shape, weights, interlace_order, lattice_shape, max_disp, clip,
-                       paint_order)
-    return nufft_epilogue(rfftn(meshes), shape, scale, paint_order if deconv else 0)
+                       paint_order, kernel_type, paint_oversamp)
+    return nufft_epilogue(rfftn(meshes), shape, scale, paint_order if deconv else 0,
+                          _kcut(kernel_type, paint_oversamp))
 
 
 def nufft(pos, final_shape: tuple, paint_shape=None, weights=1.0,
@@ -632,19 +694,27 @@ def nufft(pos, final_shape: tuple, paint_shape=None, weights=1.0,
     """Non-uniform FFT: oversampled paint + interlace + window deconvolution +
     power-preserving Fourier downsample to `final_shape`.  `pos` is in
     final-shape cell units; the irfftn of the result sums to the total
-    weight.  Returns the rfft mesh at `r2chshape(final_shape)`."""
+    weight.  Returns the rfft mesh at `r2chshape(final_shape)`.
+
+    The window's oversampling factor (the Kaiser-Bessel cutoff) follows the
+    JAX package: `paint_shape` itself when a float, else
+    exp(mean log(final_shape / paint_shape)) for a shape (below 1 when the
+    paint mesh is the finer one)."""
     if paint_shape is None:
-        paint_shape = final_shape
+        paint_shape, paint_oversamp = final_shape, 1.0
     elif isinstance(paint_shape, float):
-        paint_shape = scale_shape(final_shape, paint_shape)
-    elif not isinstance(paint_shape, (tuple, list, np.ndarray)):
+        paint_oversamp = paint_shape
+        paint_shape = scale_shape(final_shape, paint_oversamp)
+    elif isinstance(paint_shape, (tuple, list, np.ndarray)):
+        paint_oversamp = float(np.exp(np.log(np.divide(final_shape, paint_shape)).mean()))
+    else:
         raise ValueError("paint_shape must be None, a float, or a shape")
     paint_shape = tuple(int(s) for s in paint_shape)
 
     ratio = np.divide(paint_shape, final_shape)
     pos = pos * torch.as_tensor(ratio.astype(np.float32), device=pos.device)
     mesh = interlace(pos, paint_shape, weights, paint_order, interlace_order, kernel_type,
-                     lattice_shape=lattice_shape, max_disp=max_disp, clip=clip,
+                     paint_oversamp, lattice_shape=lattice_shape, max_disp=max_disp, clip=clip,
                      scale=float(ratio.prod()), deconv=paint_deconv)
     if tuple(final_shape) != tuple(paint_shape):
         mesh = chreshape(mesh, r2chshape(final_shape))

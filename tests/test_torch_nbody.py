@@ -92,7 +92,7 @@ def test_read_multi_and_read_unclamped_match_jax():
 
     close(tpa.read(T(pos), T(meshes[0])), jread(jnp.asarray(pos), jnp.asarray(meshes[0])))
     with pytest.raises(NotImplementedError, match="Kaiser-Bessel"):
-        tpa.read_multi(T(pos), T(meshes[0]), order=3, kernel_type="kaiser_bessel")
+        tpa.read_multi(T(pos), T(meshes[0]), order=5, kernel_type="kaiser_bessel")
 
 
 # ------------------------------------------------------------------- (c)
@@ -191,12 +191,13 @@ def test_logpdf_and_grad_nbody_match_jax_16():
     logpdf_and_grad_16("nbody", a_obs=None, paint_order=3)
 
 
-def test_model_defaults_to_the_card_and_refuses_the_nbody_light_cone():
-    """FieldLevelModel targets the card unless told otherwise.  The flat-sky
-    N-body light cone and every B-spline order build; the curved-sky N-body
-    light cone and Kaiser-Bessel windows are still refused, naming their
+def test_model_defaults_to_the_card_and_refuses_unported_configs():
+    """FieldLevelModel targets the card unless told otherwise.  The N-body
+    light cone on the flat and on the curved sky, every B-spline order and
+    the Kaiser-Bessel windows of support 1-4 build; Kaiser-Bessel windows of
+    support 5 and more, AP, Eulerian bias and PNG are refused, naming their
     ROADMAP item; snapshots on the light cone (exclusive in the JAX package
-    too) and orders outside 1-4 are invalid."""
+    too), B-spline orders outside 1-4 and unknown kernel types are invalid."""
     from montecosmo_tpu_torch import FieldLevelModel, default_config
 
     assert FieldLevelModel.__dataclass_fields__["device"].default == "cuda"
@@ -204,13 +205,21 @@ def test_model_defaults_to_the_card_and_refuses_the_nbody_light_cone():
     conf.update(final_shape=(8, 8, 8), evolution="nbody", a_obs=None, curved_sky=False,
                 box_center=(0.0, 0.0, 500.0))
     for order in (1, 2, 3, 4):
-        assert FieldLevelModel(**{**conf, "paint_order": order}, device="cpu").paint_order == order
+        for kernel in ("rectangular", "kaiser_bessel"):
+            m = FieldLevelModel(**{**conf, "paint_order": order, "kernel_type": kernel},
+                                device="cpu")
+            assert (m.paint_order, m.kernel_type) == (order, kernel)
+    assert FieldLevelModel(**{**conf, "curved_sky": True}, device="cpu").curved_sky
     with pytest.raises(NotImplementedError, match="Queue B, B1"):
-        FieldLevelModel(**{**conf, "kernel_type": "kaiser_bessel"}, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue A item 12"):
-        FieldLevelModel(**{**conf, "curved_sky": True}, device="cpu")
+        FieldLevelModel(**{**conf, "kernel_type": "kaiser_bessel", "paint_order": 5},
+                        device="cpu")
+    for key, value in (("ap_auto", True), ("bias_type", "eulerian"), ("png_type", "fNL")):
+        with pytest.raises(NotImplementedError, match="Queue A item 12"):
+            FieldLevelModel(**{**conf, key: value}, device="cpu")
     with pytest.raises(ValueError, match="exclusive"):
         FieldLevelModel(**{**conf, "nbody_snapshots": 3}, device="cpu")
     for order in (0, 5):
         with pytest.raises(ValueError, match="paint_order"):
             FieldLevelModel(**{**conf, "paint_order": order}, device="cpu")
+    with pytest.raises(ValueError, match="kernel type"):
+        FieldLevelModel(**{**conf, "kernel_type": "gaussian"}, device="cpu")
