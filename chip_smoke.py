@@ -9,9 +9,16 @@ Phases, in order; any failure raises and the script exits non-zero:
   2. build the CUDA kernels (nvcc, sm_90a) from the checkout and print the
      build time;
   3. hold K1 (paint), K2 (paint adjoint) and K3 (NUFFT epilogue) against
-     their plain PyTorch versions at 32^3 and at the 128^3 flagship shapes
-     (224^3 paint mesh, 11.24M particles): values and gradients, with the
-     max relative errors (K3's element by element), both times and the bound; at B-spline order 2
+     their plain PyTorch versions at 32^3 (stride-2 lattice; the tiled
+     kernels' margins of 0-2 cells send many particles to device memory,
+     and at orders 2 and 4 K1's tiles are wider than the mesh) and at the
+     128^3 flagship shapes (224^3 paint mesh,
+     11.24M particles): values and gradients, with the max relative errors
+     (K3's element by element), both times and the bound; K1 clamped in both
+     designs, the lattice-brick one (the route of every clamped paint) and
+     the atomic one, timed in turns (atomic, tiled, tiled, atomic), with
+     the share of corner products that took the tiled design's outlier
+     path (device memory); at B-spline order 2
      (CIC) clamped to the lattice sites, then at orders 1, 3 and 4 (NGP,
      TSC, PCS), then with the Kaiser-Bessel window of support 1-4 (at the
      flagship render's cutoff optim_kcut(192/224)), clamped and unclamped,
@@ -20,11 +27,12 @@ Phases, in order; any failure raises and the script exits non-zero:
      of the cotangents is K2's NGP yardstick;
   3b. the same for K4 (C-channel read) and K5 (its adjoint), clamped and
      unclamped, at 32^3 and 224^3 with C = 3, at B-spline orders 2, 1, 3
-     and 4 and Kaiser-Bessel supports 1-4; at B-spline order 2 K5 is held
+     and 4 and Kaiser-Bessel supports 1-4, K5 clamped in both designs as K1
+     in phase 3; at B-spline order 2 K5 is held
      against autograd of K4's plain version; grid_sample (trilinear, and
      nearest at order 1, on a wrap-padded mesh: the unclamped read) and its
      backward are the B-spline library yardsticks; then K4/K5 on C = 6
-     channels (two launches each);
+     channels (two launches each, K5 in both designs);
   4. the golden 32^3 2LPT forward (tests/golden/golden_32.npz) on the card;
   4b. the golden 32^3 BullFrog N-body forward on the card;
   4c. the 32^3 BullFrog light cone (a_obs=None) on the golden white mesh at
@@ -43,18 +51,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      RSD, quad-Gaussian likelihood, Kaiser preconditioning, float32) on the
      card: draw the observation with `predict`, then 2 warm-up and 5 timed
      logpdf value+grad evaluations; print ms/eval, peak memory and the
-     launches of its kernels (K1, K2, K3), counted from 0 over those 7;
+     launches of its kernels (K1, K2, K3; K1 the lattice-brick design),
+     counted from 0 over those 7; then, from one more value+grad, the
+     render paint's own positions: quantiles of |pos - site| per axis, and
+     K1's two designs on them (outlier share, times in turns);
   5b. the same flagship with evolution='nbody' (10 BullFrog steps, force
-     paints and reads at 224^3): K1, K2, K3, K4 and K5 must each launch;
+     paints and reads at 224^3): K1, K2, K3, K4 and K5 must each launch, K1
+     and K5 in their lattice-brick designs; then K5's inputs at the last
+     step, as 5 does for K1;
   5c. the same N-body flagship on the light cone (a_obs=None) at TSC
-     (paint_order=3): K1-K5 must each launch at order 3;
+     (paint_order=3): K1-K5 must each launch at order 3 (K1, K5 tiled);
   5d. the 2LPT flagship on the curved sky and the light cone (curved_sky=True,
-     a_obs=None) with the Kaiser-Bessel window of support 4: K1, K2 and K3
-     must each launch at Kaiser-Bessel support 4;
+     a_obs=None) with the Kaiser-Bessel window of support 4: K1 (tiled), K2
+     and K3 must each launch at Kaiser-Bessel support 4;
   6. last lines: the kernels JSON (one row per kernel, window and order;
      launches from phase 5b at CIC, 5c at TSC, 4c at NGP and PCS, 5d at
      Kaiser-Bessel 4, 4d at Kaiser-Bessel 1-3; K4/K5 run on no
-     Kaiser-Bessel path of the model, 0), then {"ok": true, "device": {...}}.
+     Kaiser-Bessel path of the model, 0; K1's and K5's rows are their
+     lattice-brick design, the launches it made, with `atomic_ms` the
+     atomic design's time on the same inputs, and at CIC the flagship
+     measurements of 5/5b), then {"ok": true, "device": {...}}.
 """
 import json
 import subprocess
@@ -92,6 +108,15 @@ def cuda_ms(fn, reps=10, warmup=2):
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / reps
+
+
+def turns(atomic, tiled, reps):
+    """(atomic ms, tiled ms): the two designs of a kernel timed on the same
+    inputs in turns, atomic, tiled, tiled, atomic, `reps` launches of each
+    in all."""
+    n = max(1, reps // 2)
+    a0, t0, t1, a1 = (cuda_ms(f, n) for f in (atomic, tiled, tiled, atomic))
+    return (a0 + a1) / 2, (t0 + t1) / 2
 
 
 def bound(n_bytes, n_flop):
@@ -201,12 +226,20 @@ def check_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangular"):
     res = {}
     sfx = _suffix(order, kernel)
 
-    # K1 forward
-    ker = P.paint_cic_kernel(pos, w, geom)
+    # K1 forward: the lattice-brick design (the route of a clamped paint)
+    # and the atomic one, each against the plain version, timed in turns
     ref = P.paint_cic_plain(pos, w, geom)
+    n_out = torch.zeros(1, dtype=torch.int64, device=dev)
+    ker = P.paint_cic_tiled_kernel(pos, w, geom, n_out)
     k1 = rel_err(ker, ref)
-    t_k1 = cuda_ms(lambda: P.paint_cic_kernel(pos, w, geom), reps)
+    k1a = rel_err(P.paint_cic_kernel(pos, w, geom), ref)
+    t_k1a, t_k1 = turns(lambda: P.paint_cic_kernel(pos, w, geom),
+                        lambda: P.paint_cic_tiled_kernel(pos, w, geom), reps)
     t_p1 = cuda_ms(lambda: P.paint_cic_plain(pos, w, geom), max(2, reps // 5))
+    log(f"# {tag} paint_cic{sfx} tiled {P.tile_plan(geom)}: outlier share "
+        f"{n_out.item() / (geom.n_shift * pos.shape[0] * order**3):.4e} of the corner products; "
+        f"atomic max_rel_err {k1a[1]:.3e}, {t_k1a:.3f} ms; tiled {t_k1:.3f} ms")
+    assert k1a[1] <= TOL, f"atomic paint_cic{sfx} disagrees with its plain version at {tag}"
     # K2 adjoint: against autograd of the plain paint at B-spline CIC; else
     # against K2's plain version (held against autograd on the CPU, lighter
     # on memory than autograd through order^3 corners, and at the support
@@ -286,6 +319,7 @@ def check_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangular"):
         assert er <= TOL, f"{name}{sfx} disagrees with its plain version at {tag}: {er:.3e} > {TOL}"
         res[name + sfx] = {"max_abs_err": ea, "ms": tk, "plain_ms": tp, "bound_ms": bm,
                            "bound_by": bb, "library_ms": lib}
+    res["paint_cic" + sfx] |= {"design": "tiled", "atomic_ms": t_k1a}
     return res
 
 
@@ -347,19 +381,33 @@ def check_read_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangul
     out = {}
     for kind, geom in (("clamped", geom_c), ("unclamped", geom_u)):
         k4 = rel_err(P.read_cic_kernel(pos, mesh, geom), P.read_cic_plain(pos, mesh, geom))
-        dpos, dmesh = P.read_cic_adjoint_kernel(pos, mesh, ct, geom)
         if plain_cic:
             pr, mr = pos.clone().requires_grad_(True), mesh.clone().requires_grad_(True)
             rpos, rmesh = torch.autograd.grad((P.read_cic_plain(pr, mr, geom) * ct).sum(),
                                               (pr, mr))
         else:  # K5's plain version, as for K2 in phase 3
             rpos, rmesh = P.read_cic_adjoint_plain(pos, mesh, ct, geom)
+        dpos, dmesh = P.read_cic_adjoint_kernel(pos, mesh, ct, geom)
         k5 = rel_err_pair(dpos, rpos, dmesh, rmesh)
+        if kind == "unclamped":
+            t5 = cuda_ms(lambda: P.read_cic_adjoint_kernel(pos, mesh, ct, geom), reps)
+        else:
+            # the lattice-brick design, the route of a clamped read's VJP,
+            # against the plain version, timed in turns with the atomic one
+            n_out = torch.zeros(1, dtype=torch.int64, device=dev)
+            dpos, dmesh = P.read_cic_adjoint_tiled_kernel(pos, mesh, ct, geom, n_out)
+            k5a, k5 = k5, rel_err_pair(dpos, rpos, dmesh, rmesh)
+            t5a, t5 = turns(lambda: P.read_cic_adjoint_kernel(pos, mesh, ct, geom),
+                            lambda: P.read_cic_adjoint_tiled_kernel(pos, mesh, ct, geom), reps)
+            log(f"# {tag} read_cic_adjoint{sfx} tiled {P.tile_plan(geom, C)}: outlier share "
+                f"{n_out.item() / (pos.shape[0] * order**3):.4e} of the corner products; "
+                f"atomic max_rel_err {k5a[1]:.3e}, {t5a:.3f} ms; tiled {t5:.3f} ms")
+            assert k5a[1] <= TOL, f"atomic read_cic_adjoint{sfx} (clamped) disagrees at {tag}"
+            atomic = {"design": "tiled", "atomic_ms": t5a}
         t = {"read_cic": (cuda_ms(lambda: P.read_cic_kernel(pos, mesh, geom), reps),
                           cuda_ms(lambda: P.read_cic_plain(pos, mesh, geom), max(2, reps // 5))),
              "read_cic_adjoint": (
-                 cuda_ms(lambda: P.read_cic_adjoint_kernel(pos, mesh, ct, geom), reps),
-                 cuda_ms(lambda: P.read_cic_adjoint_plain(pos, mesh, ct, geom), max(2, reps // 5)))}
+                 t5, cuda_ms(lambda: P.read_cic_adjoint_plain(pos, mesh, ct, geom), max(2, reps // 5)))}
         out[kind] = {"read_cic": (k4, *t["read_cic"]),
                      "read_cic_adjoint": (k5, *t["read_cic_adjoint"])}
 
@@ -411,6 +459,7 @@ def check_read_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangul
         (ea, _), tk, tp = out["clamped"][name]
         res[name + sfx] = {"max_abs_err": ea, "ms": tk, "plain_ms": tp, "bound_ms": bm,
                            "bound_by": bb, "library_ms": lib[name]}
+    res["read_cic_adjoint" + sfx] |= atomic
     return res
 
 
@@ -426,12 +475,13 @@ def check_wide_read():
     mesh = torch.randn(geom.shape + (6,), generator=gen, device=dev)
     ct = torch.randn((pos.shape[0], 6), generator=gen, device=dev)
     e4 = rel_err(P.read_cic_kernel(pos, mesh, geom), P.read_cic_plain(pos, mesh, geom))
-    e5 = rel_err_pair(*(x for pair in zip(P.read_cic_adjoint_kernel(pos, mesh, ct, geom),
-                                          P.read_cic_adjoint_plain(pos, mesh, ct, geom))
-                        for x in pair))
+    rpos, rmesh = P.read_cic_adjoint_plain(pos, mesh, ct, geom)
+    e5, e5t = (rel_err_pair(dpos, rpos, dmesh, rmesh) for dpos, dmesh in (
+        P.read_cic_adjoint_kernel(pos, mesh, ct, geom),
+        P.read_cic_adjoint_tiled_kernel(pos, mesh, ct, geom)))
     log(f"# 32^3 C = 6 read (2 launches each): read_cic max_rel_err {e4[1]:.3e}, "
-        f"read_cic_adjoint max_rel_err {e5[1]:.3e}")
-    assert max(e4[1], e5[1]) <= TOL, "the 6-channel read disagrees with its plain version"
+        f"read_cic_adjoint max_rel_err {e5[1]:.3e} (tiled {e5t[1]:.3e})")
+    assert max(e4[1], e5[1], e5t[1]) <= TOL, "the 6-channel read disagrees with its plain version"
 
 
 WINDOWS = [(k, o) for k in ("rectangular", KB) for o in ORDERS]
@@ -530,7 +580,8 @@ def ngp_witnesses(lc, dev="cuda"):
     from montecosmo_tpu_torch.models import model as M
     from montecosmo_tpu_torch.ops import paint as P
 
-    nufft, kernels = M.nufft, (P.paint_cic_kernel, P.read_cic_kernel, P.nufft_epilogue_kernel)
+    names = ("paint_cic_kernel", "paint_cic_tiled_kernel", "read_cic_kernel", "nufft_epilogue_kernel")
+    nufft, kernels = M.nufft, {n: getattr(P, n) for n in names}
 
     def run(device, plain=False, ulp=False):
         seen = []
@@ -542,13 +593,15 @@ def ngp_witnesses(lc, dev="cuda"):
 
         M.nufft = capture
         if plain:
-            P.paint_cic_kernel, P.read_cic_kernel = P.paint_cic_plain, P.read_cic_plain
+            P.paint_cic_kernel = P.paint_cic_tiled_kernel = P.paint_cic_plain
+            P.read_cic_kernel = P.read_cic_plain
             P.nufft_epilogue_kernel = lambda x, g, backward=False: P._epilogue_math(x, g, backward)
         try:
             _, _, pred = golden_predict(device, "nbody", ulp=ulp, **lc)
         finally:
             M.nufft = nufft
-            P.paint_cic_kernel, P.read_cic_kernel, P.nufft_epilogue_kernel = kernels
+            for n, f in kernels.items():
+                setattr(P, n, f)
         return pred["gxy_mesh"].cpu().numpy(), pred["nbody_ptcl"][0].cpu(), *seen[0]
 
     card, cpu = run(dev), run("cpu")
@@ -585,7 +638,7 @@ def phase_lightcone_32(order):
     lp, launches = _value_and_grad_launches(m, p, {"count_mesh": pred["count_mesh"]}, "bspline")
     log(f"# 32^3 light cone order {order} value+grad on the card: logpdf {lp:.6e}; "
         f"launches at order {order} {launches}")
-    missing = [k for k in SOURCES if not launches.get(k)]
+    missing = [k for k in NBODY_KERNELS if not launches.get(k)]
     assert not missing, f"order-{order} kernels of the light cone never ran: {missing}"
     return launches
 
@@ -674,10 +727,11 @@ def bench_model(final=128, evolution="lpt", **updates):
     return FieldLevelModel(**conf, device="cuda")
 
 
-def phase_bench(evolution, kernels, tag=None, **updates):
+def phase_bench(evolution, kernels, tag=None, capture=None, **updates):
     """The flagship value+grad with `evolution` and the config `updates`;
     every kernel in `kernels` must launch at the model's paint order and
-    window.  Returns the launch counts of the 7 evaluations there."""
+    window.  Returns the launch counts of the 7 evaluations there; with
+    `capture` ("paint" or "read"), also what `flagship_inputs` measures."""
     from montecosmo_tpu_torch.ops import paint as P
     from montecosmo_tpu_torch.ops.background import Background, get_cosmology
 
@@ -732,6 +786,7 @@ def phase_bench(evolution, kernels, tag=None, **updates):
         f"{ {k: v / 7 for k, v in launches.items()} }")
     missing = [k for k in kernels if not launches.get(k)]
     assert not missing, f"kernels of the {tag} path never ran: {missing} ({launches})"
+    captured = flagship_inputs(tag, value_and_grad, capture) if capture else None
 
     # share of the background RK4 tables: the same evaluations with the
     # tables built once, outside the timed loop (the timing changes, the
@@ -762,7 +817,59 @@ def phase_bench(evolution, kernels, tag=None, **updates):
         PROFILES.append(lambda: (log(f"# --- profile ({tag})"),
                                  layer_times(m, value_and_grad),
                                  profile_eval(value_and_grad, np.mean(times))))
-    return launches
+    return (launches, captured) if capture else launches
+
+
+def flagship_inputs(tag, value_and_grad, which):
+    """The flagship's own inputs of the tiled K1 (which="paint": the 2LPT
+    render's interlaced paint) or K5 (which="read": the N-body flagship's
+    last step, the first K5 of the backward), captured in one more
+    value+grad: the per-axis quantiles of |pos - site| in cells, the tiled
+    design's outlier share, and both designs on them, held against the
+    plain version and timed in turns.  Returns the JSON row's extra keys."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    name = {"paint": "paint_cic_tiled_kernel", "read": "read_cic_adjoint_tiled_kernel"}[which]
+    kernel, seen = getattr(P, name), []
+
+    def record(*args):
+        if which == "paint" or not seen:
+            seen[:] = [tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)]
+        return kernel(*args)
+
+    setattr(P, name, record)
+    try:
+        value_and_grad()
+    finally:
+        setattr(P, name, kernel)
+    torch.cuda.synchronize()
+    args, geom = seen[0][:-1], seen[0][-1]
+    pos = args[0]
+    d = (pos - P._sites(geom, pos.device)).abs()
+    q = torch.tensor([0.5, 0.99, 0.999, 1.0], device=pos.device)
+    quant = [[round(float(v), 4) for v in torch.quantile(d[:, a], q)] for a in range(3)]
+    n_out = torch.zeros(1, dtype=torch.int64, device=pos.device)
+    tiled = kernel(*args, geom, n_out)
+    share = n_out.item() / (geom.n_shift * pos.shape[0] * geom.order**3)
+    if which == "paint":
+        plain, atomic = P.paint_cic_plain, P.paint_cic_kernel
+        err = rel_err(tiled, plain(*args, geom))
+        err_a = rel_err(atomic(*args, geom), plain(*args, geom))
+    else:
+        plain, atomic = P.read_cic_adjoint_plain, P.read_cic_adjoint_kernel
+        ref = plain(*args, geom)
+        err = rel_err_pair(tiled[0], ref[0], tiled[1], ref[1])
+        a = atomic(*args, geom)
+        err_a = rel_err_pair(a[0], ref[0], a[1], ref[1])
+    t_a, t_t = turns(lambda: atomic(*args, geom), lambda: kernel(*args, geom), 10)
+    log(f"# ({tag}) the flagship's {name.removesuffix('_kernel')} inputs: |pos - site| "
+        f"quantiles 50/99/99.9/100% per axis (cells) {quant}; plan "
+        f"{P.tile_plan(geom, args[1].shape[-1] if which == 'read' else 1)}; outlier share "
+        f"{share:.4e}; tiled {t_t:.3f} ms (max_rel_err {err[1]:.3e}), atomic {t_a:.3f} ms "
+        f"(max_rel_err {err_a[1]:.3e})")
+    assert max(err[1], err_a[1]) <= TOL, f"{name} on the {tag} flagship's inputs disagrees"
+    return {"flagship_ms": t_t, "flagship_atomic_ms": t_a, "flagship_outlier_share": share,
+            "flagship_disp_quantiles": quant}
 
 
 def layer_times(m, fn, reps=3):
@@ -811,7 +918,9 @@ def profile_eval(fn, eval_s):
     log(f"# profiler: device busy {busy_ms:.1f} ms per evaluation = "
         f"{100 * busy_ms / (1e3 * eval_s):.1f}% of the unprofiled {1e3 * eval_s:.1f} ms; "
         f"{launches} device kernels")
-    for tag in ("paint_cic", "read_cic", "nufft_epilogue"):
+    for tag in ("paint_cic_tiled_kernel", "paint_cic_forward_kernel", "paint_cic_adjoint_kernel",
+                "read_cic_forward_kernel", "read_cic_adjoint_tiled_kernel",
+                "read_cic_adjoint_kernel", "nufft_epilogue"):
         ms = sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
         log(f"# profiler: kernels named *{tag}* {ms:.3f} ms = "
             f"{100 * ms / max(busy_ms, 1e-9):.2f}% of device time")
@@ -820,7 +929,8 @@ def profile_eval(fn, eval_s):
 
 # ----------------------------------------------------------------- main
 SOURCES = {
-    "paint_cic": ("cuda", "montecosmo_tpu_torch/csrc/paint_cic.cu",
+    # K1 and K5: the lattice-brick design, which every model path runs
+    "paint_cic": ("cuda", "montecosmo_tpu_torch/csrc/paint_tiled.cu",
                   "montecosmo_tpu/ops/paint_window.py:240"),
     "paint_cic_adjoint": ("cuda", "montecosmo_tpu_torch/csrc/paint_cic.cu",
                           "montecosmo_tpu/ops/paint_window.py:180"),
@@ -828,7 +938,7 @@ SOURCES = {
                        "montecosmo_tpu/ops/paint.py:192"),
     "read_cic": ("cuda", "montecosmo_tpu_torch/csrc/paint_cic.cu",
                  "montecosmo_tpu/ops/paint_window.py:330"),
-    "read_cic_adjoint": ("cuda", "montecosmo_tpu_torch/csrc/paint_cic.cu",
+    "read_cic_adjoint": ("cuda", "montecosmo_tpu_torch/csrc/paint_tiled.cu",
                          "montecosmo_tpu/ops/paint_window.py:395"),
 }
 # at orders 1, 3 and 4 K1 and K2 replace the deleted Pallas window kernels
@@ -842,7 +952,11 @@ KB_REPLACES = {"paint_cic": "montecosmo_tpu/ops/paint_window.py:54",
                "nufft_epilogue": "montecosmo_tpu/ops/fourier.py:238",
                "read_cic": "montecosmo_tpu/ops/paint_window.py:378",
                "read_cic_adjoint": "montecosmo_tpu/ops/paint_window.py:395"}
-LPT_KERNELS = ("paint_cic", "paint_cic_adjoint", "nufft_epilogue")
+# the launch counts' names on the model paths: every model paint is clamped
+# to the lattice, so K1 and K5 run their lattice-brick designs there
+PATH_NAME = {"paint_cic": "paint_cic_tiled", "read_cic_adjoint": "read_cic_adjoint_tiled"}
+LPT_KERNELS = ("paint_cic_tiled", "paint_cic_adjoint", "nufft_epilogue")
+NBODY_KERNELS = LPT_KERNELS + ("read_cic", "read_cic_adjoint_tiled")
 PROFILES = []
 
 
@@ -857,9 +971,10 @@ def main():
     phase_golden("nbody")
     launches = {("rectangular", order): phase_lightcone_32(order) for order in (3, 1, 4)}
     launches |= {(KB, order): n for order, n in phase_curved_32().items()}
-    phase_bench("lpt", LPT_KERNELS)
-    launches["rectangular", 2] = phase_bench("nbody", tuple(SOURCES))
-    launches["rectangular", 3] = phase_bench("nbody", tuple(SOURCES), "nbody light cone, TSC",
+    flagship = {"paint_cic": phase_bench("lpt", LPT_KERNELS, capture="paint")[1]}
+    launches["rectangular", 2], flagship["read_cic_adjoint"] = phase_bench(
+        "nbody", NBODY_KERNELS, capture="read")
+    launches["rectangular", 3] = phase_bench("nbody", NBODY_KERNELS, "nbody light cone, TSC",
                                              a_obs=None, paint_order=3)
     # the flagship on the JAX package's default sky: curved, the light cone
     launches[KB, 4] = phase_bench("lpt", LPT_KERNELS, "curved-sky light cone, Kaiser-Bessel 4",
@@ -876,7 +991,10 @@ def main():
                 rep = WINDOW_PALLAS.get(n, rep)
             kernels.append({"name": n + sfx, "route": r, "source": s, "replaces": rep,
                             "window": "kb" if kernel == KB else "bspline", "order": order,
-                            "launches": launches[kernel, order].get(n, 0), **res[n + sfx]})
+                            "launches": launches[kernel, order].get(PATH_NAME.get(n, n), 0),
+                            **res[n + sfx]})
+            if kernel != KB and order == 2 and n in flagship:
+                kernels[-1] |= flagship[n]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,10 @@
 // Interlaced paint (K1) and its adjoint (K2) for lattice-ordered particles;
-// the C-channel read (K4) and its adjoint (K5).  Every kernel is a template
-// on its window W: the B-spline BSpline<P> of order P = 1 (NGP), 2 (CIC),
-// 3 (TSC) or 4 (PCS), or the Kaiser-Bessel window KaiserBessel<P> of
-// support P = 1-4; the file and kernel names come from the CIC (order-2)
+// the C-channel read (K4) and its adjoint (K5): one thread per particle,
+// every corner product sent to device memory with an atomic add.  These
+// are the kernels of the unclamped scatter (no lattice) and of K2/K4;
+// the clamped (lattice) K1 and K5 are the lattice-brick kernels of
+// paint_tiled.cu.  The windows, the clamp and the geometry are shared, in
+// paint_window.cuh; the file and kernel names come from the CIC (order-2)
 // version.
 //
 // Replaces, on the model's main path, the XLA window paint
@@ -13,34 +15,7 @@
 // ops/paint_window_pallas.py::_paint_group_kernel / _paint_group_bwd_kernel
 // with the windows _bspline_T / _dbspline_T, orders 1-4).
 //
-// Math, per particle p with lattice site q_p and per interlace shift
-// s/n (s = 0..n-1): x = q_p + clamp(pos_p + s/n - q_p, -H, H) (the clamp is
-// applied after the shift, as paint_window clamps the shifted position).
-// Per axis, the base cell c0 is rint(x) for odd P (round half to even, as
-// jnp.round) and floor(x) for even P; the P cells c0 - (P-1)/2 + k,
-// k = 0..P-1, get the weights bspline(cell - x, P) (ops/fourier.py), and
-// the P^3 products go to the periodic cells of mesh s (the Kaiser-Bessel
-// window: the same cells, weights w(c - x) below).  Without a lattice
-// there is no clamp (the plain scatter of ops/paint.py::paint).  NGP ties:
-// paint_window rounds x - b, b its lattice group's window base, so a
-// half-integer x goes to the neighbour of b's parity; with the group span B
-// and margin M of that geometry (Geom::B, M) the kernels do the same, and
-// without them (B = 0) they round x itself, as ops/paint.py::paint does.
-//
-// Kaiser-Bessel (ops/fourier.py::kaiser_bessel, Barnett et al. 2019; the
-// JAX package's kernel_type='kaiser_bessel', which its Pallas window kernel
-// handed back to XLA): with u = 2 (c - x) / P and z = beta sqrt(max(1 - u^2,
-// 0)), w = i0(z) / norm and dw/dx = (i1(z) / z) beta^2 u (2 / P) / norm,
-// i1(z) / z taken as its limit 1/2 at z = 0, where the JAX window path's
-// autodiff gives NaN; beta = kcut P / 2 and 1 / norm = beta / (P sinh(beta))
-// come from the host (Geom).  KB is non-zero at its support edge, and the
-// stencil cells lie within |u| <= 1, so a u of 1 + eps gives the edge value.
-// As in the JAX window path, the clamped window of support 1 is the one-hot
-// NGP whatever W is.  A KB weight costs one cyl_bessel_i0f (the adjoints
-// also one cyl_bessel_i1f) per cell and axis, computed once per particle
-// and shift: 3P Bessel evaluations against P^3 corners.
-//
-// What bounds it on an H100: K1 is P^3 n float atomics per particle
+// What bounds it on an H100: K1 here is P^3 n float atomics per particle
 // (11.24M particles x 2 shifts: 22M at NGP, 180M at CIC, 607M at TSC,
 // 1.44G at PCS) into a 45 MB mesh per shift, i.e. the L2 atomic throughput.
 // The TPU kernels built per-group one-hot windows for the MXU because
@@ -76,168 +51,16 @@
 // into dmesh (P^3 C float atomics per particle: 270M at 224^3 with C = 3 at
 // CIC, 910M at TSC, so it is bound by the L2 atomic rate as K1 is) and the
 // position gradient from the derivative window, zeroed on clamped axes
-// (K2's rule).  Channel-last leaves room for sm_90's vector atomicAdd on
-// float2/float4 (C padded to 4) in a later version.
+// (K2's rule).  The lattice-brick K5 of paint_tiled.cu folds its tile
+// with sm_90's vector atomicAdd on float2/float4 where C allows.
 //
 // Plain C interface, loaded with ctypes; each entry point returns
 // cudaGetLastError() of its launch (cudaErrorInvalidValue for an order
 // outside 1-4, or for K4/K5 a channel count outside 1-4).  The window is
 // chosen at run time among the 8 instantiations of each kernel.
-#include <cuda_runtime.h>
-#include <cstdint>
+#include "paint_window.cuh"
 
 namespace {
-
-struct Geom {
-  int X, Y, Z;      // mesh
-  int Lx, Ly, Lz;   // particle lattice (clamp only)
-  float sx, sy, sz; // lattice stride in mesh cells
-  float Hx, Hy, Hz; // clamp bound per axis
-  int clamp;
-  int n_shift;
-  int Bx, By, Bz;   // NGP ties: window-group span in mesh cells, 0 for none
-  int Mx, My, Mz;   // NGP ties: window margin in mesh cells
-  float beta;       // Kaiser-Bessel: kcut P / 2 (unused by the B-spline)
-  float inv_norm;   // Kaiser-Bessel: beta / (P sinh(beta))
-};
-
-__device__ __forceinline__ int wrap(int i, int n) {
-  int r = i % n;
-  return r < 0 ? r + n : r;
-}
-
-__device__ __forceinline__ void site_of(int64_t p, const Geom& g, float& qx, float& qy,
-                                        float& qz) {
-  const int64_t lz = p % g.Lz;
-  const int64_t t = p / g.Lz;
-  const int64_t ly = t % g.Ly;
-  const int64_t lx = t / g.Ly;
-  qx = (float)lx * g.sx;
-  qy = (float)ly * g.sy;
-  qz = (float)lz * g.sz;
-}
-
-// Window base of the lattice group of site q (an integer in mesh cells),
-// the origin the JAX window paint rounds NGP positions from.
-__device__ __forceinline__ float group_base(float q, int B, int M) {
-  return B ? (float)(((int)q / B) * B - M) : 0.f;
-}
-
-// Shifted (unclamped) position v and painted position x on one axis;
-// returns whether the position derivative passes the clamp.
-__device__ __forceinline__ bool place(float v, float q, float H, int clamp, float& x) {
-  if (!clamp) {
-    x = v;
-    return true;
-  }
-  const float d = v - q;
-  x = q + fminf(fmaxf(d, -H), H);
-  return fabsf(d) < H;
-}
-
-// The P cells of one axis around x (wrapped to [0, n)), their window
-// weights w and the weights' derivatives d = dw/dx.  b is the NGP tie origin.
-template <int P>
-struct Win {
-  int i[P];
-  float w[P];
-  float d[P];
-};
-
-template <int P>
-__device__ __forceinline__ void bspline_window(float x, int n, float b, Win<P>& o) {
-  float c0;
-  if constexpr (P == 1) {
-    c0 = rintf(x - b) + b;
-    o.w[0] = 1.f;
-    o.d[0] = 0.f;
-  } else if constexpr (P == 2) {
-    c0 = floorf(x);
-    const float t = x - c0;
-    o.w[0] = 1.f - t;
-    o.w[1] = t;
-    o.d[0] = -1.f;
-    o.d[1] = 1.f;
-  } else if constexpr (P == 3) {
-    c0 = rintf(x);
-    const float t = x - c0;  // in [-1/2, 1/2]
-    const float u = 0.5f - t, v = 0.5f + t;
-    o.w[0] = 0.5f * u * u;
-    o.w[1] = 0.75f - t * t;
-    o.w[2] = 0.5f * v * v;
-    o.d[0] = -u;
-    o.d[1] = -2.f * t;
-    o.d[2] = v;
-  } else {
-    c0 = floorf(x);
-    const float t = x - c0;  // in [0, 1)
-    const float u = 1.f - t;
-    o.w[0] = u * u * u / 6.f;
-    o.w[1] = (4.f - 6.f * t * t + 3.f * t * t * t) / 6.f;
-    o.w[2] = (4.f - 6.f * u * u + 3.f * u * u * u) / 6.f;
-    o.w[3] = t * t * t / 6.f;
-    o.d[0] = -0.5f * u * u;
-    o.d[1] = -2.f * t + 1.5f * t * t;
-    o.d[2] = 2.f * u - 1.5f * u * u;
-    o.d[3] = 0.5f * t * t;
-  }
-  const int first = (int)c0 - (P - 1) / 2;
-#pragma unroll
-  for (int k = 0; k < P; ++k) o.i[k] = wrap(first + k, n);
-}
-
-template <int P_>
-struct BSpline {
-  static constexpr int P = P_;
-  static __device__ __forceinline__ void eval(float x, int n, float b, const Geom&, Win<P>& o) {
-    bspline_window<P>(x, n, b, o);
-  }
-};
-
-template <int P_>
-struct KaiserBessel {
-  static constexpr int P = P_;
-  static __device__ __forceinline__ void eval(float x, int n, float b, const Geom& g,
-                                              Win<P>& o) {
-    if constexpr (P == 1) {
-      if (g.clamp) {  // the window path's one-hot NGP
-        bspline_window<1>(x, n, b, o);
-        return;
-      }
-    }
-    const float c0 = (P % 2) ? rintf(x - b) + b : floorf(x);
-    const int first = (int)c0 - (P - 1) / 2;
-    const float dscale = g.beta * g.beta * (2.f / (float)P) * g.inv_norm;
-#pragma unroll
-    for (int k = 0; k < P; ++k) {
-      const float u = ((float)(first + k) - x) * 2.f / (float)P;
-      const float z = g.beta * sqrtf(fmaxf(1.f - u * u, 0.f));
-      o.w[k] = cyl_bessel_i0f(z) * g.inv_norm;
-      o.d[k] = (z > 0.f ? cyl_bessel_i1f(z) / z : 0.5f) * u * dscale;
-      o.i[k] = wrap(first + k, n);
-    }
-  }
-};
-
-// Site, NGP tie origins of one particle (zeros without a lattice).
-struct Site {
-  float qx = 0.f, qy = 0.f, qz = 0.f, bx = 0.f, by = 0.f, bz = 0.f;
-};
-
-template <int P>
-__device__ __forceinline__ Site site(int64_t p, const Geom& g) {
-  Site s;
-  if (!g.clamp) return s;
-  site_of(p, g, s.qx, s.qy, s.qz);
-  if constexpr (P == 1) {
-    s.bx = group_base(s.qx, g.Bx, g.Mx);
-    s.by = group_base(s.qy, g.By, g.My);
-    s.bz = group_base(s.qz, g.Bz, g.Mz);
-  }
-  return s;
-}
-
-constexpr int kMaxC = 4;  // channels of one K4/K5 launch (the force read has 3)
 
 template <class W>
 __global__ void paint_cic_forward_kernel(const float* __restrict__ pos,
@@ -425,38 +248,9 @@ __global__ void read_cic_adjoint_kernel(const float* __restrict__ pos,
 
 constexpr int kThreads = 256;
 
-Geom make_geom(int X, int Y, int Z, int Lx, int Ly, int Lz, float sx, float sy, float sz,
-               float Hx, float Hy, float Hz, int clamp, int n_shift, int Bx, int By, int Bz,
-               int Mx, int My, int Mz, float beta, float inv_norm) {
-  return Geom{X,  Y,  Z,  Lx,    Ly,      Lz, sx, sy, sz, Hx, Hy,
-              Hz, clamp, n_shift, Bx, By, Bz, Mx, My, Mz, beta, inv_norm};
-}
-
 unsigned blocks_for(long long n_p) { return (unsigned)((n_p + kThreads - 1) / kThreads); }
 
 }  // namespace
-
-#define GEOM_PARAMS                                                                       \
-  int X, int Y, int Z, int Lx, int Ly, int Lz, float sx, float sy, float sz, float Hx,    \
-      float Hy, float Hz, int clamp, int n_shift, int order, int Bx, int By, int Bz,      \
-      int Mx, int My, int Mz, int kb, float beta, float inv_norm
-#define GEOM_ARGS \
-  X, Y, Z, Lx, Ly, Lz, sx, sy, sz, Hx, Hy, Hz, clamp, n_shift, Bx, By, Bz, Mx, My, Mz, beta, inv_norm
-// Launches the kernel expression (which names the window W) at the runtime
-// order and window (kb: Kaiser-Bessel, else B-spline), when there are
-// particles; an order outside 1-4 returns cudaErrorInvalidValue.
-#define DISPATCH_WINDOW(order, kb, ...)                                              \
-  switch (2 * (order) + ((kb) ? 1 : 0)) {                                           \
-    case 2: { using W = BSpline<1>; if (n_p > 0) __VA_ARGS__; } break;              \
-    case 3: { using W = KaiserBessel<1>; if (n_p > 0) __VA_ARGS__; } break;         \
-    case 4: { using W = BSpline<2>; if (n_p > 0) __VA_ARGS__; } break;              \
-    case 5: { using W = KaiserBessel<2>; if (n_p > 0) __VA_ARGS__; } break;         \
-    case 6: { using W = BSpline<3>; if (n_p > 0) __VA_ARGS__; } break;              \
-    case 7: { using W = KaiserBessel<3>; if (n_p > 0) __VA_ARGS__; } break;         \
-    case 8: { using W = BSpline<4>; if (n_p > 0) __VA_ARGS__; } break;              \
-    case 9: { using W = KaiserBessel<4>; if (n_p > 0) __VA_ARGS__; } break;         \
-    default: return (int)cudaErrorInvalidValue;                                      \
-  }
 
 extern "C" int paint_cic_forward(const float* pos, const float* w, long long n_p, GEOM_PARAMS,
                                  float* out, void* stream) {

@@ -1,0 +1,543 @@
+// Lattice-brick K1 (the clamped paint) and K5 (the clamped read's adjoint):
+// the scatter of paint_cic.cu summed in shared memory first.  Used whenever
+// the geometry has a particle lattice (the clamp to the sites): every model
+// paint (the render's nufft and the N-body force paint) and the N-body
+// force read's VJP.  The unclamped scatter and read_multi keep the atomic
+// kernels of paint_cic.cu.  Windows, clamp and geometry: paint_window.cuh.
+//
+// Replaces, as paint_cic.cu's K1 and K5 do, the XLA window paint
+// montecosmo_tpu/ops/paint_window.py::paint_window and the deleted Pallas
+// kernels ops/paint_pallas.py::paint_pallas_cic and
+// ops/paint_window_pallas.py::_paint_group_kernel, which built one-hot
+// windows per lattice group for the MXU; and the XLA autodiff of
+// paint_window.py::read_window.
+//
+// What bounds the atomic design on an H100: every one of a particle's P^3
+// (times C) corner products is a float atomic in L2 (K1 at 224^3 with 2
+// shifts: 180M at CIC, 1.44G at PCS), so the L2 atomic rate, not the bytes,
+// sets its time.  What this design does about it: the particles sit on a
+// lattice and the clamp keeps each within +-H cells of its site, so the
+// corners of a brick of sites fall in a small box of the mesh.  One CTA
+// owns a brick of lattice sites (ops/paint.py::tile_plan picks it and the
+// margin R) and sums its particles' corner products in a tile of the mesh
+// in dynamic shared memory: per axis (b - 1) stride + 2 R + P cells from the
+// brick's first site - R - (P-1)/2, a particle's P cells tested in
+// unwrapped coordinates.  A particle whose cells do not all fall in the
+// tile (displaced more than about R) sends its corners to device memory as
+// the atomic kernel does, so the result never depends on R or on the
+// displacements.  After a barrier the tile is folded into the mesh: the
+// box of cells the in-tile particles reached, one reduction (RED) per
+// touched cell at its wrapped mesh cell.  Neighbouring tiles overlap, so
+// the caller zeroes the output.
+//
+// On sm_90a a float atomicAdd to shared memory is a compare-and-swap loop
+// (ATOMS.CAST.SPIN), which measured only ~2x the rate of the L2 atomics;
+// 32-bit integer atomics are native (ATOMS.ADD).  So the tile holds fixed
+// point: each CTA scales its values by 2^k from their largest magnitude
+// and adds each rounded product as two 32-bit words.  The sum is exact in
+// that fixed point (its quantum is ~2^-40 of the largest value) and is
+// rounded to float once, at the fold.
+//
+// K1 is the C = 1 case of the tile, once per interlace shift (the tile is
+// painted and folded per shift); K5 the C-channel case (the cotangent's
+// channel-last paint into dmesh; its fold adds C = 2 and 4 channels as one
+// vector RED, sm_90's float2/float4 atomicAdd), and K5's position gradient
+// keeps K5's gather of `mesh` at the corners (K4's access pattern).
+//
+// Plain C interface, loaded with ctypes, as paint_cic.cu; each entry point
+// sets the tile's shared memory, launches one CTA per brick and returns
+// cudaGetLastError() (cudaErrorInvalidValue for an order outside 1-4, a
+// geometry without a lattice, a channel count outside 1-4, a brick of more
+// than kMaxSites sites or a tile larger than its shared memory).  An
+// optional counter gets the number of corner products (not channels) that
+// took the device-memory path.
+#include "paint_window.cuh"
+
+namespace {
+
+constexpr int kTileThreads = 256;
+constexpr int kTileCTAs = 4;  // per SM: ops/paint.py::TILE_BYTES fits four tiles
+
+// The brick and tile of one launch (ops/paint.py::tile_plan): brick in
+// lattice sites, margin R and tile extent T in mesh cells.
+struct Tiles {
+  int b[3];
+  int R;
+  int T[3];
+};
+
+// One CTA's brick: its first site, its extent (smaller at the lattice's far
+// edge) and its tile's origin, in unwrapped mesh cells.
+struct Brick {
+  int l[3], n[3], o[3];
+};
+
+template <int P>
+__device__ __forceinline__ Brick brick_of(int id, const Geom& g, const Tiles& t) {
+  const int L[3] = {g.Lx, g.Ly, g.Lz};
+  const int s[3] = {(int)g.sx, (int)g.sy, (int)g.sz};
+  const int n2 = (g.Lz + t.b[2] - 1) / t.b[2], n1 = (g.Ly + t.b[1] - 1) / t.b[1];
+  const int idx[3] = {id / (n1 * n2), (id / n2) % n1, id % n2};
+  Brick k;
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    k.l[a] = idx[a] * t.b[a];
+    k.n[a] = min(t.b[a], L[a] - k.l[a]);
+    k.o[a] = k.l[a] * s[a] - t.R - (P - 1) / 2;
+  }
+  return k;
+}
+
+// The lattice site l and particle index of the brick's i-th site, z
+// fastest as the lattice.
+__device__ __forceinline__ int64_t brick_site(const Brick& k, int i, const Geom& g, int (&l)[3]) {
+  const int r = i / k.n[2];
+  l[0] = k.l[0] + r / k.n[1];
+  l[1] = k.l[1] + r % k.n[1];
+  l[2] = k.l[2] + i % k.n[2];
+  return ((int64_t)l[0] * g.Ly + l[1]) * g.Lz + l[2];
+}
+
+// Whether the P cells of w lie in the tile [o, o + T) on this axis, and the
+// first one's tile coordinate t0.
+template <int P>
+__device__ __forceinline__ bool in_tile(const Win<P>& w, int o, int T, int& t0) {
+  t0 = w.lo - o;
+  return t0 >= 0 && t0 + P <= T;
+}
+
+// The brick's i-th particle (z fastest, as the lattice) at interlace shift
+// sh: its index p, its windows, whether the position derivative passes
+// the clamp on each axis, and whether all of its cells fall in the tile
+// (then t0 is its first cell in tile coordinates).
+template <class W>
+struct Stencil {
+  int64_t p;
+  Win<W::P> w[3];
+  bool pass[3];
+  int t0[3];
+  bool inside;
+};
+
+template <class W>
+__device__ __forceinline__ void stencil(Stencil<W>& st, const float* pos, const Brick& k,
+                                        const Tiles& t, const Geom& g, int i, float sh) {
+  constexpr int P = W::P;
+  int l[3];
+  st.p = brick_site(k, i, g, l);
+  const Site q = site_at<P>(l[0], l[1], l[2], g);
+  float x[3];
+  st.pass[0] = place(pos[3 * st.p] + sh, q.qx, g.Hx, g.clamp, x[0]);
+  st.pass[1] = place(pos[3 * st.p + 1] + sh, q.qy, g.Hy, g.clamp, x[1]);
+  st.pass[2] = place(pos[3 * st.p + 2] + sh, q.qz, g.Hz, g.clamp, x[2]);
+  W::eval(x[0], g.X, q.bx, g, st.w[0]);
+  W::eval(x[1], g.Y, q.by, g, st.w[1]);
+  W::eval(x[2], g.Z, q.bz, g, st.w[2]);
+  st.inside = in_tile(st.w[0], k.o[0], t.T[0], st.t0[0]) &
+              in_tile(st.w[1], k.o[1], t.T[1], st.t0[1]) &
+              in_tile(st.w[2], k.o[2], t.T[2], st.t0[2]);
+}
+
+// A tile value in fixed point: the integer q = rint(v 2^k) of each float
+// v added to it, split over two 32-bit words (lo: the low kLoBits bits of
+// q, hi: the rest, q = hi 2^kLoBits + lo), because on sm_90a only 32-bit
+// integer atomics are native in shared memory (a float atomicAdd there is a
+// compare-and-swap loop, ATOMS.CAST.SPIN).  With at most kMaxSites
+// particles per brick, each adding at most once to a cell, lo never passes
+// 2^(kLoBits + 10) and the sum never 2^52.
+struct Fixed {
+  unsigned lo;
+  int hi;
+};
+constexpr int kLoBits = 21;
+constexpr int kMaxSites = 1024;
+
+// The CTA's scale 2^k from the largest |value| vmax of its brick (as float
+// bits): n_site vmax 2^k < 2^50, which leaves a factor 4 for the window
+// product (at most 1 for every window here).  ok is false for a
+// non-finite value or a k outside float's exponents: the brick then goes
+// to device memory whole.
+struct Scale {
+  float to_fixed;   // 2^k
+  double to_float;  // 2^-k
+  bool ok;
+};
+
+__device__ __forceinline__ Scale scale_of(unsigned vmax_bits, int n_site) {
+  Scale sc{1.f, 1.0, vmax_bits < 0x7f800000u};
+  if (!sc.ok || vmax_bits == 0) return sc;
+  const int e = (int)(vmax_bits >> 23) - 127;  // vmax < 2^(e + 1)
+  const int nb = 32 - __clz(n_site - 1);       // n_site <= 2^nb
+  const int k = 50 - (e + 1) - nb;
+  sc.ok = k >= -126 && k <= 127;
+  if (sc.ok) {
+    sc.to_fixed = __int_as_float((k + 127) << 23);
+    sc.to_float = __longlong_as_double((long long)(1023 - k) << 52);
+  }
+  return sc;
+}
+
+// Merges the threads' largest |value| bits into `shared` (zeroed before).
+__device__ __forceinline__ void reduce_max(unsigned mine, unsigned& shared) {
+  mine = __reduce_max_sync(0xffffffffu, mine);
+  if (threadIdx.x % 32 == 0) atomicMax(&shared, mine);
+}
+
+__device__ __forceinline__ unsigned abs_bits(float v) { return __float_as_uint(v) & 0x7fffffffu; }
+
+__device__ __forceinline__ void zero_tile(Fixed* tile, int n) {
+  float4* t4 = reinterpret_cast<float4*>(tile);
+  for (int i = threadIdx.x; i < n / 2; i += blockDim.x) t4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (n % 2 && threadIdx.x == 0) tile[n - 1] = Fixed{0u, 0};
+}
+
+__device__ __forceinline__ void add_fixed(Fixed* f, float x) {
+  const long long q = __float2ll_rn(x);
+  if (q != 0) {
+    atomicAdd(&f->lo, (unsigned)q & ((1u << kLoBits) - 1u));
+    atomicAdd(&f->hi, (int)(q >> kLoBits));
+  }
+}
+
+// The P^3 corner products val[ch] W(corner) of one particle into the tile,
+// its first cell at tile coordinates (tx, ty, tz), scaled to fixed point...
+template <int C, int P>
+__device__ __forceinline__ void tile_paint(Fixed* tile, const Tiles& t, int tx, int ty, int tz,
+                                           const Win<P>& wx, const Win<P>& wy, const Win<P>& wz,
+                                           const float (&val)[C], float to_fixed) {
+  float v[C];
+#pragma unroll
+  for (int ch = 0; ch < C; ++ch) v[ch] = val[ch] * to_fixed;
+#pragma unroll
+  for (int a = 0; a < P; ++a)
+#pragma unroll
+    for (int b = 0; b < P; ++b) {
+      Fixed* row = tile + (((tx + a) * t.T[1] + ty + b) * t.T[2] + tz) * C;
+      const float wab = wx.w[a] * wy.w[b];
+#pragma unroll
+      for (int c = 0; c < P; ++c) {
+        const float wt = wab * wz.w[c];
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) add_fixed(row + c * C + ch, wt * v[ch]);
+      }
+    }
+}
+
+// ...or into the mesh at the wrapped cells (device-memory atomics, the
+// atomic kernels' path).
+template <int C, int P>
+__device__ __forceinline__ void mesh_paint(float* out, const Geom& g, const Win<P>& wx,
+                                           const Win<P>& wy, const Win<P>& wz,
+                                           const float (&val)[C]) {
+#pragma unroll
+  for (int a = 0; a < P; ++a)
+#pragma unroll
+    for (int b = 0; b < P; ++b) {
+      const int64_t row = ((int64_t)wx.i[a] * g.Y + wy.i[b]) * g.Z;
+      const float wab = wx.w[a] * wy.w[b];
+#pragma unroll
+      for (int c = 0; c < P; ++c) {
+        const float wt = wab * wz.w[c];
+        float* cell = out + (row + wz.i[c]) * C;
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) atomicAdd(cell + ch, wt * val[ch]);
+      }
+    }
+}
+
+// The box of tile cells that the CTA's in-tile particles reached, in tile
+// coordinates: lo[a] <= cell < hi[a].  Each thread widens its own box;
+// `reach` merges them (warp reductions, then shared-memory integer
+// atomics) into the shared box, which `open_box` empties before the
+// particles run (the caller's barriers order the three).
+struct Box {
+  int lo[3], hi[3];
+};
+
+__device__ __forceinline__ void open_box(Box& b) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    b.lo[a] = 1 << 30;
+    b.hi[a] = -(1 << 30);
+  }
+}
+
+template <int P>
+__device__ __forceinline__ void widen(Box& b, const int (&t0)[3]) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    b.lo[a] = min(b.lo[a], t0[a]);
+    b.hi[a] = max(b.hi[a], t0[a] + P);
+  }
+}
+
+__device__ __forceinline__ void reach(const Box& mine, Box& shared) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const int lo = __reduce_min_sync(0xffffffffu, mine.lo[a]);
+    const int hi = __reduce_max_sync(0xffffffffu, mine.hi[a]);
+    if (threadIdx.x % 32 == 0 && lo < hi) {
+      atomicMin(&shared.lo[a], lo);
+      atomicMax(&shared.hi[a], hi);
+    }
+  }
+}
+
+// The fold: the box's cells of the tile (C values per cell) added into the
+// (X, Y, Z, C) mesh as floats, z fastest so that a warp's reductions (RED)
+// fall in few 128-byte lines, and zeroed in the tile.  Each cell is wrapped
+// periodically (a tile wider than the mesh adds its aliased cells in turn);
+// cells that no particle reached are skipped.  K5's C = 2 and 4 channels
+// go as one vector reduction (sm_90's float2/float4 atomicAdd).
+template <int C>
+__device__ __forceinline__ void fold(Fixed* tile, const Box& box, const Brick& k,
+                                     const Tiles& t, const Geom& g, double to_float,
+                                     float* out) {
+  const int n0 = box.hi[0] - box.lo[0], n1 = box.hi[1] - box.lo[1], n2 = box.hi[2] - box.lo[2];
+  const int n = n0 > 0 && n1 > 0 && n2 > 0 ? n0 * n1 * n2 : 0;
+  for (int e = threadIdx.x; e < n; e += blockDim.x) {
+    const int az = box.lo[2] + e % n2, r = e / n2;
+    const int ay = box.lo[1] + r % n1, ax = box.lo[0] + r / n1;
+    Fixed* cell = tile + ((ax * t.T[1] + ay) * t.T[2] + az) * C;
+    float v[C];
+    bool hit = false;
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      const Fixed f = cell[ch];
+      v[ch] = 0.f;
+      if (f.lo | f.hi) {
+        hit = true;
+        cell[ch] = Fixed{0u, 0};
+        v[ch] = (float)((double)((long long)f.hi * (1LL << kLoBits) + f.lo) * to_float);
+      }
+    }
+    if (!hit) continue;
+    float* dst = out + (((int64_t)wrap(k.o[0] + ax, g.X) * g.Y + wrap(k.o[1] + ay, g.Y)) * g.Z
+                        + wrap(k.o[2] + az, g.Z)) * C;
+    if constexpr (C == 4) {
+      atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
+    } else if constexpr (C == 2) {
+      atomicAdd(reinterpret_cast<float2*>(dst), make_float2(v[0], v[1]));
+    } else {
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch)
+        if (v[ch] != 0.f) atomicAdd(dst + ch, v[ch]);
+    }
+  }
+}
+
+// Adds the CTA's count of corner products sent to device memory to *n_out
+// (when given); `total` is a shared counter zeroed before the first barrier.
+__device__ __forceinline__ void count_outliers(unsigned mine, unsigned& total,
+                                               unsigned long long* n_out) {
+  if (mine) atomicAdd(&total, mine);
+  __syncthreads();
+  if (threadIdx.x == 0 && n_out != nullptr && total) atomicAdd(n_out, (unsigned long long)total);
+}
+
+template <class W>
+__global__ void __launch_bounds__(kTileThreads, kTileCTAs)
+    paint_cic_tiled_kernel(const float* __restrict__ pos, const float* __restrict__ w, Geom g,
+                           Tiles t, float* __restrict__ out, unsigned long long* n_out) {
+  extern __shared__ float4 smem[];
+  Fixed* tile = reinterpret_cast<Fixed*>(smem);
+  __shared__ unsigned n_glob, vmax;
+  __shared__ Box box;
+  constexpr int P = W::P;
+  const Brick k = brick_of<P>(blockIdx.x, g, t);
+  const int n_site = k.n[0] * k.n[1] * k.n[2];
+  const int64_t N = (int64_t)g.X * g.Y * g.Z;
+  if (threadIdx.x == 0) n_glob = vmax = 0;
+  zero_tile(tile, t.T[0] * t.T[1] * t.T[2]);  // each fold leaves it zeroed
+  unsigned mine = 0;
+  for (int i = threadIdx.x; i < n_site; i += blockDim.x) {
+    int l[3];
+    mine = max(mine, abs_bits(w[brick_site(k, i, g, l)]));
+  }
+  __syncthreads();
+  reduce_max(mine, vmax);
+  mine = 0;
+  for (int s = 0; s < g.n_shift; ++s) {
+    if (threadIdx.x == 0) open_box(box);
+    __syncthreads();
+    const Scale sc = scale_of(vmax, n_site);
+    const float sh = (float)s / (float)g.n_shift;
+    Box reached;
+    open_box(reached);
+    for (int i = threadIdx.x; i < n_site; i += blockDim.x) {
+      Stencil<W> st;
+      stencil(st, pos, k, t, g, i, sh);
+      const float val[1] = {w[st.p]};
+      if (sc.ok & st.inside) {
+        tile_paint<1>(tile, t, st.t0[0], st.t0[1], st.t0[2], st.w[0], st.w[1], st.w[2], val,
+                      sc.to_fixed);
+        widen<P>(reached, st.t0);
+      } else {
+        mesh_paint<1>(out + s * N, g, st.w[0], st.w[1], st.w[2], val);
+        mine += P * P * P;
+      }
+    }
+    reach(reached, box);
+    __syncthreads();
+    fold<1>(tile, box, k, t, g, sc.to_float, out + s * N);
+    __syncthreads();
+  }
+  count_outliers(mine, n_glob, n_out);
+}
+
+// K5: dmesh (zeroed by the caller) gets the C-channel paint of ct through
+// the tile; dpos the position gradient as paint_cic.cu's K5 forms it.
+template <class W, int C>
+__global__ void __launch_bounds__(kTileThreads, kTileCTAs)
+    read_cic_adjoint_tiled_kernel(const float* __restrict__ pos, const float* __restrict__ mesh,
+                                  const float* __restrict__ ct, Geom g, Tiles t,
+                                  float* __restrict__ dmesh, float* __restrict__ dpos,
+                                  unsigned long long* n_out) {
+  extern __shared__ float4 smem[];
+  Fixed* tile = reinterpret_cast<Fixed*>(smem);
+  __shared__ unsigned n_glob, vmax;
+  __shared__ Box box;
+  constexpr int P = W::P;
+  const Brick k = brick_of<P>(blockIdx.x, g, t);
+  const int n_site = k.n[0] * k.n[1] * k.n[2];
+  if (threadIdx.x == 0) {
+    n_glob = vmax = 0;
+    open_box(box);
+  }
+  zero_tile(tile, t.T[0] * t.T[1] * t.T[2] * C);
+  unsigned mine = 0;
+  for (int i = threadIdx.x; i < n_site; i += blockDim.x) {
+    int l[3];
+    const int64_t p = brick_site(k, i, g, l);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) mine = max(mine, abs_bits(ct[p * C + ch]));
+  }
+  __syncthreads();
+  reduce_max(mine, vmax);
+  mine = 0;
+  __syncthreads();
+  const Scale sc = scale_of(vmax, n_site);
+  Box reached;
+  open_box(reached);
+  for (int i = threadIdx.x; i < n_site; i += blockDim.x) {
+    Stencil<W> st;
+    stencil(st, pos, k, t, g, i, 0.f);
+    const Win<P>&wx = st.w[0], &wy = st.w[1], &wz = st.w[2];
+    float val[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) val[ch] = ct[st.p * C + ch];
+    if (sc.ok & st.inside) {
+      tile_paint<C>(tile, t, st.t0[0], st.t0[1], st.t0[2], wx, wy, wz, val, sc.to_fixed);
+      widen<P>(reached, st.t0);
+    } else {
+      mesh_paint<C>(dmesh, g, wx, wy, wz, val);
+      mine += P * P * P;
+    }
+    float sx = 0.f, sy = 0.f, sz = 0.f;
+#pragma unroll
+    for (int a = 0; a < P; ++a)
+#pragma unroll
+      for (int b = 0; b < P; ++b) {
+        const int64_t row = ((int64_t)wx.i[a] * g.Y + wy.i[b]) * g.Z;
+        const float wxy = wx.w[a] * wy.w[b], dxy = wx.d[a] * wy.w[b],
+                    xdy = wx.w[a] * wy.d[b];
+#pragma unroll
+        for (int c = 0; c < P; ++c) {
+          const float gx = dxy * wz.w[c], gy = xdy * wz.w[c], gz = wxy * wz.d[c];
+          const float* m = mesh + (row + wz.i[c]) * C;
+#pragma unroll
+          for (int ch = 0; ch < C; ++ch) {
+            const float v = val[ch] * __ldg(m + ch);
+            sx += v * gx;
+            sy += v * gy;
+            sz += v * gz;
+          }
+        }
+      }
+    dpos[3 * st.p] = st.pass[0] ? sx : 0.f;
+    dpos[3 * st.p + 1] = st.pass[1] ? sy : 0.f;
+    dpos[3 * st.p + 2] = st.pass[2] ? sz : 0.f;
+  }
+  reach(reached, box);
+  __syncthreads();
+  fold<C>(tile, box, k, t, g, sc.to_float, dmesh);
+  count_outliers(mine, n_glob, n_out);
+}
+
+// Sets the kernel's dynamic shared memory to the tile's bytes and launches
+// one CTA per brick of the lattice.
+template <class... A, class... B>
+int launch_tiled(void (*kernel)(A...), const Geom& g, const Tiles& t, int smem, void* stream,
+                 B... args) {
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (e != cudaSuccess) return (int)e;
+  const unsigned n_brick = (unsigned)(((g.Lx + t.b[0] - 1) / t.b[0]) *
+                                      ((g.Ly + t.b[1] - 1) / t.b[1]) *
+                                      ((g.Lz + t.b[2] - 1) / t.b[2]));
+  kernel<<<n_brick, kTileThreads, smem, (cudaStream_t)stream>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+// Whether the plan is one the kernels can take: a lattice, a brick of 1 to
+// kMaxSites sites, a tile of at least one cell that fits its shared memory
+// (8 bytes a value).
+bool plan_ok(const Geom& g, const Tiles& t, int C, int smem) {
+  bool ok = g.clamp && t.R >= 0 && C >= 1 && C <= kMaxC;
+  long long cells = 1, sites = 1;
+  for (int a = 0; a < 3; ++a) {
+    ok = ok && t.b[a] >= 1 && t.T[a] >= 1;
+    cells *= t.T[a];
+    sites *= t.b[a];
+  }
+  return ok && sites <= kMaxSites && 8LL * C * cells <= (long long)smem;
+}
+
+}  // namespace
+
+#define TILE_PARAMS int bx, int by, int bz, int R, int Tx, int Ty, int Tz, int smem
+
+extern "C" int paint_cic_tiled_forward(const float* pos, const float* w, GEOM_PARAMS,
+                                       TILE_PARAMS, float* out, unsigned long long* n_out,
+                                       void* stream) {
+  const Geom g = make_geom(GEOM_ARGS);
+  const Tiles t{{bx, by, bz}, R, {Tx, Ty, Tz}};
+  if (!plan_ok(g, t, 1, smem)) return (int)cudaErrorInvalidValue;
+  const long long n_p = (long long)Lx * Ly * Lz;
+  int code = (int)cudaSuccess;
+  DISPATCH_WINDOW(order, kb, code = launch_tiled(paint_cic_tiled_kernel<W>, g, t, smem, stream,
+                                                 pos, w, g, t, out, n_out));
+  return code;
+}
+
+template <class W>
+int read_adjoint_tiled(int C, const Geom& g, const Tiles& t, int smem, void* stream,
+                       const float* pos, const float* mesh, const float* ct, float* dmesh,
+                       float* dpos, unsigned long long* n_out) {
+  switch (C) {
+    case 1: return launch_tiled(read_cic_adjoint_tiled_kernel<W, 1>, g, t, smem, stream, pos,
+                                mesh, ct, g, t, dmesh, dpos, n_out);
+    case 2: return launch_tiled(read_cic_adjoint_tiled_kernel<W, 2>, g, t, smem, stream, pos,
+                                mesh, ct, g, t, dmesh, dpos, n_out);
+    case 3: return launch_tiled(read_cic_adjoint_tiled_kernel<W, 3>, g, t, smem, stream, pos,
+                                mesh, ct, g, t, dmesh, dpos, n_out);
+    case 4: return launch_tiled(read_cic_adjoint_tiled_kernel<W, 4>, g, t, smem, stream, pos,
+                                mesh, ct, g, t, dmesh, dpos, n_out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int read_cic_adjoint_tiled(const float* pos, const float* mesh, const float* ct,
+                                      int C, GEOM_PARAMS, TILE_PARAMS, float* dmesh, float* dpos,
+                                      unsigned long long* n_out, void* stream) {
+  const Geom g = make_geom(GEOM_ARGS);
+  const Tiles t{{bx, by, bz}, R, {Tx, Ty, Tz}};
+  if (!plan_ok(g, t, C, smem)) return (int)cudaErrorInvalidValue;
+  const long long n_p = (long long)Lx * Ly * Lz;
+  int code = (int)cudaSuccess;
+  DISPATCH_WINDOW(order, kb, code = read_adjoint_tiled<W>(C, g, t, smem, stream, pos, mesh, ct,
+                                                          dmesh, dpos, n_out));
+  return code;
+}

@@ -11,7 +11,10 @@ support 1 is the one-hot NGP whatever the kernel type.
 * K1 `paint_cic`: B-spline scatter of lattice-ordered particles, every
   interlace shift painted in one particle pass, each shifted position
   clamped to +-max_disp around its lattice site (the window contract of
-  `montecosmo_tpu/ops/paint_window.py`); CUDA, atomic adds.
+  `montecosmo_tpu/ops/paint_window.py`); CUDA.  With a lattice (the clamp)
+  the lattice-brick design (`paint_cic_tiled`): one CTA per brick of sites
+  sums its corners in a shared-memory tile of the mesh (`tile_plan`) and
+  folds it in; without one the atomic design, every corner an atomic add.
 * K2 `paint_cic_adjoint`: its VJP, a gather of the cotangent meshes giving
   the weight and position gradients; CUDA, no atomics.
 * K3 `nufft_epilogue`: the interlace phase sum, units jacobian and window
@@ -21,12 +24,16 @@ support 1 is the one-hot NGP whatever the kernel type.
   particle positions, behind `read_window`, `read_multi` and `read`; CUDA,
   no atomics.
 * K5 `read_cic_adjoint`: its VJP in one particle pass, the C-channel paint
-  of the cotangent (atomics) and the position gradient; CUDA.
+  of the cotangent and the position gradient; CUDA, the lattice-brick
+  design (`read_cic_adjoint_tiled`) with a lattice, the atomic one
+  without.
 
 Each wrapper launches its kernel for a CUDA tensor (or raises), and runs the
 kernel's plain PyTorch version, kept in this module, for a CPU tensor.
 `LAUNCHES` counts kernel launches per (kernel, window, order), the window
-"bspline" or "kb"; K3's order is that of its deconvolution, 0 for none.
+"bspline" or "kb", K1's and K5's two designs under two names (`paint_cic`
+and `paint_cic_tiled`, `read_cic_adjoint` and `read_cic_adjoint_tiled`);
+K3's order is that of its deconvolution, 0 for none.
 
 Parity: `montecosmo_tpu/ops/paint.py:35-240` (the windows, paint, read,
 read_multi, read_sites, interlace, nufft) and
@@ -40,7 +47,9 @@ round(x).
 import ctypes
 from collections import Counter
 from dataclasses import dataclass
+from functools import lru_cache
 from itertools import product
+from math import prod
 
 import numpy as np
 import torch
@@ -300,18 +309,103 @@ def _launch_status(code, name):
         raise RuntimeError(f"{name} launch failed: CUDA error {code}")
 
 
+# The lattice-brick kernels' tile budget: four CTAs' tiles (each CTA with
+# its 1 KiB reserve and 64 bytes of static shared memory) fit the 228 KiB of
+# shared memory of an H100 SM (four CTAs of 256 threads, at most 64
+# registers a thread: __launch_bounds__ in paint_tiled.cu).  A tile value is
+# 8 bytes (fixed point in two 32-bit words).
+TILE_BYTES = 228 * 1024 // 4 - 1024 - 64
+# candidate bricks in lattice sites, z (the lattice's contiguous axis) last
+BRICKS = ((8, 8, 8), (4, 8, 16), (8, 8, 16))
+
+
+@dataclass(frozen=True)
+class TilePlan:
+    """Brick and tile of a lattice-brick launch (`tile_plan`)."""
+    brick: tuple    # lattice sites per CTA
+    R: int          # margin, mesh cells
+    tile: tuple     # tile extent, mesh cells
+    nbytes: int     # its dynamic shared memory
+
+
+@lru_cache(maxsize=64)
+def tile_plan(geom: CICGeometry, channels=1):
+    """The brick of lattice sites one CTA of the tiled K1/K5 owns and its
+    shared-memory tile of `channels` values per cell: per axis (brick - 1)
+    stride + 2 R + order cells, the window cells of every site of the brick
+    displaced by at most R.  R is the largest margin, up to the clamp bound,
+    whose tile fits TILE_BYTES; among the BRICKS (cut to the lattice, halved
+    until one fits) the one that reaches the largest R, then the longest z
+    run, then the fewest tile cells per site.  A particle whose cells leave
+    the tile goes to device memory, so no choice here changes the result."""
+    _require(geom.lattice is not None, "a tile plan needs the particle lattice")
+
+    def tile(brick, R):
+        return tuple((b - 1) * s + 2 * R + geom.order for b, s in zip(brick, geom.stride))
+
+    def nbytes(brick, R):
+        return 8 * channels * prod(tile(brick, R))
+
+    bricks = [tuple(min(b, l) for b, l in zip(brick, geom.lattice)) for brick in BRICKS]
+    while all(nbytes(b, 0) > TILE_BYTES for b in bricks):
+        bricks = [tuple(max(1, v // 2) if i == b.index(max(b)) else v for i, v in enumerate(b))
+                  for b in bricks]
+    r_max = int(np.ceil(max(geom.H)))
+
+    def margin(brick):
+        if nbytes(brick, 0) > TILE_BYTES:
+            return -1
+        return max(r for r in range(r_max + 1) if nbytes(brick, r) <= TILE_BYTES)
+
+    brick = max(bricks, key=lambda b: (margin(b), b[2], -prod(tile(b, margin(b))) / prod(b)))
+    R = margin(brick)
+    return TilePlan(brick, R, tile(brick, R), nbytes(brick, R))
+
+
+def _tile_args(plan):
+    return [ctypes.c_int(v) for v in plan.brick + (plan.R,) + plan.tile + (plan.nbytes,)]
+
+
+def _counter(outliers, device):
+    """The device pointer of the optional outlier counter: a one-element
+    int64 tensor on `device` that the tiled kernels add their count of
+    corner products sent to device memory to."""
+    if outliers is None:
+        return ctypes.c_void_p(None)
+    _require(outliers.dtype == torch.int64 and outliers.numel() == 1
+             and outliers.device == device, "outliers: one int64 element on the kernel's device")
+    return _ptr(outliers)
+
+
 def paint_cic_kernel(pos, weights, geom: CICGeometry):
-    """K1 on the card: (S, X, Y, Z) float32 meshes."""
+    """K1 on the card, the atomic design: (S, X, Y, Z) float32 meshes."""
+    return _paint_cic(pos, weights, geom, tiled=False)
+
+
+def paint_cic_tiled_kernel(pos, weights, geom: CICGeometry, outliers=None):
+    """K1 on the card, the lattice-brick design (a lattice geometry), as
+    `paint_cic_kernel`; `outliers` as in `_counter`."""
+    return _paint_cic(pos, weights, geom, tiled=True, outliers=outliers)
+
+
+def _paint_cic(pos, weights, geom, tiled, outliers=None):
     from montecosmo_tpu_torch.ops import _kernels
 
     _check_cuda_inputs(pos, weights, geom)
     lib = _kernels.cuda_library()
     out = torch.zeros((geom.n_shift,) + geom.shape, dtype=torch.float32, device=pos.device)
-    stream = torch.cuda.current_stream(pos.device).cuda_stream
-    code = lib.paint_cic_forward(_ptr(pos), _ptr(weights), ctypes.c_longlong(pos.shape[0]),
-                                 *_geom_args(geom), _ptr(out), ctypes.c_void_p(stream))
-    LAUNCHES["paint_cic", geom.window, geom.order] += 1
-    _launch_status(code, "paint_cic")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(pos.device).cuda_stream)
+    if tiled:
+        name = "paint_cic_tiled"
+        code = lib.paint_cic_tiled_forward(_ptr(pos), _ptr(weights), *_geom_args(geom),
+                                           *_tile_args(tile_plan(geom)), _ptr(out),
+                                           _counter(outliers, pos.device), stream)
+    else:
+        name = "paint_cic"
+        code = lib.paint_cic_forward(_ptr(pos), _ptr(weights), ctypes.c_longlong(pos.shape[0]),
+                                     *_geom_args(geom), _ptr(out), stream)
+    LAUNCHES[name, geom.window, geom.order] += 1
+    _launch_status(code, name)
     return out
 
 
@@ -336,14 +430,16 @@ def paint_cic_adjoint_kernel(pos, weights, grads, geom: CICGeometry):
 
 
 class _PaintCIC(torch.autograd.Function):
-    """K1 forward, K2 backward.  Double backward is not supported."""
+    """K1 forward (the lattice-brick design with a lattice, else the atomic
+    one), K2 backward.  Double backward is not supported."""
 
     @staticmethod
     def forward(ctx, pos, weights, geom):
         ctx.geom = geom
         ctx.save_for_backward(pos, weights)
         if pos.is_cuda:
-            return paint_cic_kernel(pos, weights, geom)
+            kernel = paint_cic_kernel if geom.lattice is None else paint_cic_tiled_kernel
+            return kernel(pos, weights, geom)
         return paint_cic_plain(pos, weights, geom)
 
     @staticmethod
@@ -426,7 +522,7 @@ def _check_read_inputs(pos, mesh, geom):
              "lattice read: one particle per lattice site, in lattice order")
 
 
-# channels of one K4/K5 launch (kMaxC in paint_cic.cu); more go in several
+# channels of one K4/K5 launch (kMaxC in paint_window.cuh); more go in several
 MAX_CHANNELS = 4
 
 
@@ -457,8 +553,18 @@ def read_cic_kernel(pos, mesh, geom: CICGeometry):
 
 
 def read_cic_adjoint_kernel(pos, mesh, ct, geom: CICGeometry):
-    """K5 on the card: (dpos (P, 3), dmesh (X, Y, Z, C)), one launch per 4
-    channels (their position gradients summed)."""
+    """K5 on the card, the atomic design: (dpos (P, 3), dmesh (X, Y, Z, C)),
+    one launch per 4 channels (their position gradients summed)."""
+    return _read_cic_adjoint(pos, mesh, ct, geom, tiled=False)
+
+
+def read_cic_adjoint_tiled_kernel(pos, mesh, ct, geom: CICGeometry, outliers=None):
+    """K5 on the card, the lattice-brick design (a lattice geometry), as
+    `read_cic_adjoint_kernel`; `outliers` as in `_counter`."""
+    return _read_cic_adjoint(pos, mesh, ct, geom, tiled=True, outliers=outliers)
+
+
+def _read_cic_adjoint(pos, mesh, ct, geom, tiled, outliers=None):
     from montecosmo_tpu_torch.ops import _kernels
 
     _check_read_inputs(pos, mesh, geom)
@@ -466,22 +572,33 @@ def read_cic_adjoint_kernel(pos, mesh, ct, geom: CICGeometry):
     _require(ct.dtype == torch.float32 and ct.shape == (pos.shape[0], mesh.shape[-1]),
              f"cotangent {(pos.shape[0], mesh.shape[-1])} float32 expected")
     if mesh.shape[-1] > MAX_CHANNELS:
-        parts = [read_cic_adjoint_kernel(pos, m, c, geom) for m, c in _channel_chunks(mesh, ct)]
+        parts = [_read_cic_adjoint(pos, m, c, geom, tiled, outliers)
+                 for m, c in _channel_chunks(mesh, ct)]
         return sum(d for d, _ in parts), torch.cat([m for _, m in parts], -1)
     lib = _kernels.cuda_library()
+    C = mesh.shape[-1]
     dmesh = torch.zeros_like(mesh)
     dpos = torch.empty_like(pos)
-    stream = torch.cuda.current_stream(pos.device).cuda_stream
-    code = lib.read_cic_adjoint(_ptr(pos), _ptr(mesh), _ptr(ct), ctypes.c_longlong(pos.shape[0]),
-                                ctypes.c_int(mesh.shape[-1]), *_geom_args(geom), _ptr(dmesh),
-                                _ptr(dpos), ctypes.c_void_p(stream))
-    LAUNCHES["read_cic_adjoint", geom.window, geom.order] += 1
-    _launch_status(code, "read_cic_adjoint")
+    stream = ctypes.c_void_p(torch.cuda.current_stream(pos.device).cuda_stream)
+    if tiled:
+        name = "read_cic_adjoint_tiled"
+        code = lib.read_cic_adjoint_tiled(_ptr(pos), _ptr(mesh), _ptr(ct), ctypes.c_int(C),
+                                          *_geom_args(geom), *_tile_args(tile_plan(geom, C)),
+                                          _ptr(dmesh), _ptr(dpos),
+                                          _counter(outliers, pos.device), stream)
+    else:
+        name = "read_cic_adjoint"
+        code = lib.read_cic_adjoint(_ptr(pos), _ptr(mesh), _ptr(ct),
+                                    ctypes.c_longlong(pos.shape[0]), ctypes.c_int(C),
+                                    *_geom_args(geom), _ptr(dmesh), _ptr(dpos), stream)
+    LAUNCHES[name, geom.window, geom.order] += 1
+    _launch_status(code, name)
     return dpos, dmesh
 
 
 class _ReadCIC(torch.autograd.Function):
-    """K4 forward, K5 backward.  Double backward is not supported."""
+    """K4 forward, K5 backward (the lattice-brick design with a lattice,
+    else the atomic one).  Double backward is not supported."""
 
     @staticmethod
     def forward(ctx, pos, mesh, geom):
@@ -496,7 +613,9 @@ class _ReadCIC(torch.autograd.Function):
     def backward(ctx, ct):
         pos, mesh = ctx.saved_tensors
         if ct.is_cuda:
-            dpos, dmesh = read_cic_adjoint_kernel(pos, mesh, ct, ctx.geom)
+            kernel = (read_cic_adjoint_kernel if ctx.geom.lattice is None
+                      else read_cic_adjoint_tiled_kernel)
+            dpos, dmesh = kernel(pos, mesh, ct, ctx.geom)
         else:
             dpos, dmesh = read_cic_adjoint_plain(pos, mesh, ct, ctx.geom)
         return dpos, dmesh, None

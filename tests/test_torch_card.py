@@ -108,3 +108,52 @@ def test_read_kernels_match_plain_on_card():
         rpos, rmesh = tpa.read_cic_adjoint_plain(pos, mesh, ct, geom)
         torch.testing.assert_close(dpos, rpos, rtol=1e-5, atol=1e-5 * float(rpos.abs().max()))
         torch.testing.assert_close(dmesh, rmesh, rtol=1e-5, atol=1e-5 * float(rmesh.abs().max()))
+
+
+@pytest.mark.cuda
+def test_tiled_kernels_match_plain_and_atomic_on_card():
+    """The lattice-brick K1 and K5 against their plain versions and against
+    the atomic kernels on the same inputs, at 32^3 (stride-2 lattice, tiles
+    wider than the mesh along z at some orders, margins of 0-2 cells that
+    send many particles to device memory) with ties and outliers, at orders 1-4 of
+    the B-spline and Kaiser-Bessel windows, K5 at C = 3 and C = 6 (two
+    launches of at most 4 channels); the routing of a clamped paint and read
+    to them (skips without a card).  Both designs sum with atomics in
+    run-dependent order, hence the 1e-5 relative tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the tiled K1/K5 are CUDA")
+    dev = torch.device("cuda")
+    pos, w = _lattice_particles((16, 16, 16), (2, 2, 2), 5, 19)
+    pos = _with_ties(pos, (16, 16, 16), (2, 2, 2), np.random.default_rng(20))
+    pos, w = torch.tensor(pos, device=dev), torch.tensor(w, device=dev)
+
+    def close(out, ref):
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+    wider = False
+    for kernel, order in [(k, o) for k in ("rectangular", "kaiser_bessel") for o in (1, 2, 3, 4)]:
+        geom = tpa.cic_geometry((32, 32, 32), 2, (16, 16, 16), 5, True, order, kernel, 192 / 224)
+        wider |= tpa.tile_plan(geom).tile[2] > 32
+        out = tpa.paint_cic_tiled_kernel(pos, w, geom)
+        close(out, tpa.paint_cic_plain(pos, w, geom))
+        close(out, tpa.paint_cic_kernel(pos, w, geom))
+        tpa.reset_launches()
+        close(tpa.paint_cic(pos, (32, 32, 32), w, 2, (16, 16, 16), 5, True, order, kernel,
+                            192 / 224), out)
+        assert tpa.launches_at(order, geom.window) == {"paint_cic_tiled": 1}
+        for C in (3, 6):
+            g1 = tpa.cic_geometry((32, 32, 32), 1, (16, 16, 16), 5, True, order, kernel, 1.5)
+            mesh = torch.randn((32, 32, 32, C), device=dev)
+            ct = torch.randn((pos.shape[0], C), device=dev)
+            dpos, dmesh = tpa.read_cic_adjoint_tiled_kernel(pos, mesh, ct, g1)
+            for rpos, rmesh in (tpa.read_cic_adjoint_plain(pos, mesh, ct, g1),
+                                tpa.read_cic_adjoint_kernel(pos, mesh, ct, g1)):
+                close(dpos, rpos)
+                close(dmesh, rmesh)
+        pr, mr = pos.clone().requires_grad_(True), mesh.clone().requires_grad_(True)
+        tpa.reset_launches()
+        vals = tpa.read_window(pr, mr, (16, 16, 16), order, kernel, 1.5, 5, True)
+        torch.autograd.backward(vals, ct)
+        close(pr.grad, tpa.read_cic_adjoint_plain(pos, mesh, ct, g1)[0])
+        assert tpa.launches_at(order, geom.window) == {"read_cic": 2, "read_cic_adjoint_tiled": 2}
+    assert wider

@@ -1,0 +1,191 @@
+"""The lattice-brick decomposition of the tiled K1 (paint) and K5 (read
+adjoint), on the CPU.
+
+`tile_plan` must fit its shared-memory budget (and the 232,448 bytes a
+block of an H100 can have) for every geometry the flagships and
+`chip_smoke.py` use.  A numpy emulation of what the CUDA kernels do, kept
+here, must reproduce `paint_cic_plain` and `read_cic_adjoint_plain`'s
+`dmesh`: bricks of lattice sites with their tiles of margin R, the split of
+each particle between its brick's tile and the mesh (all of its window
+cells in the tile, in unwrapped coordinates, or none), and the periodic
+fold of the tiles into the mesh, with the tile's sums in the kernels' fixed
+point (each value rounded to a multiple of 2^-k, n_site max|value| 2^k <
+2^50, their sums held below 2^52).  The cases cover a tile wider than the
+mesh, partial bricks at the lattice's far edge, particles past the clamp,
+ties, every window, and margins below the plan's (which send particles to
+the mesh): the result does not depend on R.  The plain versions sum in
+float32, hence the 1e-6 relative tolerance.
+"""
+from itertools import product
+
+import numpy as np
+import pytest
+import torch
+
+from montecosmo_tpu_torch.ops import paint as tpa
+
+from test_torch_card import _lattice_particles, _with_ties
+
+torch.set_num_threads(1)
+
+WINDOWS = [(k, o) for k in ("rectangular", "kaiser_bessel") for o in (1, 2, 3, 4)]
+# (mesh, lattice, max_disp): at 16^3 every tile is wider than the mesh along
+# some axis; the 24 x 20 x 20 lattice (12, 10, 20) is no multiple of any brick
+CASES = {"16^3 stride 2": ((16, 16, 16), (8, 8, 8), 5),
+         "32^3 stride 2": ((32, 32, 32), (16, 16, 16), 5),
+         "24x20x20 partial bricks": ((24, 20, 20), (12, 10, 20), 4)}
+SMEM_PER_BLOCK = 232_448  # an H100 block's dynamic shared memory at most
+
+
+def _geometry(case, n_shift, kernel, order):
+    shape, lattice, H = CASES[case]
+    return tpa.cic_geometry(shape, n_shift, lattice, H, True, order, kernel, 192 / 224)
+
+
+def _inputs(case, seed):
+    shape, lattice, H = CASES[case]
+    stride = tuple(m // l for m, l in zip(shape, lattice))
+    pos, w = _lattice_particles(lattice, stride, H, seed)
+    pos = _with_ties(pos, lattice, stride, np.random.default_rng(seed + 1))
+    return torch.tensor(pos), torch.tensor(w)
+
+
+def _windows(pos, geom):
+    """Per shift: the unwrapped window cells (order, P, 3) and weights of
+    each particle, as the plain versions (and the kernels) place them."""
+    out = []
+    for _, x, sites in tpa._shifted(pos, geom):
+        cells, w, _ = tpa._axis_windows(x, geom, tpa._tie_base(sites, geom))
+        out.append((cells.numpy(), w.double().numpy()))
+    return out
+
+
+def _bricks(geom, brick):
+    """(first site, extent) of every brick of the lattice, partial at its
+    far edge."""
+    starts = [range(0, l, b) for l, b in zip(geom.lattice, brick)]
+    for first in product(*starts):
+        yield first, tuple(min(b, l - f) for b, l, f in zip(brick, geom.lattice, first))
+
+
+def _fixed_point_scale(vals):
+    """The kernels' scale 2^k of a brick's values: n_site max|value| 2^k <
+    2^50 (`scale_of` in paint_tiled.cu)."""
+    vmax = np.abs(vals).max()
+    if vmax == 0:
+        return 1.0
+    e1 = np.frexp(vmax)[1]                    # vmax < 2^e1
+    nb = int(np.ceil(np.log2(len(vals))))     # n_site <= 2^nb
+    return 2.0 ** (50 - e1 - nb)
+
+
+def _tiled_scatter(cells, w, vals, geom, brick, R):
+    """Emulation of the tiled kernels' scatter of vals (P, C) through the
+    windows (cells, w): returns the (X, Y, Z, C) mesh and the number of
+    particles sent to the mesh."""
+    order, shape = geom.order, np.array(geom.shape)
+    C = vals.shape[1]
+    mesh = np.zeros(geom.shape + (C,))
+    corners = list(product(range(order), repeat=3))
+    lat = np.arange(int(np.prod(geom.lattice))).reshape(geom.lattice)
+    tile_shape = tuple((b - 1) * s + 2 * R + order for b, s in zip(brick, geom.stride))
+    n_out = 0
+    for first, extent in _bricks(geom, brick):
+        ids = lat[tuple(slice(f, f + n) for f, n in zip(first, extent))].reshape(-1)
+        origin = np.array(first) * geom.stride - R - (order - 1) // 2
+        lo = cells[0, ids] - origin                     # first window cell, tile coords
+        inside = np.all((lo >= 0) & (lo + order <= np.array(tile_shape)), axis=1)
+        tile = np.zeros(tile_shape + (C,), np.int64)
+        scale = _fixed_point_scale(vals[ids])
+        for a, b, c in corners:
+            cell = np.stack([cells[a, ids, 0], cells[b, ids, 1], cells[c, ids, 2]], -1)
+            prod_ = (w[a, ids, 0] * w[b, ids, 1] * w[c, ids, 2])[:, None] * vals[ids]
+            t = (cell - origin)[inside]
+            q = np.rint(prod_[inside] * scale).astype(np.int64)
+            np.add.at(tile, (t[:, 0], t[:, 1], t[:, 2]), q)
+            m = np.remainder(cell[~inside], shape)
+            np.add.at(mesh, (m[:, 0], m[:, 1], m[:, 2]), prod_[~inside])
+        n_out += int((~inside).sum())
+        # the fold: every tile cell added at its wrapped mesh cell (aliases
+        # of a tile wider than the mesh in turn)
+        assert np.abs(tile).max(initial=0) < 2**52
+        idx = np.stack(np.meshgrid(*[np.arange(n) for n in tile_shape], indexing="ij"), -1)
+        m = np.remainder(idx.reshape(-1, 3) + origin, shape)
+        np.add.at(mesh, (m[:, 0], m[:, 1], m[:, 2]), tile.reshape(-1, C) / scale)
+    return mesh, n_out
+
+
+def _margins(plan):
+    """The plan's margin, and margins 1 and 0, which send particles to the
+    mesh."""
+    return sorted({plan.R, 1, 0}, reverse=True)
+
+
+@pytest.mark.parametrize("shape, lattice, H", [((224,) * 3, (224,) * 3, 9),
+                                               ((32,) * 3, (16,) * 3, 5)],
+                         ids=["224^3 stride 1", "32^3 stride 2"])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_tile_plan_fits(shape, lattice, H, order):
+    """Every plan of the flagships' and chip_smoke.py's geometries fits the
+    budget (two CTAs per SM) and a block's shared memory; its tile holds the
+    brick's window cells for displacements up to R, R never exceeds the
+    clamp bound, and the brick lies in the lattice."""
+    assert tpa.TILE_BYTES <= SMEM_PER_BLOCK // 2
+    for n_shift, C in product((1, 2), (1, 2, 3, 4)):
+        geom = tpa.cic_geometry(shape, n_shift, lattice, H, True, order)
+        plan = tpa.tile_plan(geom, C)
+        assert plan.nbytes == 8 * C * np.prod(plan.tile) <= tpa.TILE_BYTES
+        assert 0 <= plan.R <= H
+        assert all(1 <= b <= l for b, l in zip(plan.brick, lattice))
+        assert plan.tile == tuple((b - 1) * s + 2 * plan.R + order
+                                  for b, s in zip(plan.brick, geom.stride))
+        assert np.prod(plan.brick) <= 1024  # the fixed-point tile's bound
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("kernel, order", WINDOWS)
+def test_tiled_paint_emulation_matches_plain(case, kernel, order):
+    """K1's decomposition (the C = 1 tile, once per interlace shift)
+    against paint_cic_plain, at the plan's margin and below it."""
+    geom = _geometry(case, 2, kernel, order)
+    pos, w = _inputs(case, 60)
+    ref = tpa.paint_cic_plain(pos, w, geom).double().numpy()
+    plan = tpa.tile_plan(geom)
+    if case.startswith("16^3"):
+        assert any(t > n for t, n in zip(plan.tile, geom.shape))
+    if case.endswith("partial bricks"):
+        assert any(l % b for l, b in zip(geom.lattice, plan.brick))
+    n_out = {}
+    for R in _margins(plan):
+        out = []
+        n_out[R] = 0
+        for cells, wts in _windows(pos, geom):
+            mesh, n = _tiled_scatter(cells, wts, w.double().numpy()[:, None], geom, plan.brick, R)
+            out.append(mesh[..., 0])
+            n_out[R] += n
+        err = np.abs(np.stack(out) - ref).max() / np.abs(ref).max()
+        assert err <= 1e-6, (R, err)
+    assert n_out[0] > 0  # margin 0 sends particles to the mesh
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("kernel, order", WINDOWS)
+def test_tiled_read_adjoint_emulation_matches_plain(case, kernel, order):
+    """K5's decomposition (the C-channel tile of the cotangent's paint)
+    against read_cic_adjoint_plain's dmesh, C = 3 (the force read) and 2,
+    at the plan's margin and below it."""
+    geom = _geometry(case, 1, kernel, order)
+    pos, _ = _inputs(case, 61)
+    rng = np.random.default_rng(62)
+    ((cells, wts),) = _windows(pos, geom)
+    for C in (3, 2):
+        mesh = torch.tensor(rng.standard_normal(geom.shape + (C,)).astype(np.float32))
+        ct = rng.standard_normal((pos.shape[0], C)).astype(np.float32)
+        _, ref = tpa.read_cic_adjoint_plain(pos, mesh, torch.tensor(ct), geom)
+        ref = ref.double().numpy()
+        plan = tpa.tile_plan(geom, C)
+        for R in _margins(plan):
+            dmesh, n_out = _tiled_scatter(cells, wts, ct.astype(np.float64), geom, plan.brick, R)
+            err = np.abs(dmesh - ref).max() / np.abs(ref).max()
+            assert err <= 1e-6, (C, R, err)
+            assert R > 0 or n_out > 0
