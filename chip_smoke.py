@@ -11,15 +11,15 @@ Phases, in order; any failure raises and the script exits non-zero:
   3. hold K1 (paint), K2 (paint adjoint) and K3 (NUFFT epilogue) against
      their plain PyTorch versions at 32^3 (stride-2 lattice; the tiled
      kernels' margins of 0-2 cells send many particles to device memory,
-     and at orders 2 and 4 K1's tiles are wider than the mesh) and at the
-     128^3 flagship shapes (224^3 paint mesh,
-     11.24M particles): values and gradients, with the max relative errors
-     (K3's element by element), both times and the bound; K1 clamped in both
-     designs, the lattice-brick one (the route of every clamped paint) and
-     the atomic one, timed in turns (atomic, tiled, tiled, atomic), with
-     the share of corner products that took the tiled design's outlier
-     path (device memory); at B-spline order 2
-     (CIC) clamped to the lattice sites, then at orders 1, 3 and 4 (NGP,
+     and some tiles are wider than the mesh) and at the 128^3 flagship
+     shapes (224^3 paint mesh, 11.24M particles): values and gradients,
+     with the max relative errors (K3's element by element), both times
+     and the bound; K1 clamped in both designs, the lattice-brick one and
+     the atomic one, each held, timed in turns (other, tiled, tiled,
+     other), with the share of corner products that took the tiled
+     design's outlier path (device memory) and the design the route
+     (ops/paint.py::TILED_FROM) takes; K2 in its one design; at B-spline order
+     2 (CIC) clamped to the lattice sites, then at orders 1, 3 and 4 (NGP,
      TSC, PCS), then with the Kaiser-Bessel window of support 1-4 (at the
      flagship render's cutoff optim_kcut(192/224)), clamped and unclamped,
      a quarter of the particles on ties (exactly on their sites or half a
@@ -27,21 +27,21 @@ Phases, in order; any failure raises and the script exits non-zero:
      of the cotangents is K2's NGP yardstick;
   3b. the same for K4 (C-channel read) and K5 (its adjoint), clamped and
      unclamped, at 32^3 and 224^3 with C = 3, at B-spline orders 2, 1, 3
-     and 4 and Kaiser-Bessel supports 1-4, K5 clamped in both designs as K1
-     in phase 3; at B-spline order 2 K5 is held
+     and 4 and Kaiser-Bessel supports 1-4, K4 and K5 clamped in both
+     designs as K1 and K2 in phase 3; at B-spline order 2 K5 is held
      against autograd of K4's plain version; grid_sample (trilinear, and
      nearest at order 1, on a wrap-padded mesh: the unclamped read) and its
      backward are the B-spline library yardsticks; then K4/K5 on C = 6
-     channels (two launches each, K5 in both designs);
+     channels (two launches each, both designs);
   4. the golden 32^3 2LPT forward (tests/golden/golden_32.npz) on the card;
   4b. the golden 32^3 BullFrog N-body forward on the card;
   4c. the 32^3 BullFrog light cone (a_obs=None) on the golden white mesh at
      TSC, then NGP and PCS: the card's forward against the CPU's (the same
      port, the same inputs) at phase 4's tolerances (coherence 1 - 1e-3 at
-     NGP; there the card with K1/K4/K3 against the card with their plain
-     versions is held at phase 4's, and the CPU with the white mesh moved by
-     one ulp is printed); at NGP and PCS also one value+grad on the card,
-     whose launches are those orders' counts;
+     NGP; there the card with K1/K4/K3, in either design, replaced by their
+     plain versions is held at phase 4's against the card, and the CPU with
+     the white mesh moved by one ulp is printed); at NGP and PCS also one
+     value+grad on the card, whose launches are those orders' counts;
   4d. the 32^3 curved-sky 2LPT light cone with the Kaiser-Bessel window of
      support 4 on the golden white mesh, card against CPU at phase 4's
      tolerances; one value+grad on the card at supports 1-3 (their
@@ -51,26 +51,31 @@ Phases, in order; any failure raises and the script exits non-zero:
      RSD, quad-Gaussian likelihood, Kaiser preconditioning, float32) on the
      card: draw the observation with `predict`, then 2 warm-up and 5 timed
      logpdf value+grad evaluations; print ms/eval, peak memory and the
-     launches of its kernels (K1, K2, K3; K1 the lattice-brick design),
-     counted from 0 over those 7; then, from one more value+grad, the
-     render paint's own positions: quantiles of |pos - site| per axis, and
-     K1's two designs on them (outlier share, times in turns);
+     launches of its kernels (K1, K2, K3, each in the design the route
+     takes), counted from 0 over those 7; then, from one more value+grad,
+     the render paint's and its backward's own inputs: quantiles of
+     |pos - site| per axis, K1's two designs on them (outlier share, times
+     in turns) and K2 on them;
   5b. the same flagship with evolution='nbody' (10 BullFrog steps, force
-     paints and reads at 224^3): K1, K2, K3, K4 and K5 must each launch, K1
-     and K5 in their lattice-brick designs; then K5's inputs at the last
-     step, as 5 does for K1;
+     paints and reads at 224^3): K1, K2, K3, K4 and K5 must each launch in
+     the design the route takes at CIC; then K5's and K4's inputs at the
+     last step, as 5 does for K1 and K2;
   5c. the same N-body flagship on the light cone (a_obs=None) at TSC
-     (paint_order=3): K1-K5 must each launch at order 3 (K1, K5 tiled);
+     (paint_order=3): K1-K5 must each launch at order 3 (K1, K4 and K5
+     tiled); then K5's and K4's inputs at the last step, as 5b;
   5d. the 2LPT flagship on the curved sky and the light cone (curved_sky=True,
      a_obs=None) with the Kaiser-Bessel window of support 4: K1 (tiled), K2
      and K3 must each launch at Kaiser-Bessel support 4;
   6. last lines: the kernels JSON (one row per kernel, window and order;
      launches from phase 5b at CIC, 5c at TSC, 4c at NGP and PCS, 5d at
      Kaiser-Bessel 4, 4d at Kaiser-Bessel 1-3; K4/K5 run on no
-     Kaiser-Bessel path of the model, 0; K1's and K5's rows are their
-     lattice-brick design, the launches it made, with `atomic_ms` the
-     atomic design's time on the same inputs, and at CIC the flagship
-     measurements of 5/5b), then {"ok": true, "device": {...}}.
+     Kaiser-Bessel path of the model, 0; the rows of K1, K2, K4 and K5 are
+     the design the route takes (`design`, its source and time, the
+     launches it made), with `tiled_ms` and `atomic_ms` (K1, K5) or
+     `gather_ms` (K4; K2's one design) the designs' times on the same
+     inputs, the tiled design's `outlier_share` and source, at CIC the
+     flagship measurements of 5/5b and at TSC those of 5c), then
+     {"ok": true, "device": {...}}.
 """
 import json
 import subprocess
@@ -110,13 +115,74 @@ def cuda_ms(fn, reps=10, warmup=2):
     return t0.elapsed_time(t1) / reps
 
 
-def turns(atomic, tiled, reps):
-    """(atomic ms, tiled ms): the two designs of a kernel timed on the same
-    inputs in turns, atomic, tiled, tiled, atomic, `reps` launches of each
-    in all."""
+def turns(other, tiled, reps):
+    """(other ms, tiled ms): the two designs of a kernel (per-particle or
+    atomic, and lattice-brick) timed on the same inputs in turns, other,
+    tiled, tiled, other, `reps` launches of each in all."""
     n = max(1, reps // 2)
-    a0, t0, t1, a1 = (cuda_ms(f, n) for f in (atomic, tiled, tiled, atomic))
+    a0, t0, t1, a1 = (cuda_ms(f, n) for f in (other, tiled, tiled, other))
     return (a0 + a1) / 2, (t0 + t1) / 2
+
+
+# the particle kernels' designs: (lattice-brick wrapper or None, per-particle
+# or atomic wrapper, plain version) by row name
+def designs(P):
+    return {"paint_cic": (P.paint_cic_tiled_kernel, P.paint_cic_kernel, P.paint_cic_plain),
+            "paint_cic_adjoint": (None, P.paint_cic_adjoint_kernel, P.paint_cic_adjoint_plain),
+            "read_cic": (P.read_cic_tiled_kernel, P.read_cic_kernel, P.read_cic_plain),
+            "read_cic_adjoint": (P.read_cic_adjoint_tiled_kernel, P.read_cic_adjoint_kernel,
+                                 P.read_cic_adjoint_plain)}
+
+
+# what the JSON calls each kernel's second design
+OTHER = {"paint_cic": "atomic", "paint_cic_adjoint": "gather", "read_cic": "gather",
+         "read_cic_adjoint": "atomic"}
+
+
+def routed(P, name, geom):
+    """The design the route (ops/paint.py::TILED_FROM) takes for `name`."""
+    return "tiled" if P._tiled(name, geom) else OTHER[name]
+
+
+def err_of(out, ref):
+    """(max_abs_err, max_rel_err) of one output or of a pair."""
+    if isinstance(out, tuple):
+        return rel_err_pair(out[0], ref[0], out[1], ref[1])
+    return rel_err(out, ref)
+
+
+def each_design(P, name, args, geom, ref, reps, tag, share_of):
+    """The designs of `name` on the same inputs: each held against the
+    plain version's `ref` at TOL, both timed in turns; the tiled design's
+    outlier share (its count over `share_of` corner products).  Returns the
+    JSON row's design keys."""
+    tiled, other, _ = designs(P)[name]
+    if tiled is None:  # one design
+        e_o = err_of(other(*args, geom), ref)
+        t_o = cuda_ms(lambda: other(*args, geom), reps)
+        log(f"# {tag} {name} {OTHER[name]} max_rel_err {e_o[1]:.3e}, {t_o:.3f} ms")
+        assert e_o[1] <= TOL, f"{name} ({tag}) disagrees with its plain version"
+        return {"design": OTHER[name], f"{OTHER[name]}_ms": t_o, "_err": e_o, "_ms": t_o}
+    n_out = torch.zeros(1, dtype=torch.int64, device=args[0].device)
+    e_t = err_of(tiled(*args, geom, n_out), ref)
+    share = n_out.item() / share_of
+    e_o = err_of(other(*args, geom), ref)
+    t_o, t_t = turns(lambda: other(*args, geom), lambda: tiled(*args, geom), reps)
+    design = routed(P, name, geom)
+    log(f"# {tag} {name} tiled {plan_of(P, name, geom, args)}: outlier "
+        f"share {share:.4e} of the corner products, max_rel_err {e_t[1]:.3e}, {t_t:.3f} ms; "
+        f"{OTHER[name]} max_rel_err {e_o[1]:.3e}, {t_o:.3f} ms; route: {design}")
+    assert max(e_t[1], e_o[1]) <= TOL, f"{name} ({tag}) disagrees with its plain version"
+    return {"design": design, "tiled_ms": t_t, f"{OTHER[name]}_ms": t_o, "outlier_share": share,
+            "_err": e_t if design == "tiled" else e_o, "_ms": t_t if design == "tiled" else t_o}
+
+
+def plan_of(P, name, geom, args):
+    """The tile plan of `name`'s tiled design on these inputs: K1 one
+    channel, K4/K5 the mesh's channels; a read tile for K4, a paint tile
+    for K1 and K5."""
+    channels = 1 if name == "paint_cic" else args[1].shape[-1]
+    return P.tile_plan(geom, channels, "read" if name == "read_cic" else "paint")
 
 
 def bound(n_bytes, n_flop):
@@ -226,33 +292,25 @@ def check_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangular"):
     res = {}
     sfx = _suffix(order, kernel)
 
-    # K1 forward: the lattice-brick design (the route of a clamped paint)
-    # and the atomic one, each against the plain version, timed in turns
+    # K1 forward in both designs (the lattice-brick one and the atomic one)
+    # against the plain version, timed in turns, the row the design the
+    # route takes at this order; K2 adjoint in its one design
     ref = P.paint_cic_plain(pos, w, geom)
-    n_out = torch.zeros(1, dtype=torch.int64, device=dev)
-    ker = P.paint_cic_tiled_kernel(pos, w, geom, n_out)
-    k1 = rel_err(ker, ref)
-    k1a = rel_err(P.paint_cic_kernel(pos, w, geom), ref)
-    t_k1a, t_k1 = turns(lambda: P.paint_cic_kernel(pos, w, geom),
-                        lambda: P.paint_cic_tiled_kernel(pos, w, geom), reps)
+    n_corner = geom.n_shift * pos.shape[0] * order**3
+    d1 = each_design(P, "paint_cic", (pos, w), geom, ref, reps, f"{tag}{sfx}", n_corner)
     t_p1 = cuda_ms(lambda: P.paint_cic_plain(pos, w, geom), max(2, reps // 5))
-    log(f"# {tag} paint_cic{sfx} tiled {P.tile_plan(geom)}: outlier share "
-        f"{n_out.item() / (geom.n_shift * pos.shape[0] * order**3):.4e} of the corner products; "
-        f"atomic max_rel_err {k1a[1]:.3e}, {t_k1a:.3f} ms; tiled {t_k1:.3f} ms")
-    assert k1a[1] <= TOL, f"atomic paint_cic{sfx} disagrees with its plain version at {tag}"
     # K2 adjoint: against autograd of the plain paint at B-spline CIC; else
     # against K2's plain version (held against autograd on the CPU, lighter
     # on memory than autograd through order^3 corners, and at the support
     # edge of a tied Kaiser-Bessel window the finite limit)
-    g = torch.randn(ker.shape, generator=gen, device=dev)
-    dpos, dw = P.paint_cic_adjoint_kernel(pos, w, g, geom)
+    g = torch.randn(ref.shape, generator=gen, device=dev)
     if plain_cic:
         pr, wr = pos.clone().requires_grad_(True), w.clone().requires_grad_(True)
         rpos, rw = torch.autograd.grad((P.paint_cic_plain(pr, wr, geom) * g).sum(), (pr, wr))
     else:
         rpos, rw = P.paint_cic_adjoint_plain(pos, w, g, geom)
-    k2 = rel_err_pair(dpos, rpos, dw, rw)
-    t_k2 = cuda_ms(lambda: P.paint_cic_adjoint_kernel(pos, w, g, geom), reps)
+    d2 = each_design(P, "paint_cic_adjoint", (pos, w, g), geom, (rpos, rw), reps,
+                      f"{tag}{sfx}", n_corner)
     t_p2 = cuda_ms(lambda: P.paint_cic_adjoint_plain(pos, w, g, geom), max(2, reps // 5))
     lib2 = None
     if not plain_cic:
@@ -310,8 +368,8 @@ def check_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangular"):
     b2 = bound(16 * n_p + 4 * n_s * n_c + 16 * n_p, n_s * n_p * 150 * ops_scale(order))
     b3 = bound(8 * n_k + 8 * n_k // n_s, (70 if kb else 10) * n_k)
     for name, (ea, er), tk, tp, (bm, bb), lib in (
-            ("paint_cic", k1, t_k1, t_p1, b1, None),
-            ("paint_cic_adjoint", k2, t_k2, t_p2, b2, lib2),
+            ("paint_cic", d1.pop("_err"), d1.pop("_ms"), t_p1, b1, None),
+            ("paint_cic_adjoint", d2.pop("_err"), d2.pop("_ms"), t_p2, b2, lib2),
             ("nufft_epilogue", k3, t_k3, t_p3, b3, None)):
         kind = " (element by element)" if name == "nufft_epilogue" else ""
         log(f"# {tag} {name + sfx:25s} max_abs_err {ea:.3e} max_rel_err {er:.3e}{kind}  "
@@ -319,7 +377,8 @@ def check_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangular"):
         assert er <= TOL, f"{name}{sfx} disagrees with its plain version at {tag}: {er:.3e} > {TOL}"
         res[name + sfx] = {"max_abs_err": ea, "ms": tk, "plain_ms": tp, "bound_ms": bm,
                            "bound_by": bb, "library_ms": lib}
-    res["paint_cic" + sfx] |= {"design": "tiled", "atomic_ms": t_k1a}
+    res["paint_cic" + sfx] |= d1
+    res["paint_cic_adjoint" + sfx] |= d2
     return res
 
 
@@ -378,34 +437,32 @@ def check_read_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangul
     C = 3
     mesh = torch.randn(geom_c.shape + (C,), generator=gen, device=dev)
     ct = torch.randn((pos.shape[0], C), generator=gen, device=dev)
-    out = {}
+    out, rows = {}, {}
     for kind, geom in (("clamped", geom_c), ("unclamped", geom_u)):
-        k4 = rel_err(P.read_cic_kernel(pos, mesh, geom), P.read_cic_plain(pos, mesh, geom))
+        ref4 = P.read_cic_plain(pos, mesh, geom)
         if plain_cic:
             pr, mr = pos.clone().requires_grad_(True), mesh.clone().requires_grad_(True)
             rpos, rmesh = torch.autograd.grad((P.read_cic_plain(pr, mr, geom) * ct).sum(),
                                               (pr, mr))
         else:  # K5's plain version, as for K2 in phase 3
             rpos, rmesh = P.read_cic_adjoint_plain(pos, mesh, ct, geom)
-        dpos, dmesh = P.read_cic_adjoint_kernel(pos, mesh, ct, geom)
-        k5 = rel_err_pair(dpos, rpos, dmesh, rmesh)
         if kind == "unclamped":
+            k4 = rel_err(P.read_cic_kernel(pos, mesh, geom), ref4)
+            dpos, dmesh = P.read_cic_adjoint_kernel(pos, mesh, ct, geom)
+            k5 = rel_err_pair(dpos, rpos, dmesh, rmesh)
+            t4 = cuda_ms(lambda: P.read_cic_kernel(pos, mesh, geom), reps)
             t5 = cuda_ms(lambda: P.read_cic_adjoint_kernel(pos, mesh, ct, geom), reps)
         else:
-            # the lattice-brick design, the route of a clamped read's VJP,
-            # against the plain version, timed in turns with the atomic one
-            n_out = torch.zeros(1, dtype=torch.int64, device=dev)
-            dpos, dmesh = P.read_cic_adjoint_tiled_kernel(pos, mesh, ct, geom, n_out)
-            k5a, k5 = k5, rel_err_pair(dpos, rpos, dmesh, rmesh)
-            t5a, t5 = turns(lambda: P.read_cic_adjoint_kernel(pos, mesh, ct, geom),
-                            lambda: P.read_cic_adjoint_tiled_kernel(pos, mesh, ct, geom), reps)
-            log(f"# {tag} read_cic_adjoint{sfx} tiled {P.tile_plan(geom, C)}: outlier share "
-                f"{n_out.item() / (pos.shape[0] * order**3):.4e} of the corner products; "
-                f"atomic max_rel_err {k5a[1]:.3e}, {t5a:.3f} ms; tiled {t5:.3f} ms")
-            assert k5a[1] <= TOL, f"atomic read_cic_adjoint{sfx} (clamped) disagrees at {tag}"
-            atomic = {"design": "tiled", "atomic_ms": t5a}
-        t = {"read_cic": (cuda_ms(lambda: P.read_cic_kernel(pos, mesh, geom), reps),
-                          cuda_ms(lambda: P.read_cic_plain(pos, mesh, geom), max(2, reps // 5))),
+            # both designs of K4 and K5 against the plain versions, timed in
+            # turns; the clamped row is the design the route takes
+            n_corner = pos.shape[0] * order**3
+            rows["read_cic"] = each_design(P, "read_cic", (pos, mesh), geom, ref4, reps,
+                                            f"{tag}{sfx}", n_corner)
+            rows["read_cic_adjoint"] = each_design(P, "read_cic_adjoint", (pos, mesh, ct), geom,
+                                                    (rpos, rmesh), reps, f"{tag}{sfx}", n_corner)
+            (k4, t4), (k5, t5) = ((rows[n].pop("_err"), rows[n].pop("_ms"))
+                                  for n in ("read_cic", "read_cic_adjoint"))
+        t = {"read_cic": (t4, cuda_ms(lambda: P.read_cic_plain(pos, mesh, geom), max(2, reps // 5))),
              "read_cic_adjoint": (
                  t5, cuda_ms(lambda: P.read_cic_adjoint_plain(pos, mesh, ct, geom), max(2, reps // 5)))}
         out[kind] = {"read_cic": (k4, *t["read_cic"]),
@@ -458,14 +515,14 @@ def check_read_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangul
             assert er <= TOL, f"{name}{sfx} ({kind}) disagrees with its plain version at {tag}"
         (ea, _), tk, tp = out["clamped"][name]
         res[name + sfx] = {"max_abs_err": ea, "ms": tk, "plain_ms": tp, "bound_ms": bm,
-                           "bound_by": bb, "library_ms": lib[name]}
-    res["read_cic_adjoint" + sfx] |= atomic
+                           "bound_by": bb, "library_ms": lib[name]} | rows[name]
     return res
 
 
 def check_wide_read():
-    """K4/K5 wrappers on C = 6 channels (two launches of at most 4) against
-    their plain versions, 32^3 clamped TSC with ties."""
+    """K4/K5 wrappers on C = 6 channels (two launches of at most 4), both
+    designs of each, against their plain versions, 32^3 clamped TSC with
+    ties."""
     from montecosmo_tpu_torch.ops import paint as P
 
     dev = torch.device("cuda")
@@ -474,14 +531,15 @@ def check_wide_read():
     geom = P.cic_geometry(geom.shape, 1, (16, 16, 16), 5, True, 3)
     mesh = torch.randn(geom.shape + (6,), generator=gen, device=dev)
     ct = torch.randn((pos.shape[0], 6), generator=gen, device=dev)
-    e4 = rel_err(P.read_cic_kernel(pos, mesh, geom), P.read_cic_plain(pos, mesh, geom))
+    ref = P.read_cic_plain(pos, mesh, geom)
+    e4, e4t = (rel_err(k(pos, mesh, geom), ref) for k in (P.read_cic_kernel, P.read_cic_tiled_kernel))
     rpos, rmesh = P.read_cic_adjoint_plain(pos, mesh, ct, geom)
     e5, e5t = (rel_err_pair(dpos, rpos, dmesh, rmesh) for dpos, dmesh in (
         P.read_cic_adjoint_kernel(pos, mesh, ct, geom),
         P.read_cic_adjoint_tiled_kernel(pos, mesh, ct, geom)))
-    log(f"# 32^3 C = 6 read (2 launches each): read_cic max_rel_err {e4[1]:.3e}, "
-        f"read_cic_adjoint max_rel_err {e5[1]:.3e} (tiled {e5t[1]:.3e})")
-    assert max(e4[1], e5[1], e5t[1]) <= TOL, "the 6-channel read disagrees with its plain version"
+    log(f"# 32^3 C = 6 read (2 launches each): read_cic max_rel_err {e4[1]:.3e} (tiled "
+        f"{e4t[1]:.3e}), read_cic_adjoint max_rel_err {e5[1]:.3e} (tiled {e5t[1]:.3e})")
+    assert max(e4[1], e4t[1], e5[1], e5t[1]) <= TOL, "the 6-channel read disagrees with its plain version"
 
 
 WINDOWS = [(k, o) for k in ("rectangular", KB) for o in ORDERS]
@@ -580,7 +638,8 @@ def ngp_witnesses(lc, dev="cuda"):
     from montecosmo_tpu_torch.models import model as M
     from montecosmo_tpu_torch.ops import paint as P
 
-    names = ("paint_cic_kernel", "paint_cic_tiled_kernel", "read_cic_kernel", "nufft_epilogue_kernel")
+    names = ("paint_cic_kernel", "paint_cic_tiled_kernel", "read_cic_kernel",
+             "read_cic_tiled_kernel", "nufft_epilogue_kernel")
     nufft, kernels = M.nufft, {n: getattr(P, n) for n in names}
 
     def run(device, plain=False, ulp=False):
@@ -594,7 +653,7 @@ def ngp_witnesses(lc, dev="cuda"):
         M.nufft = capture
         if plain:
             P.paint_cic_kernel = P.paint_cic_tiled_kernel = P.paint_cic_plain
-            P.read_cic_kernel = P.read_cic_plain
+            P.read_cic_kernel = P.read_cic_tiled_kernel = P.read_cic_plain
             P.nufft_epilogue_kernel = lambda x, g, backward=False: P._epilogue_math(x, g, backward)
         try:
             _, _, pred = golden_predict(device, "nbody", ulp=ulp, **lc)
@@ -638,7 +697,7 @@ def phase_lightcone_32(order):
     lp, launches = _value_and_grad_launches(m, p, {"count_mesh": pred["count_mesh"]}, "bspline")
     log(f"# 32^3 light cone order {order} value+grad on the card: logpdf {lp:.6e}; "
         f"launches at order {order} {launches}")
-    missing = [k for k in NBODY_KERNELS if not launches.get(k)]
+    missing = [k for k in path_kernels(order, True) if not launches.get(k)]
     assert not missing, f"order-{order} kernels of the light cone never ran: {missing}"
     return launches
 
@@ -678,7 +737,7 @@ def phase_curved_32():
             m, p, {"count_mesh": pred["count_mesh"]}, "kb")
         log(f"# 32^3 curved-sky light cone, Kaiser-Bessel support {order}, value+grad on the "
             f"card: logpdf {lp:.6e}; launches {launches[order]}")
-        missing = [k for k in LPT_KERNELS if not launches[order].get(k)]
+        missing = [k for k in path_kernels(order) if not launches[order].get(k)]
         assert not missing, f"Kaiser-Bessel support-{order} kernels never ran: {missing}"
     default_config_both()
     return launches
@@ -820,56 +879,60 @@ def phase_bench(evolution, kernels, tag=None, capture=None, **updates):
     return (launches, captured) if capture else launches
 
 
+# the kernels whose inputs each flagship capture records: the 2LPT render's
+# paint and its backward; the N-body force read's VJP at the last step (the
+# first K5 of the backward) and that step's read (the last K4 before it)
+CAPTURES = {"paint": ("paint_cic", "paint_cic_adjoint"), "read": ("read_cic_adjoint", "read_cic")}
+
+
 def flagship_inputs(tag, value_and_grad, which):
-    """The flagship's own inputs of the tiled K1 (which="paint": the 2LPT
-    render's interlaced paint) or K5 (which="read": the N-body flagship's
-    last step, the first K5 of the backward), captured in one more
-    value+grad: the per-axis quantiles of |pos - site| in cells, the tiled
-    design's outlier share, and both designs on them, held against the
-    plain version and timed in turns.  Returns the JSON row's extra keys."""
+    """The flagship's own inputs of the kernels CAPTURES[which] names,
+    recorded from one more value+grad through whichever design the route
+    calls: the per-axis quantiles of |pos - site| in cells, the tiled
+    design's outlier share, and each design on them, held against the
+    plain version and timed (`each_design`).  Returns each kernel's JSON
+    extras."""
     from montecosmo_tpu_torch.ops import paint as P
 
-    name = {"paint": "paint_cic_tiled_kernel", "read": "read_cic_adjoint_tiled_kernel"}[which]
-    kernel, seen = getattr(P, name), []
+    names = CAPTURES[which]
+    seen, saved = {}, {}
 
-    def record(*args):
-        if which == "paint" or not seen:
-            seen[:] = [tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)]
-        return kernel(*args)
+    def recorder(name, f):
+        def record(*args):
+            first_k5 = "read_cic_adjoint" in seen
+            if name in ("paint_cic", "paint_cic_adjoint") or (
+                    name == "read_cic_adjoint" and not first_k5) or (
+                    name == "read_cic" and not first_k5):
+                seen[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
+            return f(*args)
+        return record
 
-    setattr(P, name, record)
+    for name in names:
+        for f in filter(None, designs(P)[name][:2]):
+            saved[f.__name__] = f
+            setattr(P, f.__name__, recorder(name, f))
     try:
         value_and_grad()
     finally:
-        setattr(P, name, kernel)
+        for n, f in saved.items():
+            setattr(P, n, f)
     torch.cuda.synchronize()
-    args, geom = seen[0][:-1], seen[0][-1]
-    pos = args[0]
-    d = (pos - P._sites(geom, pos.device)).abs()
-    q = torch.tensor([0.5, 0.99, 0.999, 1.0], device=pos.device)
-    quant = [[round(float(v), 4) for v in torch.quantile(d[:, a], q)] for a in range(3)]
-    n_out = torch.zeros(1, dtype=torch.int64, device=pos.device)
-    tiled = kernel(*args, geom, n_out)
-    share = n_out.item() / (geom.n_shift * pos.shape[0] * geom.order**3)
-    if which == "paint":
-        plain, atomic = P.paint_cic_plain, P.paint_cic_kernel
-        err = rel_err(tiled, plain(*args, geom))
-        err_a = rel_err(atomic(*args, geom), plain(*args, geom))
-    else:
-        plain, atomic = P.read_cic_adjoint_plain, P.read_cic_adjoint_kernel
-        ref = plain(*args, geom)
-        err = rel_err_pair(tiled[0], ref[0], tiled[1], ref[1])
-        a = atomic(*args, geom)
-        err_a = rel_err_pair(a[0], ref[0], a[1], ref[1])
-    t_a, t_t = turns(lambda: atomic(*args, geom), lambda: kernel(*args, geom), 10)
-    log(f"# ({tag}) the flagship's {name.removesuffix('_kernel')} inputs: |pos - site| "
-        f"quantiles 50/99/99.9/100% per axis (cells) {quant}; plan "
-        f"{P.tile_plan(geom, args[1].shape[-1] if which == 'read' else 1)}; outlier share "
-        f"{share:.4e}; tiled {t_t:.3f} ms (max_rel_err {err[1]:.3e}), atomic {t_a:.3f} ms "
-        f"(max_rel_err {err_a[1]:.3e})")
-    assert max(err[1], err_a[1]) <= TOL, f"{name} on the {tag} flagship's inputs disagrees"
-    return {"flagship_ms": t_t, "flagship_atomic_ms": t_a, "flagship_outlier_share": share,
-            "flagship_disp_quantiles": quant}
+    extras = {}
+    for name in names:
+        args, geom = seen[name][:-1], seen[name][-1]
+        pos = args[0]
+        d = (pos - P._sites(geom, pos.device)).abs()
+        q = torch.tensor([0.5, 0.99, 0.999, 1.0], device=pos.device)
+        quant = [[round(float(v), 4) for v in torch.quantile(d[:, a], q)] for a in range(3)]
+        ref = designs(P)[name][2](*args, geom)
+        row = each_design(P, name, args, geom, ref, 10, f"({tag}) the flagship's {name} inputs",
+                           geom.n_shift * pos.shape[0] * geom.order**3)
+        log(f"# ({tag}) the flagship's {name} inputs: |pos - site| quantiles 50/99/99.9/100% "
+            f"per axis (cells) {quant}")
+        row.pop("_err")
+        extras[name] = {"flagship_ms": row.pop("_ms"), "flagship_disp_quantiles": quant}
+        extras[name] |= {f"flagship_{k}": v for k, v in row.items() if k != "design"}
+    return extras
 
 
 def layer_times(m, fn, reps=3):
@@ -919,7 +982,7 @@ def profile_eval(fn, eval_s):
         f"{100 * busy_ms / (1e3 * eval_s):.1f}% of the unprofiled {1e3 * eval_s:.1f} ms; "
         f"{launches} device kernels")
     for tag in ("paint_cic_tiled_kernel", "paint_cic_forward_kernel", "paint_cic_adjoint_kernel",
-                "read_cic_forward_kernel", "read_cic_adjoint_tiled_kernel",
+                "read_cic_forward_kernel", "read_cic_tiled_kernel", "read_cic_adjoint_tiled_kernel",
                 "read_cic_adjoint_kernel", "nufft_epilogue"):
         ms = sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
         log(f"# profiler: kernels named *{tag}* {ms:.3f} ms = "
@@ -928,17 +991,19 @@ def profile_eval(fn, eval_s):
 
 
 # ----------------------------------------------------------------- main
+CSRC = "montecosmo_tpu_torch/csrc/"
+# route, the lattice-brick design's source, the other design's, what it
+# replaces; a row's source is that of the design the route takes
 SOURCES = {
-    # K1 and K5: the lattice-brick design, which every model path runs
-    "paint_cic": ("cuda", "montecosmo_tpu_torch/csrc/paint_tiled.cu",
+    "paint_cic": ("cuda", CSRC + "paint_tiled.cu", CSRC + "paint_cic.cu",
                   "montecosmo_tpu/ops/paint_window.py:240"),
-    "paint_cic_adjoint": ("cuda", "montecosmo_tpu_torch/csrc/paint_cic.cu",
+    "paint_cic_adjoint": ("cuda", None, CSRC + "paint_cic.cu",
                           "montecosmo_tpu/ops/paint_window.py:180"),
-    "nufft_epilogue": ("triton", "montecosmo_tpu_torch/csrc/nufft_epilogue.py",
+    "nufft_epilogue": ("triton", None, CSRC + "nufft_epilogue.py",
                        "montecosmo_tpu/ops/paint.py:192"),
-    "read_cic": ("cuda", "montecosmo_tpu_torch/csrc/paint_cic.cu",
+    "read_cic": ("cuda", CSRC + "read_tiled.cu", CSRC + "paint_cic.cu",
                  "montecosmo_tpu/ops/paint_window.py:330"),
-    "read_cic_adjoint": ("cuda", "montecosmo_tpu_torch/csrc/paint_tiled.cu",
+    "read_cic_adjoint": ("cuda", CSRC + "paint_tiled.cu", CSRC + "paint_cic.cu",
                          "montecosmo_tpu/ops/paint_window.py:395"),
 }
 # at orders 1, 3 and 4 K1 and K2 replace the deleted Pallas window kernels
@@ -952,49 +1017,88 @@ KB_REPLACES = {"paint_cic": "montecosmo_tpu/ops/paint_window.py:54",
                "nufft_epilogue": "montecosmo_tpu/ops/fourier.py:238",
                "read_cic": "montecosmo_tpu/ops/paint_window.py:378",
                "read_cic_adjoint": "montecosmo_tpu/ops/paint_window.py:395"}
-# the launch counts' names on the model paths: every model paint is clamped
-# to the lattice, so K1 and K5 run their lattice-brick designs there
-PATH_NAME = {"paint_cic": "paint_cic_tiled", "read_cic_adjoint": "read_cic_adjoint_tiled"}
-LPT_KERNELS = ("paint_cic_tiled", "paint_cic_adjoint", "nufft_epilogue")
-NBODY_KERNELS = LPT_KERNELS + ("read_cic", "read_cic_adjoint_tiled")
+
+
+def path_name(name, order):
+    """The launch count's name of kernel `name` on the model paths at
+    `order`: every model paint and force read is clamped to the lattice,
+    so the route (ops/paint.py::TILED_FROM) picks the design by order (K3
+    has one)."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    geom = P.cic_geometry((8, 8, 8), 2, (8, 8, 8), 2, True, order)
+    return name + "_tiled" if P._tiled(name, geom) else name
+
+
+def path_kernels(order, nbody=False):
+    """The kernels that must launch at `order` on the 2LPT paths (K1, K2,
+    K3) or, with `nbody`, the N-body ones (also K4, K5), by launch name."""
+    names = ("paint_cic", "paint_cic_adjoint", "nufft_epilogue")
+    names += ("read_cic", "read_cic_adjoint") if nbody else ()
+    return tuple(path_name(n, order) for n in names)
+
+
 PROFILES = []
+
+
+T0 = time.perf_counter()
+
+
+def done(phase):
+    log(f"# phase {phase} done at {time.perf_counter() - T0:.1f} s")
 
 
 def main():
     phase_device()
     phase_build()
+    done("2")
     res = phase_kernels()
+    done("3/3b")
     if QUICK:
         log("# quick run: phases 4-6 skipped")
         return
     phase_golden("lpt")
     phase_golden("nbody")
+    done("4/4b")
     launches = {("rectangular", order): phase_lightcone_32(order) for order in (3, 1, 4)}
+    done("4c")
     launches |= {(KB, order): n for order, n in phase_curved_32().items()}
-    flagship = {"paint_cic": phase_bench("lpt", LPT_KERNELS, capture="paint")[1]}
-    launches["rectangular", 2], flagship["read_cic_adjoint"] = phase_bench(
-        "nbody", NBODY_KERNELS, capture="read")
-    launches["rectangular", 3] = phase_bench("nbody", NBODY_KERNELS, "nbody light cone, TSC",
-                                             a_obs=None, paint_order=3)
+    done("4d")
+    # the flagships' own inputs by B-spline order: CIC from 5 and 5b, TSC from 5c
+    flagship = {2: phase_bench("lpt", path_kernels(2), capture="paint")[1]}
+    done("5")
+    launches["rectangular", 2], flagship_read = phase_bench("nbody", path_kernels(2, True),
+                                                            capture="read")
+    flagship[2] |= flagship_read
+    done("5b")
+    launches["rectangular", 3], flagship[3] = phase_bench(
+        "nbody", path_kernels(3, True), "nbody light cone, TSC", capture="read", a_obs=None,
+        paint_order=3)
+    done("5c")
     # the flagship on the JAX package's default sky: curved, the light cone
-    launches[KB, 4] = phase_bench("lpt", LPT_KERNELS, "curved-sky light cone, Kaiser-Bessel 4",
+    launches[KB, 4] = phase_bench("lpt", path_kernels(4), "curved-sky light cone, Kaiser-Bessel 4",
                                   a_obs=None, curved_sky=True, kernel_type=KB, paint_order=4)
+    done("5d")
     for run in PROFILES:
         run()
     kernels = []
     for kernel, order in WINDOWS:
         sfx = _suffix(order, kernel)
-        for n, (r, s, rep) in SOURCES.items():
+        for n, (r, tiled, other, rep) in SOURCES.items():
             if kernel == KB:
                 rep = KB_REPLACES[n]
             elif order != 2:
                 rep = WINDOW_PALLAS.get(n, rep)
-            kernels.append({"name": n + sfx, "route": r, "source": s, "replaces": rep,
+            tiled_path = path_name(n, order).endswith("_tiled")
+            src = {"source": tiled if tiled_path else other}
+            if tiled:
+                src["tiled_source"] = tiled
+            kernels.append({"name": n + sfx, "route": r, **src, "replaces": rep,
                             "window": "kb" if kernel == KB else "bspline", "order": order,
-                            "launches": launches[kernel, order].get(PATH_NAME.get(n, n), 0),
+                            "launches": launches[kernel, order].get(path_name(n, order), 0),
                             **res[n + sfx]})
-            if kernel != KB and order == 2 and n in flagship:
-                kernels[-1] |= flagship[n]
+            if kernel != KB and n in flagship.get(order, {}):
+                kernels[-1] |= flagship[order][n]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

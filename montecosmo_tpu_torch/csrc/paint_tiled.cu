@@ -51,92 +51,9 @@
 // than kMaxSites sites or a tile larger than its shared memory).  An
 // optional counter gets the number of corner products (not channels) that
 // took the device-memory path.
-#include "paint_window.cuh"
+#include "lattice_brick.cuh"
 
 namespace {
-
-constexpr int kTileThreads = 256;
-constexpr int kTileCTAs = 4;  // per SM: ops/paint.py::TILE_BYTES fits four tiles
-
-// The brick and tile of one launch (ops/paint.py::tile_plan): brick in
-// lattice sites, margin R and tile extent T in mesh cells.
-struct Tiles {
-  int b[3];
-  int R;
-  int T[3];
-};
-
-// One CTA's brick: its first site, its extent (smaller at the lattice's far
-// edge) and its tile's origin, in unwrapped mesh cells.
-struct Brick {
-  int l[3], n[3], o[3];
-};
-
-template <int P>
-__device__ __forceinline__ Brick brick_of(int id, const Geom& g, const Tiles& t) {
-  const int L[3] = {g.Lx, g.Ly, g.Lz};
-  const int s[3] = {(int)g.sx, (int)g.sy, (int)g.sz};
-  const int n2 = (g.Lz + t.b[2] - 1) / t.b[2], n1 = (g.Ly + t.b[1] - 1) / t.b[1];
-  const int idx[3] = {id / (n1 * n2), (id / n2) % n1, id % n2};
-  Brick k;
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    k.l[a] = idx[a] * t.b[a];
-    k.n[a] = min(t.b[a], L[a] - k.l[a]);
-    k.o[a] = k.l[a] * s[a] - t.R - (P - 1) / 2;
-  }
-  return k;
-}
-
-// The lattice site l and particle index of the brick's i-th site, z
-// fastest as the lattice.
-__device__ __forceinline__ int64_t brick_site(const Brick& k, int i, const Geom& g, int (&l)[3]) {
-  const int r = i / k.n[2];
-  l[0] = k.l[0] + r / k.n[1];
-  l[1] = k.l[1] + r % k.n[1];
-  l[2] = k.l[2] + i % k.n[2];
-  return ((int64_t)l[0] * g.Ly + l[1]) * g.Lz + l[2];
-}
-
-// Whether the P cells of w lie in the tile [o, o + T) on this axis, and the
-// first one's tile coordinate t0.
-template <int P>
-__device__ __forceinline__ bool in_tile(const Win<P>& w, int o, int T, int& t0) {
-  t0 = w.lo - o;
-  return t0 >= 0 && t0 + P <= T;
-}
-
-// The brick's i-th particle (z fastest, as the lattice) at interlace shift
-// sh: its index p, its windows, whether the position derivative passes
-// the clamp on each axis, and whether all of its cells fall in the tile
-// (then t0 is its first cell in tile coordinates).
-template <class W>
-struct Stencil {
-  int64_t p;
-  Win<W::P> w[3];
-  bool pass[3];
-  int t0[3];
-  bool inside;
-};
-
-template <class W>
-__device__ __forceinline__ void stencil(Stencil<W>& st, const float* pos, const Brick& k,
-                                        const Tiles& t, const Geom& g, int i, float sh) {
-  constexpr int P = W::P;
-  int l[3];
-  st.p = brick_site(k, i, g, l);
-  const Site q = site_at<P>(l[0], l[1], l[2], g);
-  float x[3];
-  st.pass[0] = place(pos[3 * st.p] + sh, q.qx, g.Hx, g.clamp, x[0]);
-  st.pass[1] = place(pos[3 * st.p + 1] + sh, q.qy, g.Hy, g.clamp, x[1]);
-  st.pass[2] = place(pos[3 * st.p + 2] + sh, q.qz, g.Hz, g.clamp, x[2]);
-  W::eval(x[0], g.X, q.bx, g, st.w[0]);
-  W::eval(x[1], g.Y, q.by, g, st.w[1]);
-  W::eval(x[2], g.Z, q.bz, g, st.w[2]);
-  st.inside = in_tile(st.w[0], k.o[0], t.T[0], st.t0[0]) &
-              in_tile(st.w[1], k.o[1], t.T[1], st.t0[1]) &
-              in_tile(st.w[2], k.o[2], t.T[2], st.t0[2]);
-}
 
 // A tile value in fixed point: the integer q = rint(v 2^k) of each float
 // v added to it, split over two 32-bit words (lo: the low kLoBits bits of
@@ -150,7 +67,6 @@ struct Fixed {
   int hi;
 };
 constexpr int kLoBits = 21;
-constexpr int kMaxSites = 1024;
 
 // The CTA's scale 2^k from the largest |value| vmax of its brick (as float
 // bits): n_site vmax 2^k < 2^50, which leaves a factor 4 for the window
@@ -245,44 +161,6 @@ __device__ __forceinline__ void mesh_paint(float* out, const Geom& g, const Win<
     }
 }
 
-// The box of tile cells that the CTA's in-tile particles reached, in tile
-// coordinates: lo[a] <= cell < hi[a].  Each thread widens its own box;
-// `reach` merges them (warp reductions, then shared-memory integer
-// atomics) into the shared box, which `open_box` empties before the
-// particles run (the caller's barriers order the three).
-struct Box {
-  int lo[3], hi[3];
-};
-
-__device__ __forceinline__ void open_box(Box& b) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    b.lo[a] = 1 << 30;
-    b.hi[a] = -(1 << 30);
-  }
-}
-
-template <int P>
-__device__ __forceinline__ void widen(Box& b, const int (&t0)[3]) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    b.lo[a] = min(b.lo[a], t0[a]);
-    b.hi[a] = max(b.hi[a], t0[a] + P);
-  }
-}
-
-__device__ __forceinline__ void reach(const Box& mine, Box& shared) {
-#pragma unroll
-  for (int a = 0; a < 3; ++a) {
-    const int lo = __reduce_min_sync(0xffffffffu, mine.lo[a]);
-    const int hi = __reduce_max_sync(0xffffffffu, mine.hi[a]);
-    if (threadIdx.x % 32 == 0 && lo < hi) {
-      atomicMin(&shared.lo[a], lo);
-      atomicMax(&shared.hi[a], hi);
-    }
-  }
-}
-
 // The fold: the box's cells of the tile (C values per cell) added into the
 // (X, Y, Z, C) mesh as floats, z fastest so that a warp's reductions (RED)
 // fall in few 128-byte lines, and zeroed in the tile.  Each cell is wrapped
@@ -326,15 +204,6 @@ __device__ __forceinline__ void fold(Fixed* tile, const Box& box, const Brick& k
   }
 }
 
-// Adds the CTA's count of corner products sent to device memory to *n_out
-// (when given); `total` is a shared counter zeroed before the first barrier.
-__device__ __forceinline__ void count_outliers(unsigned mine, unsigned& total,
-                                               unsigned long long* n_out) {
-  if (mine) atomicAdd(&total, mine);
-  __syncthreads();
-  if (threadIdx.x == 0 && n_out != nullptr && total) atomicAdd(n_out, (unsigned long long)total);
-}
-
 template <class W>
 __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
     paint_cic_tiled_kernel(const float* __restrict__ pos, const float* __restrict__ w, Geom g,
@@ -366,7 +235,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
     open_box(reached);
     for (int i = threadIdx.x; i < n_site; i += blockDim.x) {
       Stencil<W> st;
-      stencil(st, pos, k, t, g, i, sh);
+      stencil(st, particle<P>(pos, k, g, i), k, t, g, sh);
       const float val[1] = {w[st.p]};
       if (sc.ok & st.inside) {
         tile_paint<1>(tile, t, st.t0[0], st.t0[1], st.t0[2], st.w[0], st.w[1], st.w[2], val,
@@ -421,7 +290,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
   open_box(reached);
   for (int i = threadIdx.x; i < n_site; i += blockDim.x) {
     Stencil<W> st;
-    stencil(st, pos, k, t, g, i, 0.f);
+    stencil(st, particle<P>(pos, k, g, i), k, t, g, 0.f);
     const Win<P>&wx = st.w[0], &wy = st.w[1], &wz = st.w[2];
     float val[C];
 #pragma unroll
@@ -464,47 +333,14 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
   count_outliers(mine, n_glob, n_out);
 }
 
-// Sets the kernel's dynamic shared memory to the tile's bytes and launches
-// one CTA per brick of the lattice.
-template <class... A, class... B>
-int launch_tiled(void (*kernel)(A...), const Geom& g, const Tiles& t, int smem, void* stream,
-                 B... args) {
-  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (e != cudaSuccess) return (int)e;
-  const unsigned n_brick = (unsigned)(((g.Lx + t.b[0] - 1) / t.b[0]) *
-                                      ((g.Ly + t.b[1] - 1) / t.b[1]) *
-                                      ((g.Lz + t.b[2] - 1) / t.b[2]));
-  kernel<<<n_brick, kTileThreads, smem, (cudaStream_t)stream>>>(args...);
-  return (int)cudaGetLastError();
-}
-
-// Whether the plan is one the kernels can take: a lattice, a brick of 1 to
-// kMaxSites sites, a tile of at least one cell that fits its shared memory
-// (8 bytes a value).
-bool plan_ok(const Geom& g, const Tiles& t, int C, int smem) {
-  bool ok = g.clamp && t.R >= 0 && C >= 1 && C <= kMaxC;
-  long long cells = 1, sites = 1;
-  for (int a = 0; a < 3; ++a) {
-    ok = ok && t.b[a] >= 1 && t.T[a] >= 1;
-    cells *= t.T[a];
-    sites *= t.b[a];
-  }
-  return ok && sites <= kMaxSites && 8LL * C * cells <= (long long)smem;
-}
-
 }  // namespace
-
-#define TILE_PARAMS int bx, int by, int bz, int R, int Tx, int Ty, int Tz, int smem
 
 extern "C" int paint_cic_tiled_forward(const float* pos, const float* w, GEOM_PARAMS,
                                        TILE_PARAMS, float* out, unsigned long long* n_out,
                                        void* stream) {
   const Geom g = make_geom(GEOM_ARGS);
   const Tiles t{{bx, by, bz}, R, {Tx, Ty, Tz}};
-  if (!plan_ok(g, t, 1, smem)) return (int)cudaErrorInvalidValue;
+  if (!plan_ok(g, t, 1, smem, 8)) return (int)cudaErrorInvalidValue;
   const long long n_p = (long long)Lx * Ly * Lz;
   int code = (int)cudaSuccess;
   DISPATCH_WINDOW(order, kb, code = launch_tiled(paint_cic_tiled_kernel<W>, g, t, smem, stream,
@@ -534,7 +370,7 @@ extern "C" int read_cic_adjoint_tiled(const float* pos, const float* mesh, const
                                       unsigned long long* n_out, void* stream) {
   const Geom g = make_geom(GEOM_ARGS);
   const Tiles t{{bx, by, bz}, R, {Tx, Ty, Tz}};
-  if (!plan_ok(g, t, C, smem)) return (int)cudaErrorInvalidValue;
+  if (!plan_ok(g, t, C, smem, 8)) return (int)cudaErrorInvalidValue;
   const long long n_p = (long long)Lx * Ly * Lz;
   int code = (int)cudaSuccess;
   DISPATCH_WINDOW(order, kb, code = read_adjoint_tiled<W>(C, g, t, smem, stream, pos, mesh, ct,

@@ -191,8 +191,22 @@ class QuadGaussian(Distribution):
     """Quadratic-in-Gaussian noise, mean-subtracted:
         obs = loc + scale1 eps + scale2 (eps^2 - 1),  eps ~ N(0,1).
     Exact two-preimage density on its bounded support; Normal(loc, scale1)
-    below |scale2| < LINEAR_TOL.  The guarded `root` keeps the
-    `where(u > 0, lp, -inf)` NaN-free in reverse mode."""
+    below |scale2| < LINEAR_TOL.
+
+    The JAX package completes the square: with h = scale1 / (2 scale2),
+    u = (obs - loc) / scale2 + 1 + h^2 = (eps + h)^2 and r = sqrt(u), the
+    density is [phi(r - h) + phi(r + h)] / (2 |scale2| r).  For small
+    |scale2 / scale1|, r - h cancels two numbers of size |h|, and
+    log(2 |scale2| r) the derivatives of log|scale2| and log r, each of size
+    1 / scale2: in float32 the gradient in scale2 is lost (the witness in
+    tests/test_torch_quadgauss.py records the JAX package's error).  Here
+    the same density is written in c = 2 scale2 / scale1 = 1 / h and
+    w = 2 (obs - loc) / scale1 + c, whose sizes do not grow as scale2 -> 0:
+    q = 1 + c w = c^2 u,
+    the preimage pair {r - h, r + h} = {sign(c) w / (1 + sqrt q),
+    (1 + sqrt q) / |c|} (phi is even, so the order does not matter), and
+    2 |scale2| r = |scale1| sqrt q.  The support is q > 0; the guarded
+    `root` keeps the `where(q > 0, lp, -inf)` NaN-free in reverse mode."""
 
     LINEAR_TOL = 1e-8
 
@@ -208,18 +222,24 @@ class QuadGaussian(Distribution):
         return self.loc + self.scale1 * eps + self.scale2 * (eps**2 - 1.0)
 
     def _completed_square(self, value):
+        """(c, w, q, root): c = 1 / h, w = c ((obs - loc) / curv + 1),
+        q = c^2 u and root = sqrt(q), guarded on q <= 0 (outside the
+        support); curv is scale2 guarded away from 0 (the linear branch
+        takes over there)."""
         s2 = to_tensor(self.scale2, value.device)
         curv = torch.where(s2.abs() < 1e-12, torch.ones_like(s2), s2)
-        h = self.scale1 / (2.0 * curv)
-        u = (value - self.loc) / curv + 1.0 + h**2
-        root = torch.sqrt(torch.where(u > 0, u, torch.ones_like(u)))
-        return curv, h, u, root
+        c = 2.0 * curv / self.scale1
+        w = 2.0 * (value - self.loc) / self.scale1 + c
+        q = 1.0 + c * w
+        root = torch.sqrt(torch.where(q > 0, q, torch.ones_like(q)))
+        return c, w, q, root
 
     def log_prob(self, value):
-        curv, h, u, root = self._completed_square(value)
-        two_phi = torch.logaddexp(_norm_logpdf(root - h), _norm_logpdf(root + h))
-        lp = two_phi - torch.log(2.0 * curv.abs() * root)
-        lp = torch.where(u > 0, lp, torch.full_like(lp, -np.inf))
+        c, w, q, root = self._completed_square(value)
+        near, far = torch.sign(c) * w / (1.0 + root), (1.0 + root) / c.abs()
+        two_phi = torch.logaddexp(_norm_logpdf(near), _norm_logpdf(far))
+        lp = two_phi - torch.log(to_tensor(self.scale1, value.device).abs() * root)
+        lp = torch.where(q > 0, lp, torch.full_like(lp, -np.inf))
         scale1 = to_tensor(self.scale1, value.device)
         lp_lin = _norm_logpdf((value - self.loc) / scale1) - torch.log(scale1)
         linear = to_tensor(self.scale2, value.device).abs() < self.LINEAR_TOL

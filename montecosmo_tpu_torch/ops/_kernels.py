@@ -95,6 +95,8 @@ def cuda_library(rebuild=False):
     lib.paint_cic_tiled_forward.restype = _I
     lib.read_cic_adjoint_tiled.argtypes = [_P, _P, _P, _I, *_GEOM, *_TILE, _P, _P, _P, _P]
     lib.read_cic_adjoint_tiled.restype = _I
+    lib.read_cic_tiled.argtypes = [_P, _P, _I, *_GEOM, *_TILE, _P, _P, _P]
+    lib.read_cic_tiled.restype = _I
     _LIB = lib
     return lib
 

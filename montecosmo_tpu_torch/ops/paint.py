@@ -11,29 +11,36 @@ support 1 is the one-hot NGP whatever the kernel type.
 * K1 `paint_cic`: B-spline scatter of lattice-ordered particles, every
   interlace shift painted in one particle pass, each shifted position
   clamped to +-max_disp around its lattice site (the window contract of
-  `montecosmo_tpu/ops/paint_window.py`); CUDA.  With a lattice (the clamp)
-  the lattice-brick design (`paint_cic_tiled`): one CTA per brick of sites
+  `montecosmo_tpu/ops/paint_window.py`); CUDA.  The lattice-brick design
+  (`paint_cic_tiled`, `csrc/paint_tiled.cu`): one CTA per brick of sites
   sums its corners in a shared-memory tile of the mesh (`tile_plan`) and
-  folds it in; without one the atomic design, every corner an atomic add.
+  folds it in; the atomic design (`csrc/paint_cic.cu`): every corner an
+  atomic add.
 * K2 `paint_cic_adjoint`: its VJP, a gather of the cotangent meshes giving
-  the weight and position gradients; CUDA, no atomics.
+  the weight and position gradients; CUDA, no atomics, per-particle.
 * K3 `nufft_epilogue`: the interlace phase sum, units jacobian and window
   deconvolution (B-spline or Kaiser-Bessel) in one pass over the rfft grid;
   Triton.  Its backward is the same kernel with the conjugated phase.
 * K4 `read_cic`: the B-spline read of C channel-last fields at (clamped)
   particle positions, behind `read_window`, `read_multi` and `read`; CUDA,
-  no atomics.
+  no atomics; lattice-brick (`read_cic_tiled`, `csrc/read_tiled.cu`: a
+  brick's box of the mesh staged in shared memory and gathered from), or
+  per-particle.
 * K5 `read_cic_adjoint`: its VJP in one particle pass, the C-channel paint
-  of the cotangent and the position gradient; CUDA, the lattice-brick
-  design (`read_cic_adjoint_tiled`) with a lattice, the atomic one
-  without.
+  of the cotangent and the position gradient; CUDA, lattice-brick
+  (`read_cic_adjoint_tiled`) as K1, or atomic.
 
-Each wrapper launches its kernel for a CUDA tensor (or raises), and runs the
-kernel's plain PyTorch version, kept in this module, for a CPU tensor.
-`LAUNCHES` counts kernel launches per (kernel, window, order), the window
-"bspline" or "kb", K1's and K5's two designs under two names (`paint_cic`
-and `paint_cic_tiled`, `read_cic_adjoint` and `read_cic_adjoint_tiled`);
-K3's order is that of its deconvolution, 0 for none.
+The route is fixed by the kernel, the geometry and the order (`_tiled`,
+`TILED_FROM`): on a clamped (lattice) geometry K1 and K5 take the
+lattice-brick design from CIC up and K4 from TSC up; NGP (order 1:
+B-spline order 1 and the clamped Kaiser-Bessel support 1, the one-hot NGP)
+and every unclamped call take the per-particle designs (PERF.md, Findings,
+has the timings).  Each wrapper launches its kernel for a CUDA tensor (or
+raises), and runs the kernel's plain PyTorch version, kept in this module,
+for a CPU tensor.  `LAUNCHES` counts kernel launches per (kernel, window,
+order), the window "bspline" or "kb", the two designs of K1, K4 and K5
+under two names each (`paint_cic` and `paint_cic_tiled`, and so on); K3's
+order is that of its deconvolution, 0 for none.
 
 Parity: `montecosmo_tpu/ops/paint.py:35-240` (the windows, paint, read,
 read_multi, read_sites, interlace, nufft) and
@@ -312,11 +319,22 @@ def _launch_status(code, name):
 # The lattice-brick kernels' tile budget: four CTAs' tiles (each CTA with
 # its 1 KiB reserve and 64 bytes of static shared memory) fit the 228 KiB of
 # shared memory of an H100 SM (four CTAs of 256 threads, at most 64
-# registers a thread: __launch_bounds__ in paint_tiled.cu).  A tile value is
-# 8 bytes (fixed point in two 32-bit words).
+# registers a thread: __launch_bounds__ in csrc/lattice_brick.cuh).
 TILE_BYTES = 228 * 1024 // 4 - 1024 - 64
 # candidate bricks in lattice sites, z (the lattice's contiguous axis) last
 BRICKS = ((8, 8, 8), (4, 8, 16), (8, 8, 16))
+# The two kinds of tile: the bytes of a value, and the rule that picks the
+# brick, a key over (brick, margin R, tile extent) to maximise.  A paint
+# tile (K1, K5) holds fixed point in two 32-bit words and takes the brick
+# that reaches the largest R, then the longest z run, then the fewest tile
+# cells per site.  A read tile (K4) holds float32 and takes the brick of the
+# most sites, then the largest R, then the longest z run: a read stages
+# only the box its particles reach, whose halo per site the larger brick
+# shrinks, and a margin beyond the displacements buys nothing there.
+TILE_KINDS = {
+    "paint": (8, lambda b, R, tile: (R, b[2], -prod(tile) / prod(b))),
+    "read": (4, lambda b, R, tile: (R >= 0, prod(b), R, b[2])),
+}
 
 
 @dataclass(frozen=True)
@@ -329,22 +347,23 @@ class TilePlan:
 
 
 @lru_cache(maxsize=64)
-def tile_plan(geom: CICGeometry, channels=1):
-    """The brick of lattice sites one CTA of the tiled K1/K5 owns and its
-    shared-memory tile of `channels` values per cell: per axis (brick - 1)
-    stride + 2 R + order cells, the window cells of every site of the brick
-    displaced by at most R.  R is the largest margin, up to the clamp bound,
-    whose tile fits TILE_BYTES; among the BRICKS (cut to the lattice, halved
-    until one fits) the one that reaches the largest R, then the longest z
-    run, then the fewest tile cells per site.  A particle whose cells leave
-    the tile goes to device memory, so no choice here changes the result."""
+def tile_plan(geom: CICGeometry, channels=1, kind="paint"):
+    """The brick of lattice sites one CTA of a tiled kernel owns and its
+    shared-memory tile of `channels` values per cell, of the TILE_KINDS
+    `kind`: per axis (brick - 1) stride + 2 R + order cells, the window
+    cells of every site of the brick displaced by at most R.  R is the
+    largest margin, up to the clamp bound, whose tile fits TILE_BYTES; the
+    brick is the one among the BRICKS (cut to the lattice, halved until one
+    fits) that the kind's rule picks.  A particle whose cells leave the tile
+    goes to device memory, so no choice here changes the result."""
     _require(geom.lattice is not None, "a tile plan needs the particle lattice")
+    value_bytes, rule = TILE_KINDS[kind]
 
     def tile(brick, R):
         return tuple((b - 1) * s + 2 * R + geom.order for b, s in zip(brick, geom.stride))
 
     def nbytes(brick, R):
-        return 8 * channels * prod(tile(brick, R))
+        return value_bytes * channels * prod(tile(brick, R))
 
     bricks = [tuple(min(b, l) for b, l in zip(brick, geom.lattice)) for brick in BRICKS]
     while all(nbytes(b, 0) > TILE_BYTES for b in bricks):
@@ -357,7 +376,7 @@ def tile_plan(geom: CICGeometry, channels=1):
             return -1
         return max(r for r in range(r_max + 1) if nbytes(brick, r) <= TILE_BYTES)
 
-    brick = max(bricks, key=lambda b: (margin(b), b[2], -prod(tile(b, margin(b))) / prod(b)))
+    brick = max(bricks, key=lambda b: rule(b, margin(b), tile(b, margin(b))))
     R = margin(brick)
     return TilePlan(brick, R, tile(brick, R), nbytes(brick, R))
 
@@ -429,16 +448,31 @@ def paint_cic_adjoint_kernel(pos, weights, grads, geom: CICGeometry):
     return dpos, dw
 
 
+# The lowest window order at which each kernel takes its lattice-brick
+# design on a clamped (lattice) geometry, from the 224^3 timings of both
+# designs (PERF.md, Findings): below it, and without a lattice, the
+# per-particle design runs.  K1 and K5 from CIC (at NGP one atomic add a
+# particle is cheaper than a brick's set-up); K4 from TSC (at NGP and CIC
+# the per-particle gather is faster than staging the brick's box).  K2 has
+# the per-particle design only.
+TILED_FROM = {"paint_cic": 2, "read_cic_adjoint": 2, "read_cic": 3}
+
+
+def _tiled(kernel, geom):
+    """Whether `kernel` takes its lattice-brick design for `geom`."""
+    return geom.lattice is not None and geom.order >= TILED_FROM.get(kernel, np.inf)
+
+
 class _PaintCIC(torch.autograd.Function):
-    """K1 forward (the lattice-brick design with a lattice, else the atomic
-    one), K2 backward.  Double backward is not supported."""
+    """K1 forward in the design `_tiled` picks, K2 backward.  Double
+    backward is not supported."""
 
     @staticmethod
     def forward(ctx, pos, weights, geom):
         ctx.geom = geom
         ctx.save_for_backward(pos, weights)
         if pos.is_cuda:
-            kernel = paint_cic_kernel if geom.lattice is None else paint_cic_tiled_kernel
+            kernel = paint_cic_tiled_kernel if _tiled("paint_cic", geom) else paint_cic_kernel
             return kernel(pos, weights, geom)
         return paint_cic_plain(pos, weights, geom)
 
@@ -535,20 +569,39 @@ def _channel_chunks(*ts):
 
 
 def read_cic_kernel(pos, mesh, geom: CICGeometry):
-    """K4 on the card: (P, C) float32 values, one launch per 4 channels."""
+    """K4 on the card, the per-particle design: (P, C) float32 values, one
+    launch per 4 channels."""
+    return _read_cic(pos, mesh, geom, tiled=False)
+
+
+def read_cic_tiled_kernel(pos, mesh, geom: CICGeometry, outliers=None):
+    """K4 on the card, the lattice-brick design (a lattice geometry), as
+    `read_cic_kernel`; `outliers` as in `_counter`."""
+    return _read_cic(pos, mesh, geom, tiled=True, outliers=outliers)
+
+
+def _read_cic(pos, mesh, geom, tiled, outliers=None):
     from montecosmo_tpu_torch.ops import _kernels
 
     _check_read_inputs(pos, mesh, geom)
     if mesh.shape[-1] > MAX_CHANNELS:
-        return torch.cat([read_cic_kernel(pos, m, geom) for (m,) in _channel_chunks(mesh)], -1)
+        return torch.cat([_read_cic(pos, m, geom, tiled, outliers)
+                          for (m,) in _channel_chunks(mesh)], -1)
     lib = _kernels.cuda_library()
-    out = torch.empty((pos.shape[0], mesh.shape[-1]), dtype=torch.float32, device=pos.device)
-    stream = torch.cuda.current_stream(pos.device).cuda_stream
-    code = lib.read_cic_forward(_ptr(pos), _ptr(mesh), ctypes.c_longlong(pos.shape[0]),
-                                ctypes.c_int(mesh.shape[-1]), *_geom_args(geom), _ptr(out),
-                                ctypes.c_void_p(stream))
-    LAUNCHES["read_cic", geom.window, geom.order] += 1
-    _launch_status(code, "read_cic")
+    C = mesh.shape[-1]
+    out = torch.empty((pos.shape[0], C), dtype=torch.float32, device=pos.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(pos.device).cuda_stream)
+    if tiled:
+        name = "read_cic_tiled"
+        code = lib.read_cic_tiled(_ptr(pos), _ptr(mesh), ctypes.c_int(C), *_geom_args(geom),
+                                  *_tile_args(tile_plan(geom, C, "read")), _ptr(out),
+                                  _counter(outliers, pos.device), stream)
+    else:
+        name = "read_cic"
+        code = lib.read_cic_forward(_ptr(pos), _ptr(mesh), ctypes.c_longlong(pos.shape[0]),
+                                    ctypes.c_int(C), *_geom_args(geom), _ptr(out), stream)
+    LAUNCHES[name, geom.window, geom.order] += 1
+    _launch_status(code, name)
     return out
 
 
@@ -597,15 +650,16 @@ def _read_cic_adjoint(pos, mesh, ct, geom, tiled, outliers=None):
 
 
 class _ReadCIC(torch.autograd.Function):
-    """K4 forward, K5 backward (the lattice-brick design with a lattice,
-    else the atomic one).  Double backward is not supported."""
+    """K4 forward, K5 backward, each in the design `_tiled` picks.  Double
+    backward is not supported."""
 
     @staticmethod
     def forward(ctx, pos, mesh, geom):
         ctx.geom = geom
         ctx.save_for_backward(pos, mesh)
         if pos.is_cuda:
-            return read_cic_kernel(pos, mesh, geom)
+            kernel = read_cic_tiled_kernel if _tiled("read_cic", geom) else read_cic_kernel
+            return kernel(pos, mesh, geom)
         return read_cic_plain(pos, mesh, geom)
 
     @staticmethod
@@ -613,8 +667,8 @@ class _ReadCIC(torch.autograd.Function):
     def backward(ctx, ct):
         pos, mesh = ctx.saved_tensors
         if ct.is_cuda:
-            kernel = (read_cic_adjoint_kernel if ctx.geom.lattice is None
-                      else read_cic_adjoint_tiled_kernel)
+            kernel = (read_cic_adjoint_tiled_kernel if _tiled("read_cic_adjoint", ctx.geom)
+                      else read_cic_adjoint_kernel)
             dpos, dmesh = kernel(pos, mesh, ct, ctx.geom)
         else:
             dpos, dmesh = read_cic_adjoint_plain(pos, mesh, ct, ctx.geom)

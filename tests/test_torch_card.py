@@ -118,8 +118,9 @@ def test_tiled_kernels_match_plain_and_atomic_on_card():
     send many particles to device memory) with ties and outliers, at orders 1-4 of
     the B-spline and Kaiser-Bessel windows, K5 at C = 3 and C = 6 (two
     launches of at most 4 channels); the routing of a clamped paint and read
-    to them (skips without a card).  Both designs sum with atomics in
-    run-dependent order, hence the 1e-5 relative tolerance."""
+    VJP to them from CIC up and to the atomic kernels at NGP
+    (ops/paint.py::TILED_FROM; skips without a card).  Both designs sum with
+    atomics in run-dependent order, hence the 1e-5 relative tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the tiled K1/K5 are CUDA")
     dev = torch.device("cuda")
@@ -140,7 +141,8 @@ def test_tiled_kernels_match_plain_and_atomic_on_card():
         tpa.reset_launches()
         close(tpa.paint_cic(pos, (32, 32, 32), w, 2, (16, 16, 16), 5, True, order, kernel,
                             192 / 224), out)
-        assert tpa.launches_at(order, geom.window) == {"paint_cic_tiled": 1}
+        k1 = "paint_cic_tiled" if order > 1 else "paint_cic"
+        assert tpa.launches_at(order, geom.window) == {k1: 1}
         for C in (3, 6):
             g1 = tpa.cic_geometry((32, 32, 32), 1, (16, 16, 16), 5, True, order, kernel, 1.5)
             mesh = torch.randn((32, 32, 32, C), device=dev)
@@ -155,5 +157,57 @@ def test_tiled_kernels_match_plain_and_atomic_on_card():
         vals = tpa.read_window(pr, mr, (16, 16, 16), order, kernel, 1.5, 5, True)
         torch.autograd.backward(vals, ct)
         close(pr.grad, tpa.read_cic_adjoint_plain(pos, mesh, ct, g1)[0])
-        assert tpa.launches_at(order, geom.window) == {"read_cic": 2, "read_cic_adjoint_tiled": 2}
+        k4 = "read_cic_tiled" if order > 2 else "read_cic"
+        k5 = "read_cic_adjoint_tiled" if order > 1 else "read_cic_adjoint"
+        assert tpa.launches_at(order, geom.window) == {k4: 2, k5: 2}
     assert wider
+
+
+@pytest.mark.cuda
+def test_tiled_read_matches_plain_and_per_particle_on_card():
+    """The lattice-brick K4 (read) against its plain version and against
+    the per-particle kernel on the same inputs, at 32^3 (stride-2 lattice,
+    margins of 0-2 cells that send many particles to device memory, boxes
+    wider than the mesh) with ties and outliers, at orders 1-4 of the
+    B-spline and Kaiser-Bessel windows, at C = 3 and C = 6 (two launches);
+    the routing of a clamped read to the tiled K4 from TSC up and of every
+    paint's backward to K2, with their launch names (skips without a
+    card).  Both designs sum the same corners in another order than the
+    plain version, hence the 1e-5 relative tolerance."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: the tiled K4 is CUDA")
+    dev = torch.device("cuda")
+    pos, w = _lattice_particles((16, 16, 16), (2, 2, 2), 5, 21)
+    pos = _with_ties(pos, (16, 16, 16), (2, 2, 2), np.random.default_rng(22))
+    pos, w = torch.tensor(pos, device=dev), torch.tensor(w, device=dev)
+
+    def close(out, ref):
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+
+    outliers = 0
+    for kernel, order in [(k, o) for k in ("rectangular", "kaiser_bessel") for o in (1, 2, 3, 4)]:
+        g1 = tpa.cic_geometry((32, 32, 32), 1, (16, 16, 16), 5, True, order, kernel, 1.5)
+        for C in (3, 6):
+            mesh = torch.randn((32, 32, 32, C), device=dev)
+            n_out = torch.zeros(1, dtype=torch.int64, device=dev)
+            out = tpa.read_cic_tiled_kernel(pos, mesh, g1, n_out)
+            outliers += n_out.item()
+            close(out, tpa.read_cic_plain(pos, mesh, g1))
+            close(out, tpa.read_cic_kernel(pos, mesh, g1))
+        tpa.reset_launches()
+        close(tpa.read_window(pos, mesh, (16, 16, 16), order, kernel, 1.5, 5, True), out)
+        k4 = "read_cic_tiled" if order > 2 else "read_cic"
+        assert tpa.launches_at(order, g1.window) == {k4: 2}
+        g2 = tpa.cic_geometry((32, 32, 32), 2, (16, 16, 16), 5, True, order, kernel, 192 / 224)
+        grads = torch.randn((2, 32, 32, 32), device=dev)
+        rpos, rw = tpa.paint_cic_adjoint_plain(pos, w, grads, g2)
+        pr, wr = pos.clone().requires_grad_(True), w.clone().requires_grad_(True)
+        tpa.reset_launches()
+        meshes = tpa.paint_cic(pr, (32, 32, 32), wr, 2, (16, 16, 16), 5, True, order, kernel,
+                               192 / 224)
+        torch.autograd.backward(meshes, grads)
+        close(pr.grad, rpos)
+        close(wr.grad, rw)
+        k1 = "paint_cic_tiled" if order > 1 else "paint_cic"
+        assert tpa.launches_at(order, g2.window) == {k1: 1, "paint_cic_adjoint": 1}
+    assert outliers > 0

@@ -1,5 +1,5 @@
-"""The lattice-brick decomposition of the tiled K1 (paint) and K5 (read
-adjoint), on the CPU.
+"""The lattice-brick decompositions of the tiled K1 (paint) and K5 (read
+adjoint), and of the tiled K4 (read), on the CPU.
 
 `tile_plan` must fit its shared-memory budget (and the 232,448 bytes a
 block of an H100 can have) for every geometry the flagships and
@@ -15,6 +15,13 @@ mesh, partial bricks at the lattice's far edge, particles past the clamp,
 ties, every window, and margins below the plan's (which send particles to
 the mesh): the result does not depend on R.  The plain versions sum in
 float32, hence the 1e-6 relative tolerance.
+
+The gather (csrc/read_tiled.cu) is emulated the same way: per brick, the
+box of tile cells that the windows falling wholly in the tile reach, that
+box of the mesh staged with periodic wrapping (a box wider than the mesh
+holds duplicated cells), each window read from the staged box when it lies
+in it and from the mesh otherwise; against `read_cic_plain`, with the
+plan of a read tile (float32, 4 bytes a value).
 """
 from itertools import product
 
@@ -189,3 +196,115 @@ def test_tiled_read_adjoint_emulation_matches_plain(case, kernel, order):
             err = np.abs(dmesh - ref).max() / np.abs(ref).max()
             assert err <= 1e-6, (C, R, err)
             assert R > 0 or n_out > 0
+
+
+@pytest.mark.parametrize("shape, lattice, H", [((224,) * 3, (224,) * 3, 9),
+                                               ((32,) * 3, (16,) * 3, 5)],
+                         ids=["224^3 stride 1", "32^3 stride 2"])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_read_tile_plan_fits(shape, lattice, H, order):
+    """The read tiles' plans (4 bytes a value, K4's C channels) fit the
+    budget and a block's shared memory, as the paint tiles' do; at 224^3
+    they take the 8 x 8 x 16 brick."""
+    for C in (1, 3, 4):
+        geom = tpa.cic_geometry(shape, 1, lattice, H, True, order)
+        plan = tpa.tile_plan(geom, C, "read")
+        assert plan.nbytes == 4 * C * np.prod(plan.tile) <= tpa.TILE_BYTES <= SMEM_PER_BLOCK
+        assert 0 <= plan.R <= H
+        assert all(1 <= b <= l for b, l in zip(plan.brick, lattice))
+        assert plan.tile == tuple((b - 1) * s + 2 * plan.R + order
+                                  for b, s in zip(plan.brick, geom.stride))
+        assert np.prod(plan.brick) <= 1024
+        # a read tile takes the brick of the most sites (the smallest halo)
+        assert np.prod(plan.brick) >= np.prod(tpa.tile_plan(geom, C).brick)
+        if shape[0] == 224:
+            assert plan.brick == (8, 8, 16) and plan.R >= 1
+
+
+def _tiled_gather(cells, w, mesh, geom, brick, R):
+    """Emulation of the tiled K4's gather of mesh (X, Y, Z, C) through the
+    windows (cells, w): returns the (P, C) values and the number of
+    particles read from the mesh."""
+    order, shape = geom.order, np.array(geom.shape)
+    n_p = int(np.prod(geom.lattice))
+    vals = np.zeros((n_p, mesh.shape[-1]))
+    lat = np.arange(n_p).reshape(geom.lattice)
+    tile = np.array([(b - 1) * s + 2 * R + order for b, s in zip(brick, geom.stride)])
+    n_out = 0
+    for first, extent in _bricks(geom, brick):
+        ids = lat[tuple(slice(f, f + n) for f, n in zip(first, extent))].reshape(-1)
+        origin = np.array(first) * geom.stride - R - (order - 1) // 2
+        t = cells[0, ids] - origin                                       # tile coords
+        reached = t[np.all((t >= 0) & (t + order <= tile), axis=1)]
+        box_lo = reached.min(0) if len(reached) else np.zeros(3, int)
+        box_n = reached.max(0) + order - box_lo if len(reached) else np.zeros(3, int)
+        # the staged box, wrapped periodically (duplicated cells when wider)
+        ix = [np.remainder(origin[a] + box_lo[a] + np.arange(box_n[a]), shape[a])
+              for a in range(3)]
+        staged = mesh[np.ix_(*ix)]
+        in_box = np.all((t >= box_lo) & (t + order <= box_lo + box_n), axis=1)
+        n_out += int((~in_box).sum())
+        for a, b, c in product(range(order), repeat=3):
+            cell = np.stack([cells[a, ids, 0], cells[b, ids, 1], cells[c, ids, 2]], -1)
+            val = mesh[tuple(np.remainder(cell, shape).T)]
+            rel = cell[in_box] - origin - box_lo
+            val[in_box] = staged[tuple(rel.T)]
+            vals[ids] += (w[a, ids, 0] * w[b, ids, 1] * w[c, ids, 2])[:, None] * val
+    return vals, n_out
+
+
+def _check_tiled_read(case, kernel, order, channels, seed):
+    """K4's gather decomposition against read_cic_plain for each C in
+    `channels`, at the plan's margin and below it; whether some plan's
+    tile was wider than the mesh."""
+    geom = _geometry(case, 1, kernel, order)
+    pos, _ = _inputs(case, seed)
+    rng = np.random.default_rng(seed + 1)
+    ((cells, w),) = _windows(pos, geom)
+    wider = False
+    for C in channels:
+        mesh = rng.standard_normal(geom.shape + (C,)).astype(np.float32)
+        ref = tpa.read_cic_plain(pos, torch.tensor(mesh), geom).double().numpy()
+        plan = tpa.tile_plan(geom, C, "read")
+        wider |= any(t > n for t, n in zip(plan.tile, geom.shape))
+        if case.endswith("partial bricks"):
+            assert any(l % b for l, b in zip(geom.lattice, plan.brick))
+        for R in _margins(plan):
+            vals, n_out = _tiled_gather(cells, w, mesh.astype(np.float64), geom, plan.brick, R)
+            err = np.abs(vals - ref).max() / np.abs(ref).max()
+            assert err <= 1e-6, (C, R, err)
+            assert R > 0 or n_out > 0
+    return wider
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("kernel, order", WINDOWS)
+def test_tiled_read_emulation_matches_plain(case, kernel, order):
+    """K4's gather decomposition (C channels staged from one mesh) against
+    read_cic_plain, C = 3 (the force read) and 1, at the plan's margin
+    and below it; at 16^3 some tile is wider than the mesh."""
+    wider = _check_tiled_read(case, kernel, order, (3, 1), 63)
+    assert wider or not case.startswith("16^3")
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("kernel, order", WINDOWS)
+def test_tiled_read_emulation_matches_plain_two_and_four_channels(case, kernel, order):
+    """The same at C = 2 and 4, the other channel counts of one launch (a
+    6-channel read is launched as 4 + 2), on other inputs."""
+    _check_tiled_read(case, kernel, order, (2, 4), 65)
+
+
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+@pytest.mark.parametrize("kernel", ["rectangular", "kaiser_bessel"])
+def test_route_by_order(kernel, order):
+    """The design each kernel takes (`_tiled`): on a lattice geometry K1
+    and K5 take the lattice-brick design from CIC up, K4 from TSC up; K2
+    has none; without a lattice none does."""
+    clamped = tpa.cic_geometry((32,) * 3, 2, (16,) * 3, 5, True, order, kernel, 1.5)
+    free = tpa.cic_geometry((32,) * 3, 2, order=order, kernel_type=kernel, oversamp=1.5)
+    want = {"paint_cic": order >= 2, "read_cic_adjoint": order >= 2, "read_cic": order >= 3,
+            "paint_cic_adjoint": False}
+    for name, tiled in want.items():
+        assert tpa._tiled(name, clamped) == tiled, name
+        assert not tpa._tiled(name, free)
