@@ -13,8 +13,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      kernels' margins of 0-2 cells send many particles to device memory,
      and some tiles are wider than the mesh) and at the 128^3 flagship
      shapes (224^3 paint mesh, 11.24M particles): values and gradients,
-     with the max relative errors (K3's element by element), both times
-     and the bound; K1 clamped in both designs, the lattice-brick one and
+     with the max relative errors (K3's element by element, forward and
+     backward, each timed per call and on the device from the profiler's
+     kernel durations), both times and the bound; K1 clamped in both designs, the lattice-brick one and
      the atomic one, each held, timed in turns (other, tiled, tiled,
      other), with the share of corner products that took the tiled
      design's outlier path (device memory) and the design the route
@@ -62,10 +63,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      last step, as 5 does for K1 and K2;
   5c. the same N-body flagship on the light cone (a_obs=None) at TSC
      (paint_order=3): K1-K5 must each launch at order 3 (K1, K4 and K5
-     tiled); then K5's and K4's inputs at the last step, as 5b;
+     tiled); then K5's and K4's inputs at the last step, as 5b; then the
+     backward of every table gather of one more value+grad, by call site
+     with its device ms (`table_backwards`), and the lookups that lpt and
+     chi2a make on the flagship's own 11.24M scale factors in the parent's
+     form, this port's and by advanced indexing, in turns (`lookup_forms`);
   5d. the 2LPT flagship on the curved sky and the light cone (curved_sky=True,
      a_obs=None) with the Kaiser-Bessel window of support 4: K1 (tiled), K2
-     and K3 must each launch at Kaiser-Bessel support 4;
+     and K3 must each launch at Kaiser-Bessel support 4; then its table
+     backwards and lookup forms, as 5c;
   6. last lines: the kernels JSON (one row per kernel, window and order;
      launches from phase 5b at CIC, 5c at TSC, 4c at NGP and PCS, 5d at
      Kaiser-Bessel 4, 4d at Kaiser-Bessel 1-3; K4/K5 run on no
@@ -328,45 +334,20 @@ def check_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangular"):
         if order == 1 and not kb:
             lib2 = _nearest_paint_adjoint(pos, g, dwk, tag, reps)
     # K3 forward and backward
-    from montecosmo_tpu_torch.ops.hermitian import r2chshape
-
-    eg = P.EpilogueGeometry(geom.shape, 2, float((7 / 6) ** 3), order, geom.kcut)
-    cshape = (2,) + r2chshape(geom.shape)
-    fk = torch.complex(torch.randn(cshape, generator=gen, device=dev),
-                       torch.randn(cshape, generator=gen, device=dev))
-    out = P.nufft_epilogue_kernel(fk, eg)
-    fr = fk.clone().requires_grad_(True)
-    plain = P.nufft_epilogue_plain(fr, eg)
-    gc = torch.complex(torch.randn(plain.shape, generator=gen, device=dev),
-                       torch.randn(plain.shape, generator=gen, device=dev))
-    # a real loss L = Re<gc, out>: torch's gradient convention for complex z
-    (gref,) = torch.autograd.grad((torch.view_as_real(plain) * torch.view_as_real(gc)).sum(), fr)
-    gk = P.nufft_epilogue_kernel(gc, eg, backward=True)
-    # K3 element by element, each error over the float32 scale of that
-    # element's sum, sum_s |F_s| |c(k)| (the backward's one term |g| |c(k)|),
-    # c(k) = scale / (n W(k)): near a zero of the KB window's transform 1/W
-    # is ~1e9 times its typical value, and an error over max|plain| would
-    # see only those modes
-    mag = [f.abs() for f in P._epilogue_factors(eg, dev)]
-    e_f = elem_err(out, plain.detach(), sum(m * fk[s].abs() for s, m in enumerate(mag)))
-    e_b = elem_err(gk, gref, torch.stack([m * gc.abs() for m in mag]))
-    log(f"# {tag} nufft_epilogue{sfx}: over max|plain|: forward "
-        f"{rel_err(out, plain.detach())[1]:.3e}, backward {rel_err(gk, gref)[1]:.3e}; "
-        f"max|plain| {float(plain.detach().abs().max()):.3e}")
-    k3 = (max(e_f[0], e_b[0]), max(e_f[1], e_b[1]))
-    t_k3 = cuda_ms(lambda: P.nufft_epilogue_kernel(fk, eg), reps)
-    t_p3 = cuda_ms(lambda: P.nufft_epilogue_plain(fk, eg), reps)
+    k3, t_k3, t_p3, d3 = check_epilogue(geom.shape, order, geom.kcut, gen, reps, f"{tag}{sfx}")
+    cshape = (2,) + P.r2chshape(geom.shape)
 
     # bounds: bytes of the inputs read once and outputs written once;
-    # operations counted per particle (or rfft cell) from the kernel source,
-    # K3's 3 sinh-or-sin per cell included; the Kaiser-Bessel weights' Bessel
-    # evaluations are counted as no operations (their library count is not
-    # known here), so at KB the bound is a lower one
+    # operations counted per particle (or rfft cell) from the kernel source
+    # (K3: 20 a cell at 2 shifts, its window and phase tabulated per axis);
+    # the Kaiser-Bessel weights' Bessel evaluations are counted as no
+    # operations (their library count is not known here), so at KB the
+    # bound is a lower one
     n_p, n_s, n_c = pos.shape[0], geom.n_shift, int(np.prod(geom.shape))
     n_k = int(np.prod(cshape))
     b1 = bound(16 * n_p + 4 * n_s * n_c, n_s * n_p * 50 * ops_scale(order))
     b2 = bound(16 * n_p + 4 * n_s * n_c + 16 * n_p, n_s * n_p * 150 * ops_scale(order))
-    b3 = bound(8 * n_k + 8 * n_k // n_s, (70 if kb else 10) * n_k)
+    b3 = bound(8 * n_k + 8 * n_k // n_s, 20 * n_k)
     for name, (ea, er), tk, tp, (bm, bb), lib in (
             ("paint_cic", d1.pop("_err"), d1.pop("_ms"), t_p1, b1, None),
             ("paint_cic_adjoint", d2.pop("_err"), d2.pop("_ms"), t_p2, b2, lib2),
@@ -379,7 +360,103 @@ def check_kernels(lattice, stride, H, tag, reps, order=2, kernel="rectangular"):
                            "bound_by": bb, "library_ms": lib}
     res["paint_cic" + sfx] |= d1
     res["paint_cic_adjoint" + sfx] |= d2
+    res["nufft_epilogue" + sfx] |= d3
     return res
+
+
+def check_epilogue(shape, order, kcut, gen, reps, tag):
+    """K3 at the paint mesh `shape`, 2 shifts, deconvolving the window of
+    `order` (the Kaiser-Bessel one with `kcut`, else the B-spline), forward
+    and backward against the plain version element by element, and timed.
+    Returns ((max_abs_err, max_rel_err), kernel ms, plain ms, the row's
+    device and backward times)."""
+    from montecosmo_tpu_torch.ops import paint as P
+    from montecosmo_tpu_torch.ops.hermitian import r2chshape
+
+    dev = torch.device("cuda")
+    eg = P.EpilogueGeometry(shape, 2, float((7 / 6) ** 3), order, kcut)
+    cshape = (2,) + r2chshape(shape)
+    fk = randc(cshape, gen)
+    out = P.nufft_epilogue_kernel(fk, eg)
+    fr = fk.clone().requires_grad_(True)
+    plain = P.nufft_epilogue_plain(fr, eg)
+    gc = randc(plain.shape, gen)
+    # a real loss L = Re<gc, out>: torch's gradient convention for complex z
+    (gref,) = torch.autograd.grad((torch.view_as_real(plain) * torch.view_as_real(gc)).sum(), fr)
+    gk = P.nufft_epilogue_kernel(gc, eg, backward=True)
+    # K3 element by element, each error over the float32 scale of that
+    # element's sum, sum_s |F_s| |c(k)| (the backward's one term |g| |c(k)|),
+    # c(k) = scale / (n W(k)): near a zero of the KB window's transform 1/W
+    # is ~1e9 times its typical value, and an error over max|plain| would
+    # see only those modes
+    mag = [f.abs() for f in P._epilogue_factors(eg, dev)]
+    e_f = elem_err(out, plain.detach(), sum(m * fk[s].abs() for s, m in enumerate(mag)))
+    e_b = elem_err(gk, gref, torch.stack([m * gc.abs() for m in mag]))
+    log(f"# {tag} nufft_epilogue: over max|plain|: forward "
+        f"{rel_err(out, plain.detach())[1]:.3e}, backward {rel_err(gk, gref)[1]:.3e}; "
+        f"max|plain| {float(plain.detach().abs().max()):.3e}")
+    k3 = (max(e_f[0], e_b[0]), max(e_f[1], e_b[1]))
+    # each call timed with CUDA events (the wrapper's host work included),
+    # and the kernel alone from the profiler's own durations, on inputs
+    # taken in turn from sets that with their outputs hold twice the L2, so
+    # that no launch finds its bytes in L2 from the one before
+    per_set = 8 * (fk.numel() + gc.numel())
+    n_sets = max(3, -(-2 * l2_bytes() // per_set))
+    fsets = [fk] + [randc(cshape, gen) for _ in range(n_sets - 1)]
+    bsets = [gc] + [randc(gc.shape, gen) for _ in range(n_sets - 1)]
+    fwd = l2_cold(lambda x: P.nufft_epilogue_kernel(x, eg), fsets)
+    bwd = l2_cold(lambda x: P.nufft_epilogue_kernel(x, eg, backward=True), bsets)
+    t_k3 = cuda_ms(fwd, reps)
+    row = {"device_ms": device_ms(fwd, reps, "nufft_epilogue"),
+           "backward_ms": cuda_ms(bwd, reps),
+           "backward_device_ms": device_ms(bwd, reps, "nufft_epilogue"), "l2_sets": n_sets}
+    log(f"# {tag} nufft_epilogue ({n_sets} input sets, L2 {l2_bytes()} B): forward "
+        f"{t_k3:.4f} ms a call, {row['device_ms']} ms on the device; backward "
+        f"{row['backward_ms']:.4f} / {row['backward_device_ms']} ms")
+    t_p3 = cuda_ms(l2_cold(lambda x: P.nufft_epilogue_plain(x, eg), fsets), reps)
+    return k3, t_k3, t_p3, row
+
+
+def l2_bytes():
+    """The card's L2 cache in bytes (50 MiB, an H100's, if torch does not say)."""
+    return getattr(torch.cuda.get_device_properties(0), "L2_cache_size", 0) or 50 * 2**20
+
+
+def randc(shape, gen):
+    """Standard complex normal values on the card."""
+    return torch.complex(torch.randn(shape, generator=gen, device="cuda"),
+                         torch.randn(shape, generator=gen, device="cuda"))
+
+
+def l2_cold(call, inputs):
+    """fn() that runs call(x) on the next of `inputs` in turn and keeps each
+    output until its slot comes round again, so that consecutive launches
+    share no input and write no block the one before just wrote."""
+    outs, turn = [None] * len(inputs), [0]
+
+    def fn():
+        j = turn[0] % len(inputs)
+        turn[0] += 1
+        outs[j] = call(inputs[j])
+    return fn
+
+
+def device_ms(fn, reps, name):
+    """Mean device time of one kernel whose name holds `name`, from
+    torch.profiler's own kernel durations over `reps` calls of fn() (over
+    the kernels it recorded: a profile may drop some of its device events);
+    None ("not measured") if it recorded none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    hits = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and name in e.key]
+    count = sum(e.count for e in hits)
+    return sum(e.self_device_time_total for e in hits) / 1e3 / count if count else None
 
 
 def _nearest_paint_adjoint(pos, g, dw_unclamped, tag, reps):
@@ -786,11 +863,14 @@ def bench_model(final=128, evolution="lpt", **updates):
     return FieldLevelModel(**conf, device="cuda")
 
 
-def phase_bench(evolution, kernels, tag=None, capture=None, **updates):
+def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **updates):
     """The flagship value+grad with `evolution` and the config `updates`;
     every kernel in `kernels` must launch at the model's paint order and
     window.  Returns the launch counts of the 7 evaluations there; with
-    `capture` ("paint" or "read"), also what `flagship_inputs` measures."""
+    `capture` ("paint" or "read"), also what `flagship_inputs` measures.
+    With `lookups` (the light cones), also the table gathers' backwards of
+    one more value+grad by call site (`table_backwards`) and the lookup
+    forms on the flagship's own scale factors (`lookup_forms`)."""
     from montecosmo_tpu_torch.ops import paint as P
     from montecosmo_tpu_torch.ops.background import Background, get_cosmology
 
@@ -846,6 +926,9 @@ def phase_bench(evolution, kernels, tag=None, capture=None, **updates):
     missing = [k for k in kernels if not launches.get(k)]
     assert not missing, f"kernels of the {tag} path never ran: {missing} ({launches})"
     captured = flagship_inputs(tag, value_and_grad, capture) if capture else None
+    if lookups:
+        table_backwards(m, leaves, obs, tag)
+        lookup_forms(m, tag)
 
     # share of the background RK4 tables: the same evaluations with the
     # tables built once, outside the timed loop (the timing changes, the
@@ -877,6 +960,192 @@ def phase_bench(evolution, kernels, tag=None, capture=None, **updates):
                                  layer_times(m, value_and_grad),
                                  profile_eval(value_and_grad, np.mean(times))))
     return (launches, captured) if capture else launches
+
+
+# ------------------------------------------------------------ table lookups
+GATHER_BACKWARDS = ("IndexBackward0", "IndexSelectBackward0")
+
+
+def gather_nodes(root):
+    """The gather-backward nodes of the autograd graph under `root`, with
+    the gathered tensor's shape and the number of indices."""
+    seen, stack, found = set(), [root], []
+    while stack:
+        f = stack.pop()
+        if f is None or f in seen:
+            continue
+        seen.add(f)
+        if type(f).__name__ in GATHER_BACKWARDS:
+            idx = getattr(f, "_saved_indices", None) or [getattr(f, "_saved_index", None)]
+            found.append((f, tuple(getattr(f, "_saved_self_sym_sizes", ())),
+                          sum(t.numel() for t in idx if t is not None)))
+        stack.extend(nf for nf, _ in f.next_functions)
+    return found
+
+
+def call_site(node):
+    """The port's frames of the forward call that made `node` (anomaly
+    mode's traceback), innermost lookup first: 'interp.py:30 <- ...'."""
+    tb = node.metadata.get("traceback_", "")
+    tb = tb if isinstance(tb, str) else "".join(tb)
+    frames = [ln.strip() for ln in tb.splitlines()
+              if ln.strip().startswith("File") and "montecosmo_tpu_torch" in ln]
+    short = [f"{f.split('/')[-1].split(chr(34))[0]}:{f.split('line ')[1].split(',')[0]}"
+             f" {f.split(' in ')[-1]}" for f in frames]
+    return " <- ".join(short[::-1][:5])
+
+
+def table_backwards(m, leaves, obs, tag):
+    """One value+grad of the flagship with the backward of every table
+    gather timed on the card: the graph is built in anomaly mode (which
+    keeps each node's forward stack), walked for its gather-backward nodes,
+    and each is bracketed by CUDA events recorded by a pre-hook and a hook.
+    Prints them by call site; returns (count, device ms) over all of them."""
+    for v in leaves.values():
+        v.grad = None
+    with torch.autograd.detect_anomaly(check_nan=False):
+        lp = m.logpdf({**leaves, **obs})
+    nodes = gather_nodes(lp.grad_fn)
+    timed = []
+    for node, src, n_idx in nodes:
+        t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        node.register_prehook(lambda grads, e=t0: e.record())
+        node.register_hook(lambda grads_in, grads_out, e=t1: e.record())
+        timed.append((call_site(node), type(node).__name__, src, n_idx, t0, t1))
+    lp.backward()
+    torch.cuda.synchronize()
+    total = 0.0
+    for site, kind, src, n_idx, t0, t1 in sorted(timed, key=lambda r: r[0]):
+        ms = t0.elapsed_time(t1)
+        total += ms
+        log(f"# ({tag}) table backward {kind} table {src} queries {n_idx}: {ms:.3f} ms at {site}")
+    log(f"# ({tag}) table backwards of one value+grad: {len(timed)} nodes, {total:.3f} ms "
+        f"of device time (events around each node)")
+    return len(timed), total
+
+
+def parent_uniform_interp(x, x0, dx, ytab, left=None, right=None, logx=False, xtab=None):
+    """The port's lookup before the stacked-pair gather, for timing only:
+    a 1-D table's ytab[i] and ytab[i + 1] gathered apart, and the node
+    pairs likewise.  The same values as ops/interp.py::uniform_interp."""
+    from montecosmo_tpu_torch.ops import interp as I
+
+    n = ytab.shape[0]
+    x = torch.as_tensor(x, dtype=ytab.dtype, device=ytab.device)
+    xq = torch.log(torch.clamp(x, min=I._TINY)) if logx else x
+    t = (xq - x0) / dx
+    i = torch.clamp(torch.floor(t).long(), 0, n - 2)
+    lo, hi = ytab[i], ytab[i + 1]
+    if xtab is not None:
+        x_lo, inv = I._node_pairs(xtab, x.device).unbind(1)
+        frac = (x - x_lo[i]) * inv[i]
+    else:
+        frac = t - i
+    y = lo + frac * (hi - lo)
+    below = t < 0
+    if logx:
+        below = below | (x <= 0)
+    y = torch.where(below, ytab[0] if left is None else torch.as_tensor(left, dtype=y.dtype), y)
+    return torch.where(t > (n - 1), ytab[-1] if right is None else torch.as_tensor(
+        right, dtype=y.dtype), y)
+
+
+def rows_indexing(tab, i):
+    """tab[i] by advanced indexing, for timing only: its backward is the
+    sort-based index_put_, where ops/interp.py::take_rows takes index_select
+    (whose backward is index_add_)."""
+    return tab[i]
+
+
+def lookup_forms(m, tag, reps=2):
+    """The flagship's own per-particle scale factors (chi2a at the
+    Lagrangian positions, as evolve takes them) through what lpt and
+    chi2a look up, forward and backward to the tables (cotangents drawn
+    once), in three forms timed in turns: the parent's (lpt: a2g, a2g2 and
+    a2dg2dg's four lookups, each table gathered apart at i and i + 1), this
+    port's (one gather of the stacked (n-1, 2, 4) pairs through
+    index_select), and the same by advanced indexing.  Values agree bit for
+    bit across the forms; each form's table gradient is held against the
+    same lookup in float64.  Returns the ms by form."""
+    from montecosmo_tpu_torch.models.bricks import los_scalefactor_pos, regular_pos
+    from montecosmo_tpu_torch.ops import background as B, interp as I
+    from montecosmo_tpu_torch.utils.safe import safe_div
+
+    dev = torch.device(m.device)
+    bg = B.Background.create(B.get_cosmology(Omega_m=float(m.cosmo_fid.Omega_m),
+                                             sigma8=float(m.cosmo_fid.sigma8)), dev)
+    bg = bg._replace(growth_tab=bg.growth_tab.detach().requires_grad_(True),
+                     a_chi_tab=bg.a_chi_tab.detach().requires_grad_(True))
+    pos = regular_pos(m.evol_shape, m.ptcl_shape, dev)
+    seen, chi2a = [], B.Background.chi2a
+    B.Background.chi2a = lambda self, chi: seen.append(chi.detach()) or chi2a(self, chi)
+    try:
+        _, a = los_scalefactor_pos(pos, m.box_center, m.box_rot, m.box_size, m.evol_shape, bg,
+                                   None, m.curved_sky)
+    finally:
+        B.Background.chi2a = chi2a
+    a, chi = a.detach(), seen[0]
+    nodes = np.logspace(B.GROWTH_LOG10_AMIN, 0.0, bg.growth_tab.shape[0])
+    x0 = float(np.log(nodes[0]))
+    dx = float((np.log(nodes[-1]) - x0) / (nodes.size - 1))
+    chi_dx = B.CHI_GRID_MAX / (B.CHI_STEPS - 1)
+
+    def parent_growth():
+        look = lambda col: parent_uniform_interp(a, x0, dx, bg.growth_tab[:, col], logx=True,
+                                                 xtab=nodes)
+        g, g2 = look(0), look(1) * (-3.0 / 7)
+        gg, gg2, f, f2 = look(0), look(1) * (-3.0 / 7), look(2), look(3)
+        return g, g2, safe_div(gg2 * f2, gg * f)
+
+    def port_growth():
+        g, g2, f, f2 = bg._growth(a)
+        return g, g2, safe_div(g2 * f2, g * f)
+
+    forms = {"parent": (parent_growth, lambda: parent_uniform_interp(chi, 0.0, chi_dx,
+                                                                      bg.a_chi_tab)),
+             "port": (port_growth, lambda: bg.chi2a(chi)),
+             "indexing": (port_growth, lambda: bg.chi2a(chi))}
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cot = [torch.randn(a.shape, generator=gen, device=dev) for _ in range(3)]
+    # the table gradient of float32 sums of ~10^6 cotangents into a few
+    # rows: each form's error against the same lookup in float64
+    tab64 = bg.growth_tab.detach().double().requires_grad_(True)
+    g, g2, f, f2 = bg._replace(growth_tab=tab64)._growth(a.double())
+    (ref,) = torch.autograd.grad((g, g2, safe_div(g2 * f2, g * f)), tab64,
+                                 [c.double() for c in cot])
+    rows = I.take_rows
+    out, ms = {}, {}
+    try:
+        for form, (growth, chi2a) in forms.items():
+            I.take_rows = rows_indexing if form == "indexing" else rows
+            vals = growth()
+            (grad,) = torch.autograd.grad(vals, bg.growth_tab, cot)
+            out[form] = (vals, chi2a())
+            if form != "parent":
+                assert all(torch.equal(u, v) for u, v in zip(vals, out["parent"][0])), form
+                assert torch.equal(out[form][1], out["parent"][1]), form
+            err = rel_err(grad.double(), ref)[1]
+            log(f"# ({tag}) {form} lookups: table gradient max_rel_err {err:.3e} against "
+                f"float64 (limit 1e-3)")
+            assert err <= 1e-3, f"{form} lookups: table gradient"
+        for what, k in (("growth", 0), ("chi2a", 1)):
+            def run(form, k=k):
+                I.take_rows = rows_indexing if form == "indexing" else rows
+                f = forms[form][k]
+                leaf = bg.growth_tab if k == 0 else bg.a_chi_tab
+                vals = f()
+                vals = vals if isinstance(vals, tuple) else (vals,)
+                return torch.autograd.grad(vals, leaf, cot[:len(vals)])
+            order = ("parent", "port", "indexing")
+            t = {f: [] for f in order}
+            for f in order + order[::-1]:
+                t[f].append(cuda_ms(lambda f=f: run(f), reps, warmup=1))
+            ms[what] = {f: float(np.mean(v)) for f, v in t.items()}
+            log(f"# ({tag}) {what} lookups of {a.numel()} queries, forward + backward to the "
+                f"table, in turns: " + ", ".join(f"{f} {v:.3f} ms" for f, v in ms[what].items()))
+    finally:
+        I.take_rows = rows
+    return ms
 
 
 # the kernels whose inputs each flagship capture records: the 2LPT render's
@@ -983,7 +1252,7 @@ def profile_eval(fn, eval_s):
         f"{launches} device kernels")
     for tag in ("paint_cic_tiled_kernel", "paint_cic_forward_kernel", "paint_cic_adjoint_kernel",
                 "read_cic_forward_kernel", "read_cic_tiled_kernel", "read_cic_adjoint_tiled_kernel",
-                "read_cic_adjoint_kernel", "nufft_epilogue"):
+                "read_cic_adjoint_kernel", "nufft_epilogue", "indexing_backward", "indexFunc"):
         ms = sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
         log(f"# profiler: kernels named *{tag}* {ms:.3f} ms = "
             f"{100 * ms / max(busy_ms, 1e-9):.2f}% of device time")
@@ -999,7 +1268,7 @@ SOURCES = {
                   "montecosmo_tpu/ops/paint_window.py:240"),
     "paint_cic_adjoint": ("cuda", None, CSRC + "paint_cic.cu",
                           "montecosmo_tpu/ops/paint_window.py:180"),
-    "nufft_epilogue": ("triton", None, CSRC + "nufft_epilogue.py",
+    "nufft_epilogue": ("cuda", None, CSRC + "nufft_epilogue.cu",
                        "montecosmo_tpu/ops/paint.py:192"),
     "read_cic": ("cuda", CSRC + "read_tiled.cu", CSRC + "paint_cic.cu",
                  "montecosmo_tpu/ops/paint_window.py:330"),
@@ -1072,12 +1341,13 @@ def main():
     flagship[2] |= flagship_read
     done("5b")
     launches["rectangular", 3], flagship[3] = phase_bench(
-        "nbody", path_kernels(3, True), "nbody light cone, TSC", capture="read", a_obs=None,
-        paint_order=3)
+        "nbody", path_kernels(3, True), "nbody light cone, TSC", capture="read", lookups=True,
+        a_obs=None, paint_order=3)
     done("5c")
     # the flagship on the JAX package's default sky: curved, the light cone
     launches[KB, 4] = phase_bench("lpt", path_kernels(4), "curved-sky light cone, Kaiser-Bessel 4",
-                                  a_obs=None, curved_sky=True, kernel_type=KB, paint_order=4)
+                                  lookups=True, a_obs=None, curved_sky=True, kernel_type=KB,
+                                  paint_order=4)
     done("5d")
     for run in PROFILES:
         run()

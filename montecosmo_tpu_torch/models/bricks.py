@@ -12,6 +12,7 @@ from montecosmo_tpu_torch.models.truncnorm import std2trunc, trunc2std
 from montecosmo_tpu_torch.ops.background import Background, Cosmology
 from montecosmo_tpu_torch.ops.fourier import gradient_hat, invlaplace_hat, irfftn, rfftk, rfftn
 from montecosmo_tpu_torch.ops.hermitian import cgh2rg, ch2rshape, rg2cgh
+from montecosmo_tpu_torch.ops.interp import take_rows
 from montecosmo_tpu_torch.ops.paint import read_multi, read_sites
 from montecosmo_tpu_torch.ops.power import lin_power_mesh
 from montecosmo_tpu_torch.utils import to_tensor
@@ -70,7 +71,8 @@ def kaiser_boost(cosmo: Cosmology, a, mesh_shape, box_size, b1E, los=(0.0, 0.0, 
     kvec = rfftk(mesh_shape, box_size, bg.a_tab.device)
     kmesh = sum(ki**2 for ki in kvec) ** 0.5
     mumesh = safe_div(sum(ki * float(li) for ki, li in zip(kvec, los)), kmesh)
-    return bg.a2g(a) * (b1E + bg.a2f(a) * mumesh**2)
+    g, _, f, _ = bg._growth(a)
+    return g * (b1E + f * mumesh**2)
 
 
 # ======================================================================= reparametrization
@@ -321,7 +323,8 @@ def rsd(bg: Background, vel, los, a, box_rot, box_size, mesh_shape, dvel=0.0):
 
     Parity: bricks.py:667-675."""
     vel = cell2phys_vel(vel, box_rot, box_size, mesh_shape)
-    vel = vel * bg.a2g(a) * bg.a2f(a) + dvel
+    g, _, f, _ = bg._growth(a)
+    vel = vel * g * f + dvel
     los = to_tensor(los, vel.device)
     return (vel * los).sum(-1, keepdim=True) * los
 
@@ -343,18 +346,14 @@ def set_radial_count(mesh, rmesh, redges, rcounts):
         return out
     idx = radial_bin_index(rmesh, redges)
     inside = (idx >= 0) & (idx < n_bins)
-    mult = rcounts[torch.clamp(idx, 0, n_bins - 1)]
+    mult = take_rows(rcounts, torch.clamp(idx, 0, n_bins - 1))
     return mesh * torch.where(inside, mult, torch.ones_like(mult))
 
 
 def radial_bin_index(rmesh, redges):
-    """Per-cell bin index of `set_radial_count` (< 0 or >= n_bins: outside),
-    in the JAX package's float32 arithmetic."""
-    redges = np.asarray(redges, np.float64)
-    dr = np.diff(redges)
-    if np.allclose(dr, dr[0], rtol=1e-6, atol=0.0):
-        r0 = torch.tensor(np.float32(redges[0]), device=rmesh.device)
-        d0 = torch.tensor(np.float32(dr[0]), device=rmesh.device)
-        return torch.ceil((rmesh - r0) / d0).long() - 1
-    edges = torch.as_tensor(redges.astype(np.float32), device=rmesh.device)
+    """Per-cell bin index of `set_radial_count` (< 0 or >= n_bins: outside):
+    bin b holds the radii in (e_b, e_{b+1}], e the float32 edges.  The JAX
+    package's ceil lookup on uniform edges may put a radius on an edge in
+    the adjacent bin; this lookup does not."""
+    edges = torch.as_tensor(np.asarray(redges, np.float32), device=rmesh.device).to(rmesh.dtype)
     return torch.searchsorted(edges, rmesh.contiguous(), right=False) - 1

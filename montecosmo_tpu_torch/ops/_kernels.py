@@ -4,9 +4,8 @@ CUDA sources (`montecosmo_tpu_torch/csrc/*.cu` and the `*.cuh` they share,
 plain C interface) are compiled at first use with nvcc for sm_90a, one nvcc
 per source, all started together, and linked into one library in
 `montecosmo_tpu_torch/_build/` (named by a hash of the sources and flags, so
-a rebuild happens only after an edit), loaded with ctypes.  The Triton epilogue compiles at its first
-launch.  Nothing here runs at import; a missing nvcc or a failed build
-raises.
+a rebuild happens only after an edit), loaded with ctypes.  Nothing here
+runs at import; a missing nvcc or a failed build raises.
 """
 import ctypes
 import hashlib
@@ -97,13 +96,9 @@ def cuda_library(rebuild=False):
     lib.read_cic_adjoint_tiled.restype = _I
     lib.read_cic_tiled.argtypes = [_P, _P, _I, *_GEOM, *_TILE, _P, _P, _P]
     lib.read_cic_tiled.restype = _I
+    lib.nufft_epilogue.argtypes = [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P,
+                                   _P]
+    lib.nufft_epilogue.restype = _I
     _LIB = lib
     return lib
 
-
-def launch_nufft_epilogue(src, dst, geom, backward):
-    """K3 (Triton) on the current stream."""
-    from montecosmo_tpu_torch.csrc import nufft_epilogue
-
-    nufft_epilogue.launch(src, dst, geom.shape, geom.n_shift, geom.scale, geom.order,
-                          backward, geom.kcut)

@@ -7,7 +7,9 @@
   differentiable tables.
 * Lookups (`a2g`, `a2g2`, `a2f`, `a2dg2dg`, `chi2a`, and the growth-time
   `g2a`, `g2g2`, `g2f`, `g2f2`, `g2dg2dg` that BullFrog steps in)
-  interpolate those tables.
+  interpolate those tables.  The four growth tables are kept stacked as one
+  (n, 4) table, so a call site that needs several of them at the same scale
+  factors brackets and gathers once (`Background._growth`).
 
 The RK4 loops are 127 + 255 sequential steps of scalar tensor operations; on
 the card every one of them is a kernel launch.
@@ -120,13 +122,12 @@ def _logspace(log10_min, n, device):
 
 
 class Background(NamedTuple):
-    """Growth and distance tables for one cosmology (differentiable)."""
+    """Growth and distance tables for one cosmology (differentiable).
+    `growth_tab` stacks (g, g2, f, f2) on its last axis; `g_tab`, `g2_tab`,
+    `f_tab` and `f2_tab` are its columns."""
     cosmo: Cosmology
     a_tab: torch.Tensor
-    g_tab: torch.Tensor
-    g2_tab: torch.Tensor
-    f_tab: torch.Tensor
-    f2_tab: torch.Tensor
+    growth_tab: torch.Tensor
     a_dist: torch.Tensor
     chi_tab: torch.Tensor
     a_chi_tab: torch.Tensor
@@ -165,7 +166,24 @@ class Background(NamedTuple):
 
         chi_grid = torch.linspace(0.0, CHI_GRID_MAX, CHI_STEPS, device=device)
         a_chi_tab = interp(chi_grid, chitab.flip(0), adist.flip(0))
-        return cls(cosmo, atab, gtab, g2tab, ftab, f2tab, adist, chitab, a_chi_tab)
+        return cls(cosmo, atab, torch.stack([gtab, g2tab, ftab, f2tab], -1), adist, chitab,
+                   a_chi_tab)
+
+    @property
+    def g_tab(self):
+        return self.growth_tab[:, 0]
+
+    @property
+    def g2_tab(self):
+        return self.growth_tab[:, 1]
+
+    @property
+    def f_tab(self):
+        return self.growth_tab[:, 2]
+
+    @property
+    def f2_tab(self):
+        return self.growth_tab[:, 3]
 
     def _a_lookup(self, a, ytab):
         nodes = np.logspace(GROWTH_LOG10_AMIN, 0.0, ytab.shape[0])
@@ -185,9 +203,15 @@ class Background(NamedTuple):
     def a2f2(self, a):
         return self._a_lookup(a, self.f2_tab)
 
+    def _growth(self, a):
+        """(a2g, a2g2, a2f, a2f2) of `a` from one bracket and one gather of
+        the stacked table: the same values, bit for bit, as the four
+        lookups."""
+        g, g2, f, f2 = self._a_lookup(a, self.growth_tab).unbind(-1)
+        return g, g2 * (-3.0 / 7), f, f2
+
     def a2dg2dg(self, a):
-        g, g2 = self.a2g(a), self.a2g2(a)
-        f, f2 = self.a2f(a), self.a2f2(a)
+        g, g2, f, f2 = self._growth(a)
         return safe_div(g2 * f2, g * f)
 
     def g2a(self, g):

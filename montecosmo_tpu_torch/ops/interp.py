@@ -14,13 +14,27 @@ _PAIRS = {}
 
 
 def _node_pairs(xtab, device):
-    """(x_i, 1/(x_{i+1}-x_i)) of concrete float32 nodes, cached per device."""
+    """(n-1, 2) rows (x_i, 1/(x_{i+1}-x_i)) of concrete float32 nodes,
+    cached per device."""
     xt = np.asarray(xtab, np.float32)
     key = (xt.tobytes(), str(device))
     if key not in _PAIRS:
-        _PAIRS[key] = (torch.as_tensor(xt[:-1], device=device),
-                       torch.as_tensor(1.0 / np.diff(xt), device=device))
+        _PAIRS[key] = torch.as_tensor(np.stack([xt[:-1], 1.0 / np.diff(xt)], 1), device=device)
     return _PAIRS[key]
+
+
+def take_rows(tab, i):
+    """tab[i] for an integer index tensor `i` of any shape: i.shape +
+    tab.shape[1:].  Through `index_select` on the flattened index, whose
+    backward is `index_add_`: advanced indexing's backward is a sort-based
+    `index_put_` that walks each run of equal indices in one warp, and a
+    light cone's 11M queries fall in a few rows of a growth table (its
+    backward took ~30x longer on an H100, PERF.md).  `index_add_` sums with
+    float atomics on the card, so the table's gradient depends on the order
+    they land in: not reproducible bit for bit from run to run, and within
+    2.4e-5 of float64 where the sort-based sum was within 5.1e-6 (an H100,
+    11.24M light-cone queries, PERF.md)."""
+    return tab.index_select(0, i.reshape(-1)).reshape(i.shape + tab.shape[1:])
 
 
 def uniform_interp(x, x0, dx, ytab, left=None, right=None, logx=False,
@@ -30,36 +44,43 @@ def uniform_interp(x, x0, dx, ytab, left=None, right=None, logx=False,
     x     : query tensor (or Python float) of any shape; the bracket is found
             in log space if logx=True (x0/dx in log units; x <= 0 maps to
             `left`).
+    ytab  : (n,) or (n, ...) with trailing channel dims; the output is then
+            x.shape + ytab.shape[1:], every channel bracketed once.
     xtab  : optional concrete node positions in linear units; the lerp then
             runs linearly in x between them.
     left, right : values outside the grid (None clamps to the end values).
+
+    One gather of the stacked (n-1, 2, ...) pairs (y_i, y_{i+1}) per call,
+    as the JAX function takes them, so its backward is one scatter-add.
     """
     n = ytab.shape[0]
+    trail = (1,) * (ytab.ndim - 1)
     x = torch.as_tensor(x, dtype=ytab.dtype, device=ytab.device)
     xq = torch.log(torch.clamp(x, min=_TINY)) if logx else x
     t = (xq - x0) / dx
     i = torch.clamp(torch.floor(t).long(), 0, n - 2)
-    lo, hi = ytab[i], ytab[i + 1]
+    pairs = torch.stack([ytab[:-1], ytab[1:]], 1)
+    lo, hi = take_rows(pairs, i).unbind(i.ndim)
     if xtab is not None:
-        x_lo, inv = _node_pairs(xtab, x.device)
-        frac = (x - x_lo[i]) * inv[i]
+        x_lo, inv = take_rows(_node_pairs(xtab, x.device), i).unbind(i.ndim)
+        frac = (x - x_lo) * inv
     else:
         frac = t - i
-    y = lo + frac * (hi - lo)
+    y = lo + frac.reshape(frac.shape + trail) * (hi - lo)
     below = t < 0
     if logx:
         below = below | (x <= 0)
     above = t > (n - 1)
     ybelow = ytab[0] if left is None else torch.as_tensor(left, dtype=y.dtype, device=y.device)
     yabove = ytab[-1] if right is None else torch.as_tensor(right, dtype=y.dtype, device=y.device)
-    y = torch.where(below, ybelow, y)
-    return torch.where(above, yabove, y)
+    y = torch.where(below.reshape(below.shape + trail), ybelow, y)
+    return torch.where(above.reshape(above.shape + trail), yabove, y)
 
 
 def interp(x, xp, fp):
     """`jnp.interp(x, xp, fp)` for increasing `xp` (1-D tensors)."""
     x = torch.as_tensor(x, dtype=fp.dtype, device=fp.device)
-    i = torch.clamp(torch.searchsorted(xp.detach(), x.detach(), right=True),
+    i = torch.clamp(torch.searchsorted(xp.detach().contiguous(), x.detach(), right=True),
                     1, xp.shape[0] - 1)
     df = fp[i] - fp[i - 1]
     dx = xp[i] - xp[i - 1]

@@ -20,7 +20,9 @@ support 1 is the one-hot NGP whatever the kernel type.
   the weight and position gradients; CUDA, no atomics, per-particle.
 * K3 `nufft_epilogue`: the interlace phase sum, units jacobian and window
   deconvolution (B-spline or Kaiser-Bessel) in one pass over the rfft grid;
-  Triton.  Its backward is the same kernel with the conjugated phase.
+  CUDA (`csrc/nufft_epilogue.cu`), from per-axis tables of the window and
+  the phases (`_epilogue_tables`).  Its backward is the same kernel with
+  the conjugated phase.
 * K4 `read_cic`: the B-spline read of C channel-last fields at (clamped)
   particle positions, behind `read_window`, `read_multi` and `read`; CUDA,
   no atomics; lattice-brick (`read_cic_tiled`, `csrc/read_tiled.cu`: a
@@ -802,6 +804,23 @@ def _epilogue_math(x, geom, backward):
     return sum(x[s] * f for s, f in enumerate(factors))
 
 
+@lru_cache(maxsize=None)
+def _epilogue_tables(geom, device):
+    """K3's per-axis tables on `device`, from the plain version's own
+    functions: the window's factor of each axis, (X,), (Y,) and (Zc,)
+    float32 (`_window_hat` of one axis of `rfftk`, whose product over the
+    axes, taken in that order, is the plain version's W bit for bit), and
+    each axis's phases exp(i s k / n) for s = 1..n-1, (n-1, N) complex64,
+    rounded from float64."""
+    kvec = [k.reshape(-1) for k in rfftk(geom.shape, device=device)]
+    win = [_window_hat((k,), geom).contiguous() if geom.order else torch.ones_like(k)
+           for k in kvec]
+    s = torch.arange(1, geom.n_shift, dtype=torch.float64, device=device)[:, None] / geom.n_shift
+    phase = [torch.polar(torch.ones_like(s * k.double()), s * k.double()).to(torch.complex64)
+             for k in kvec]
+    return (*win, *phase)
+
+
 def nufft_epilogue_kernel(x, geom: EpilogueGeometry, backward=False):
     """K3 on the card.  Forward: (S, X, Y, Zc) -> (X, Y, Zc) complex64;
     backward: (X, Y, Zc) cotangent -> (S, X, Y, Zc)."""
@@ -811,12 +830,20 @@ def nufft_epilogue_kernel(x, geom: EpilogueGeometry, backward=False):
     want = cshape if backward else (geom.n_shift,) + cshape
     _require(x.dtype == torch.complex64 and tuple(x.shape) == want,
              f"complex64 {want} expected, got {x.dtype} {tuple(x.shape)}")
-    src = torch.view_as_real(x.contiguous())
-    out_shape = ((geom.n_shift,) + cshape) if backward else cshape
-    dst = torch.empty(out_shape + (2,), dtype=torch.float32, device=x.device)
-    _kernels.launch_nufft_epilogue(src, dst, geom, backward)
+    _require(1 <= geom.n_shift <= 8 and geom.n_shift * prod(cshape) < 2**31,
+             f"1-8 interlace shifts of fewer than 2^31 values, got {geom.n_shift} x {cshape}")
+    lib = _kernels.cuda_library()
+    src = x.contiguous()
+    dst = torch.empty(((geom.n_shift,) + cshape) if backward else cshape,
+                      dtype=torch.complex64, device=x.device)
+    tables = _epilogue_tables(geom, x.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
+    code = lib.nufft_epilogue(_ptr(src), _ptr(dst), geom.n_shift, *cshape,
+                              ctypes.c_float(geom.scale / geom.n_shift), int(geom.order > 0),
+                              int(backward), *map(_ptr, tables), stream)
     LAUNCHES["nufft_epilogue", geom.window, geom.order] += 1
-    return torch.view_as_complex(dst)
+    _launch_status(code, "nufft_epilogue")
+    return dst
 
 
 class _NufftEpilogue(torch.autograd.Function):

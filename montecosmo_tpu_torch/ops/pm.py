@@ -24,6 +24,7 @@ from montecosmo_tpu_torch.ops.fourier import (
 )
 from montecosmo_tpu_torch.ops.hermitian import ch2rshape
 from montecosmo_tpu_torch.ops.paint import paint, read_multi, read_sites, read_window
+from montecosmo_tpu_torch.utils.safe import safe_div
 
 
 def pm_forces(pos, mesh, read_order: int = 2, paint_deconv: bool = False, lattice_shape=None,
@@ -85,15 +86,16 @@ def lpt(bg: Background, init_mesh, pos, a, lpt_order: int = 2, read_order: int =
     factor `a`; `init_mesh` is the linear density at a=1 (real or rfft)."""
     if not init_mesh.is_complex():
         init_mesh = rfftn(init_mesh)
-    force1 = pm_forces(pos, init_mesh, read_order, sites_shape=sites_shape)
-    dpos = bg.a2g(a) * force1
-    vel = force1
-    if lpt_order == 2:
-        force2 = pm_forces2(pos, init_mesh, read_order, sites_shape=sites_shape)
-        dpos = dpos - bg.a2g2(a) * force2
-        vel = vel - bg.a2dg2dg(a) * force2
-    elif lpt_order != 1:
+    if lpt_order not in (1, 2):
         raise ValueError(f"lpt_order must be 1 or 2, got {lpt_order}")
+    force1 = pm_forces(pos, init_mesh, read_order, sites_shape=sites_shape)
+    if lpt_order == 1:
+        return bg.a2g(a) * force1, force1
+    # D1, D2 and dD2/dD1 from one lookup of the stacked growth table
+    g, g2, f, f2 = bg._growth(a)
+    force2 = pm_forces2(pos, init_mesh, read_order, sites_shape=sites_shape)
+    dpos = g * force1 - g2 * force2
+    vel = force1 - safe_div(g2 * f2, g * f) * force2
     return dpos, vel
 
 

@@ -46,7 +46,7 @@ def test_kernels_match_plain_on_card():
     every NGP window base odd (margin 5 + 2), so a wrong tie origin would
     move the tied particles."""
     if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: K1/K2 are CUDA and K3 is Triton")
+        pytest.skip("needs an NVIDIA card: K1-K3 are CUDA")
     dev = torch.device("cuda")
     pos, w = _lattice_particles((16, 16, 16), (2, 2, 2), 5, 15)
     pos = _with_ties(pos, (16, 16, 16), (2, 2, 2), np.random.default_rng(17))
@@ -67,18 +67,22 @@ def test_kernels_match_plain_on_card():
         # K3 element by element, each error over its sum's float32 scale
         # sum_s |F_s| |c(k)| (backward: |g| |c(k)|): at the flagship cutoff
         # the KB transform has a zero in the grid, where 1/W is ~1e7 times
-        # its typical value
+        # its typical value; 1-3 shifts, a cubic and an anisotropic mesh
+        # (rows of z shorter than a warp), with and without deconvolution
         kcut = None if kernel == "rectangular" else tpa.optim_kcut(192 / 224)
-        eg = tpa.EpilogueGeometry((32, 32, 32), 2, 1.0, order, kcut)
-        fk = torch.randn((2, 32, 32, 17), dtype=torch.complex64, device=dev)
-        g = torch.randn((32, 32, 17), dtype=torch.complex64, device=dev)
-        mag = [f.abs() for f in tpa._epilogue_factors(eg, dev)]
-        for out, ref, scale in (
-                (tpa.nufft_epilogue_kernel(fk, eg), tpa.nufft_epilogue_plain(fk, eg),
-                 sum(m * fk[s].abs() for s, m in enumerate(mag))),
-                (tpa.nufft_epilogue_kernel(g, eg, backward=True), tpa._epilogue_math(g, eg, True),
-                 torch.stack([m * g.abs() for m in mag]))):
-            assert float(((out - ref).abs() / scale).max()) <= 1e-5, (kernel, order)
+        for shape, n_shift, deconv in (((32, 32, 32), 2, order), ((30, 28, 26), 3, order),
+                                       ((32, 32, 32), 1, order), ((32, 32, 32), 2, 0)):
+            eg = tpa.EpilogueGeometry(shape, n_shift, 1.0, deconv, kcut)
+            cshape = tpa.r2chshape(shape)
+            fk = torch.randn((n_shift,) + cshape, dtype=torch.complex64, device=dev)
+            g = torch.randn(cshape, dtype=torch.complex64, device=dev)
+            mag = [f.abs() for f in tpa._epilogue_factors(eg, dev)]
+            for out, ref, scale in (
+                    (tpa.nufft_epilogue_kernel(fk, eg), tpa.nufft_epilogue_plain(fk, eg),
+                     sum(m * fk[s].abs() for s, m in enumerate(mag))),
+                    (tpa.nufft_epilogue_kernel(g, eg, backward=True),
+                     tpa._epilogue_math(g, eg, True), torch.stack([m * g.abs() for m in mag]))):
+                assert float(((out - ref).abs() / scale).max()) <= 1e-5, (kernel, order, shape)
 
 
 @pytest.mark.cuda

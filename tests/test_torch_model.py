@@ -149,7 +149,6 @@ def test_port_never_imports_jax():
     code = ("import sys, montecosmo_tpu_torch as m\n"
             "from montecosmo_tpu_torch.ops import paint, pm, _kernels\n"
             "from montecosmo_tpu_torch import convert\n"
-            "from montecosmo_tpu_torch.csrc import nufft_epilogue\n"
             "c = dict(m.default_config); c.update(final_shape=(8, 8, 8), curved_sky=False,"
             " a_obs=0.5, box_center=(0, 0, 500.0))\n"
             "m.FieldLevelModel(**c, device='cpu')\n"

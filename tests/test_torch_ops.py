@@ -339,8 +339,8 @@ def test_distributions_log_prob_and_grads():
 
 
 def test_set_radial_count_bins():
-    """The uniform-edge ceil lookup and the <= 4-bin select chain, against the
-    JAX package on the same radius mesh (bin indices must agree exactly)."""
+    """The radial-bin lookup and the <= 4-bin select chain, against the JAX
+    package on the same radius mesh (bin indices must agree exactly)."""
     box_center, shape, box = (0.0, 0.0, 1000.0), (16, 16, 16), (128.0,) * 3
     rot_t, rot_j = tbr.Rotation((0, 0, 0)), jax.scipy.spatial.transform.Rotation.from_rotvec(
         jnp.zeros(3))
