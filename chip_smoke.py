@@ -48,6 +48,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      tolerances; one value+grad on the card at supports 1-3 (their
      launches); FieldLevelModel(**default_config) (64^3, curved sky, light
      cone) value+grad on the card and on the CPU, finite and agreeing;
+  4e. 2 MCLMC kernel steps of the golden 32^3 2LPT model, conditioned on
+     its counts, from one state with the same draws on the card and on the
+     CPU: positions and logdensities within 1e-4;
   5. the flagship configuration of bench.py (128^3, 2LPT, Lagrangian bias,
      RSD, quad-Gaussian likelihood, Kaiser preconditioning, float32) on the
      card: draw the observation with `predict`, then 2 warm-up and 5 timed
@@ -65,13 +68,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      (paint_order=3): K1-K5 must each launch at order 3 (K1, K4 and K5
      tiled); then K5's and K4's inputs at the last step, as 5b; then the
      backward of every table gather of one more value+grad, by call site
-     with its device ms (`table_backwards`), and the lookups that lpt and
-     chi2a make on the flagship's own 11.24M scale factors in the parent's
-     form, this port's and by advanced indexing, in turns (`lookup_forms`);
+     with its device ms (`table_backwards`);
   5d. the 2LPT flagship on the curved sky and the light cone (curved_sky=True,
      a_obs=None) with the Kaiser-Bessel window of support 4: K1 (tiled), K2
      and K3 must each launch at Kaiser-Bessel support 4; then its table
-     backwards and lookup forms, as 5c;
+     backwards, as 5c;
+  5e. the sampler loop of run/infer.py at the 2LPT flagship (7.08M
+     dimensions): field warmup, full warmup (diagonal mass), MCLMC run, MAMS
+     warmup and run (SAMPLER_STEPS), each McLachlan step timed; finite
+     chains, n_evals as the JAX package counts them, and K1, K2, K3 launched
+     phase 5's count per value+grad times the value+grads made; the same 2
+     steps twice from one seed, their difference printed;
   6. last lines: the kernels JSON (one row per kernel, window and order;
      launches from phase 5b at CIC, 5c at TSC, 4c at NGP and PCS, 5d at
      Kaiser-Bessel 4, 4d at Kaiser-Bessel 1-3; K4/K5 run on no
@@ -441,22 +448,26 @@ def l2_cold(call, inputs):
     return fn
 
 
-def device_ms(fn, reps, name):
+def device_ms(fn, reps, name, sessions=3):
     """Mean device time of one kernel whose name holds `name`, from
     torch.profiler's own kernel durations over `reps` calls of fn() (over
-    the kernels it recorded: a profile may drop some of its device events);
-    None ("not measured") if it recorded none."""
+    the kernels it recorded: a profile may drop some of its device events,
+    and one that recorded none is taken again, up to `sessions` times);
+    None ("not measured") if none recorded any."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    hits = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and name in e.key]
-    count = sum(e.count for e in hits)
-    return sum(e.self_device_time_total for e in hits) / 1e3 / count if count else None
+    for _ in range(sessions):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        hits = [e for e in prof.key_averages() if e.device_type.name == "CUDA" and name in e.key]
+        count = sum(e.count for e in hits)
+        if count:
+            return sum(e.self_device_time_total for e in hits) / 1e3 / count
+    return None
 
 
 def _nearest_paint_adjoint(pos, g, dw_unclamped, tag, reps):
@@ -851,6 +862,52 @@ def default_config_both():
     assert rel <= 1e-4, "default_config: the card and the CPU disagree"
 
 
+def _conditioned(m):
+    """Condition `m` on its counts and block it, as the full warmup does."""
+    m.reset()
+    m.substitute(m.obs_data(), from_base=True)
+    m.block()
+
+
+def phase_sampler_32():
+    """Phase 4e: 2 MCLMC kernel steps of the golden 32^3 2LPT model,
+    conditioned on the CPU's counts and blocked, from one state (the golden
+    white mesh) with the same momentum and refresh draws, on the card and on
+    the CPU: positions (the flat vector, over its largest value) and
+    logdensities within phase 4's logpdf tolerance, 1e-4 relative."""
+    from montecosmo_tpu_torch.samplers import mclmc as S
+
+    rng = np.random.default_rng(0)
+    states, obs, draws = {}, None, None
+    for dev in ("cpu", "cuda"):
+        m, p, pred = golden_predict(dev, "lpt")
+        if obs is None:
+            obs = pred["count_mesh"].cpu()
+        m.count_mesh = obs.to(dev)
+        _conditioned(m)
+        d = sum(v.numel() for v in p.values())
+        if draws is None:
+            draws = rng.standard_normal((3, d)).astype(np.float32)
+        u0, noise = (torch.as_tensor(x, device=dev) for x in (draws[0], draws[1:]))
+        state = S.mclmc_init(p, m.logpdf, u0)
+        kernel = S.mclmc_kernel(m.logpdf, 1.0)
+        for row in noise:
+            state, _ = kernel(row, state, d**0.5, 2.0)
+        states[dev] = state
+    card, cpu = states["cuda"], states["cpu"]
+    lp_rel = abs(card.logdensity.item() - cpu.logdensity.item()) / abs(cpu.logdensity.item())
+    # the positions as the sampler holds them, one flat vector
+    x_card, x_cpu = S._ravel(card.position)[0].cpu(), S._ravel(cpu.position)[0]
+    pos_rel = float((x_card - x_cpu).abs().max() / x_cpu.abs().max())
+    worst = {k: float((card.position[k].cpu() - v).abs().max()) for k, v in cpu.position.items()}
+    log(f"# 32^3 MCLMC, 2 kernel steps (eps 2, L sqrt(d), d {d}), card vs CPU: logdensity "
+        f"{card.logdensity.item():.6e} vs {cpu.logdensity.item():.6e}, relative {lp_rel:.3e}; "
+        f"positions max|difference| / max|value| {pos_rel:.3e} (limits 1e-4); largest "
+        f"differences by latent {sorted(worst.items(), key=lambda kv: -kv[1])[:4]}")
+    assert all(bool(torch.isfinite(v).all()) for v in card.position.values())
+    assert lp_rel <= 1e-4 and pos_rel <= 1e-4, "the 32^3 sampler steps: card and CPU disagree"
+
+
 # ----------------------------------------------------------------- phase 5
 def bench_model(final=128, evolution="lpt", **updates):
     from montecosmo_tpu_torch import FieldLevelModel, default_config
@@ -869,8 +926,7 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
     window.  Returns the launch counts of the 7 evaluations there; with
     `capture` ("paint" or "read"), also what `flagship_inputs` measures.
     With `lookups` (the light cones), also the table gathers' backwards of
-    one more value+grad by call site (`table_backwards`) and the lookup
-    forms on the flagship's own scale factors (`lookup_forms`)."""
+    one more value+grad by call site (`table_backwards`)."""
     from montecosmo_tpu_torch.ops import paint as P
     from montecosmo_tpu_torch.ops.background import Background, get_cosmology
 
@@ -928,7 +984,6 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
     captured = flagship_inputs(tag, value_and_grad, capture) if capture else None
     if lookups:
         table_backwards(m, leaves, obs, tag)
-        lookup_forms(m, tag)
 
     # share of the background RK4 tables: the same evaluations with the
     # tables built once, outside the timed loop (the timing changes, the
@@ -1024,128 +1079,140 @@ def table_backwards(m, leaves, obs, tag):
     return len(timed), total
 
 
-def parent_uniform_interp(x, x0, dx, ytab, left=None, right=None, logx=False, xtab=None):
-    """The port's lookup before the stacked-pair gather, for timing only:
-    a 1-D table's ytab[i] and ytab[i + 1] gathered apart, and the node
-    pairs likewise.  The same values as ops/interp.py::uniform_interp."""
-    from montecosmo_tpu_torch.ops import interp as I
-
-    n = ytab.shape[0]
-    x = torch.as_tensor(x, dtype=ytab.dtype, device=ytab.device)
-    xq = torch.log(torch.clamp(x, min=I._TINY)) if logx else x
-    t = (xq - x0) / dx
-    i = torch.clamp(torch.floor(t).long(), 0, n - 2)
-    lo, hi = ytab[i], ytab[i + 1]
-    if xtab is not None:
-        x_lo, inv = I._node_pairs(xtab, x.device).unbind(1)
-        frac = (x - x_lo[i]) * inv[i]
-    else:
-        frac = t - i
-    y = lo + frac * (hi - lo)
-    below = t < 0
-    if logx:
-        below = below | (x <= 0)
-    y = torch.where(below, ytab[0] if left is None else torch.as_tensor(left, dtype=y.dtype), y)
-    return torch.where(t > (n - 1), ytab[-1] if right is None else torch.as_tensor(
-        right, dtype=y.dtype), y)
+# ---------------------------------------------------------------- phase 5e
+SAMPLER_STEPS = {"field warmup": 4, "full warmup": 4, "run": (2, 2), "mams": (1, 1, 4)}
 
 
-def rows_indexing(tab, i):
-    """tab[i] by advanced indexing, for timing only: its backward is the
-    sort-based index_put_, where ops/interp.py::take_rows takes index_select
-    (whose backward is index_add_)."""
-    return tab[i]
+def _finite_state(state, what):
+    ok = all(bool(torch.isfinite(v).all()) for v in state.position.values()) and all(
+        bool(torch.isfinite(v).all()) for v in state.logdensity_grad.values()) and bool(
+        torch.isfinite(state.logdensity))
+    assert ok, f"{what}: non-finite position, logdensity or gradient"
 
 
-def lookup_forms(m, tag, reps=2):
-    """The flagship's own per-particle scale factors (chi2a at the
-    Lagrangian positions, as evolve takes them) through what lpt and
-    chi2a look up, forward and backward to the tables (cotangents drawn
-    once), in three forms timed in turns: the parent's (lpt: a2g, a2g2 and
-    a2dg2dg's four lookups, each table gathered apart at i and i + 1), this
-    port's (one gather of the stacked (n-1, 2, 4) pairs through
-    index_select), and the same by advanced indexing.  Values agree bit for
-    bit across the forms; each form's table gradient is held against the
-    same lookup in float64.  Returns the ms by form."""
-    from montecosmo_tpu_torch.models.bricks import los_scalefactor_pos, regular_pos
-    from montecosmo_tpu_torch.ops import background as B, interp as I
-    from montecosmo_tpu_torch.utils.safe import safe_div
+def phase_sampler(per_eval):
+    """Phase 5e: the field-level MCLMC loop of run/infer.py at the 2LPT
+    flagship, I/O left out: the observation self-predicted at the fiducial,
+    the logpdf recentred there; a field warmup (every other latent at the
+    fiducial, start kaiser_post(scale_field=7/8)), a full warmup with a
+    diagonal mass (start kaiser_post, the field warmup's white mesh), an
+    MCLMC run, then MAMS (warmup and run) from the full warmup's state.
+    Every McLachlan step is timed (synchronised); K1, K2 and K3 must launch
+    `per_eval` (phase 5's launches per value+grad) times each value+grad.
+    Then the same 2 McLachlan steps twice from one state and one seed, the
+    largest position difference printed (the table gradients' atomics)."""
+    from montecosmo_tpu_torch.ops import paint as P
+    from montecosmo_tpu_torch.samplers import mclmc as S
 
-    dev = torch.device(m.device)
-    bg = B.Background.create(B.get_cosmology(Omega_m=float(m.cosmo_fid.Omega_m),
-                                             sigma8=float(m.cosmo_fid.sigma8)), dev)
-    bg = bg._replace(growth_tab=bg.growth_tab.detach().requires_grad_(True),
-                     a_chi_tab=bg.a_chi_tab.detach().requires_grad_(True))
-    pos = regular_pos(m.evol_shape, m.ptcl_shape, dev)
-    seen, chi2a = [], B.Background.chi2a
-    B.Background.chi2a = lambda self, chi: seen.append(chi.detach()) or chi2a(self, chi)
+    t0 = time.perf_counter()
+    m = bench_model()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    truth = m.reparam({k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True)
+    truth["white_mesh_"] = torch.randn(m.init_shape, generator=gen, device="cuda")
+    m.count_mesh = m.predict(seed=gen, samples=truth, hide_samp=False)["count_mesh"]
+    m.recenter_logpdf(truth | m.obs_data())
+    torch.cuda.synchronize()
+    log(f"# 5e sampler at the 2LPT flagship (d = {sum(v.numel() for v in truth.values())}); "
+        f"set-up {time.perf_counter() - t0:.2f} s")
+
+    evals, steps, phase = [0], [], ["field warmup"]
+
+    def logdf(p):
+        evals[0] += 1
+        return m.logpdf(p)
+
+    step = S._mclachlan_step
+
+    def timed_step(*args, **kwargs):
+        torch.cuda.synchronize()
+        n, t = evals[0], time.perf_counter()
+        out = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        steps.append((phase[0], 1e3 * (time.perf_counter() - t), evals[0] - n))
+        return out
+
+    n_f, n_w, (n_s, thin), (n_mw, n_ms, max_steps) = SAMPLER_STEPS.values()
+    made = {}
+    S._mclachlan_step = timed_step
+    P.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
     try:
-        _, a = los_scalefactor_pos(pos, m.box_center, m.box_rot, m.box_size, m.evol_shape, bg,
-                                   None, m.curved_sky)
+        def run(name, fn):
+            phase[0], n = name, evals[0]
+            out = fn()
+            made[name] = evals[0] - n
+            return out
+
+        m.reset()
+        m.substitute(m.fiduc | m.obs_data(), from_base=True)
+        m.block()
+        state_f, conf_f = run("field warmup", lambda: S.mclmc_warmup(
+            gen, m.kaiser_post(gen, scale_field=7 / 8), logdf, n_steps=n_f,
+            desired_energy_var=1e-5))
+        _conditioned(m)
+        state_w, conf_w = run("full warmup", lambda: S.mclmc_warmup(
+            gen, m.kaiser_post(gen) | state_f.position, logdf, n_steps=n_w,
+            desired_energy_var=1e-7, diagonal_preconditioning=True))
+        state_r, samples = run("run", lambda: S.mclmc_run(gen, state_w, conf_w, logdf,
+                                                          n_samples=n_s, thinning=thin))
+        state_m, conf_m = run("mams warmup", lambda: S.mams_warmup(
+            gen, state_w.position, logdf, n_steps=n_mw, config=conf_w, max_steps=max_steps))
+        state_mr, samples_m = run("mams run", lambda: S.mams_run(
+            gen, state_m, conf_m, logdf, n_samples=n_ms, max_steps=max_steps))
+        torch.cuda.synchronize()
     finally:
-        B.Background.chi2a = chi2a
-    a, chi = a.detach(), seen[0]
-    nodes = np.logspace(B.GROWTH_LOG10_AMIN, 0.0, bg.growth_tab.shape[0])
-    x0 = float(np.log(nodes[0]))
-    dx = float((np.log(nodes[-1]) - x0) / (nodes.size - 1))
-    chi_dx = B.CHI_GRID_MAX / (B.CHI_STEPS - 1)
+        S._mclachlan_step = step
+    launches = P.launches_at(2, "bspline")
+    peak = torch.cuda.max_memory_allocated()
 
-    def parent_growth():
-        look = lambda col: parent_uniform_interp(a, x0, dx, bg.growth_tab[:, col], logx=True,
-                                                 xtab=nodes)
-        g, g2 = look(0), look(1) * (-3.0 / 7)
-        gg, gg2, f, f2 = look(0), look(1) * (-3.0 / 7), look(2), look(3)
-        return g, g2, safe_div(gg2 * f2, gg * f)
+    for name, state in (("field warmup", state_f), ("full warmup", state_w), ("run", state_r),
+                        ("mams warmup", state_m), ("mams run", state_mr)):
+        _finite_state(state, name)
+        ms = [round(t, 3) for ph, t, _ in steps if ph == name]
+        per = [n for ph, _, n in steps if ph == name]
+        log(f"# 5e {name}: {len(ms)} McLachlan steps, ms/step {ms} median "
+            f"{np.median(ms) if ms else float('nan'):.3f}; value+grads per step {per}; "
+            f"value+grads made {made[name]}; logdensity {state.logdensity.item():.6e}")
+    for name, conf in (("field warmup", conf_f), ("full warmup", conf_w), ("mams warmup", conf_m)):
+        invmm = conf.inverse_mass_matrix
+        log(f"# 5e {name} config: step_size {conf.step_size.item():.6e} L {conf.L.item():.6e} "
+            f"inverse mass mean {float(invmm.mean()):.6e} min {float(invmm.min()):.6e} max "
+            f"{float(invmm.max()):.6e}")
+    mse, n_ev = samples["mse_per_dim"].tolist(), samples["n_evals"].tolist()
+    acc, n_ev_m = samples_m["acceptance_rate"].tolist(), samples_m["n_evals"].tolist()
+    log(f"# 5e run: mse_per_dim {mse}, logdensity {samples['logdensity'].tolist()}, n_evals "
+        f"{n_ev}; MAMS run: acceptance {acc}, n_evals {n_ev_m}; peak memory "
+        f"{peak / 2**30:.3f} GiB")
+    assert all(bool(torch.isfinite(v).all()) for v in samples.values())
+    assert all(bool(torch.isfinite(v).all()) for v in samples_m.values())
+    # n_evals as the JAX contract has it: 2 per McLachlan step, each
+    # warmup's init one more, MAMS's 2 per step of its (random) trajectory
+    assert made["field warmup"] == 1 + 2 * n_f and made["full warmup"] == 1 + 2 * n_w
+    assert n_ev == [2.0 * thin] * n_s and made["run"] == sum(n_ev)
+    assert 1 + 2 * n_mw <= made["mams warmup"] <= 1 + 2 * n_mw * max_steps
+    assert made["mams run"] == sum(n_ev_m) and all(2 <= n <= 2 * max_steps for n in n_ev_m)
+    assert all(n == 2 for _, _, n in steps)
+    n_evals = sum(made.values())
+    per_vg = {k: v / n_evals for k, v in launches.items()}
+    log(f"# 5e launches in {n_evals} value+grads {launches}; per value+grad {per_vg} "
+        f"(phase 5: {per_eval})")
+    assert set(launches) == set(per_eval) and all(
+        launches[k] == per_eval[k] * n_evals for k in per_eval), "5e: launches per value+grad"
 
-    def port_growth():
-        g, g2, f, f2 = bg._growth(a)
-        return g, g2, safe_div(g2 * f2, g * f)
-
-    forms = {"parent": (parent_growth, lambda: parent_uniform_interp(chi, 0.0, chi_dx,
-                                                                      bg.a_chi_tab)),
-             "port": (port_growth, lambda: bg.chi2a(chi)),
-             "indexing": (port_growth, lambda: bg.chi2a(chi))}
-    gen = torch.Generator(device=dev).manual_seed(3)
-    cot = [torch.randn(a.shape, generator=gen, device=dev) for _ in range(3)]
-    # the table gradient of float32 sums of ~10^6 cotangents into a few
-    # rows: each form's error against the same lookup in float64
-    tab64 = bg.growth_tab.detach().double().requires_grad_(True)
-    g, g2, f, f2 = bg._replace(growth_tab=tab64)._growth(a.double())
-    (ref,) = torch.autograd.grad((g, g2, safe_div(g2 * f2, g * f)), tab64,
-                                 [c.double() for c in cot])
-    rows = I.take_rows
-    out, ms = {}, {}
-    try:
-        for form, (growth, chi2a) in forms.items():
-            I.take_rows = rows_indexing if form == "indexing" else rows
-            vals = growth()
-            (grad,) = torch.autograd.grad(vals, bg.growth_tab, cot)
-            out[form] = (vals, chi2a())
-            if form != "parent":
-                assert all(torch.equal(u, v) for u, v in zip(vals, out["parent"][0])), form
-                assert torch.equal(out[form][1], out["parent"][1]), form
-            err = rel_err(grad.double(), ref)[1]
-            log(f"# ({tag}) {form} lookups: table gradient max_rel_err {err:.3e} against "
-                f"float64 (limit 1e-3)")
-            assert err <= 1e-3, f"{form} lookups: table gradient"
-        for what, k in (("growth", 0), ("chi2a", 1)):
-            def run(form, k=k):
-                I.take_rows = rows_indexing if form == "indexing" else rows
-                f = forms[form][k]
-                leaf = bg.growth_tab if k == 0 else bg.a_chi_tab
-                vals = f()
-                vals = vals if isinstance(vals, tuple) else (vals,)
-                return torch.autograd.grad(vals, leaf, cot[:len(vals)])
-            order = ("parent", "port", "indexing")
-            t = {f: [] for f in order}
-            for f in order + order[::-1]:
-                t[f].append(cuda_ms(lambda f=f: run(f), reps, warmup=1))
-            ms[what] = {f: float(np.mean(v)) for f, v in t.items()}
-            log(f"# ({tag}) {what} lookups of {a.numel()} queries, forward + backward to the "
-                f"table, in turns: " + ", ".join(f"{f} {v:.3f} ms" for f, v in ms[what].items()))
-    finally:
-        I.take_rows = rows
-    return ms
+    # the same 2 McLachlan steps twice, from one state and one seed
+    kernel = S.mclmc_kernel(m.logpdf, conf_w.inverse_mass_matrix)
+    ends = []
+    for _ in range(2):
+        g, state = torch.Generator(device="cuda").manual_seed(5), state_w
+        for _ in range(2):
+            state, _ = kernel(g, state, conf_w.L, conf_w.step_size)
+        ends.append(state)
+    diff = max(float((ends[0].position[k] - ends[1].position[k]).abs().max())
+               for k in state_w.position)
+    log(f"# 5e the same 2 McLachlan steps twice from one state and seed: largest position "
+        f"difference {diff:.3e}, logdensities {ends[0].logdensity.item():.6e} / "
+        f"{ends[1].logdensity.item():.6e} (not asserted: the table gradients' atomics)")
+    return launches, n_evals
 
 
 # the kernels whose inputs each flagship capture records: the 2LPT render's
@@ -1333,8 +1400,11 @@ def main():
     done("4c")
     launches |= {(KB, order): n for order, n in phase_curved_32().items()}
     done("4d")
+    phase_sampler_32()
+    done("4e")
     # the flagships' own inputs by B-spline order: CIC from 5 and 5b, TSC from 5c
-    flagship = {2: phase_bench("lpt", path_kernels(2), capture="paint")[1]}
+    lpt_launches, flagship = phase_bench("lpt", path_kernels(2), capture="paint")
+    flagship = {2: flagship}
     done("5")
     launches["rectangular", 2], flagship_read = phase_bench("nbody", path_kernels(2, True),
                                                             capture="read")
@@ -1349,6 +1419,9 @@ def main():
                                   lookups=True, a_obs=None, curved_sky=True, kernel_type=KB,
                                   paint_order=4)
     done("5d")
+    assert all(v % 7 == 0 for v in lpt_launches.values()), lpt_launches
+    phase_sampler({k: v // 7 for k, v in lpt_launches.items()})
+    done("5e")
     for run in PROFILES:
         run()
     kernels = []

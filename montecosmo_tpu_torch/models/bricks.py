@@ -75,6 +75,23 @@ def kaiser_boost(cosmo: Cosmology, a, mesh_shape, box_size, b1E, los=(0.0, 0.0, 
     return g * (b1E + f * mumesh**2)
 
 
+def kaiser_posterior(delta_obs, cosmo: Cosmology, a, box_size, var_noise, b1E,
+                     los=(0.0, 0.0, 0.0), bg=None):
+    """Exact Gaussian posterior (mean, std) fields of the linear matter field
+    given the observed field `delta_obs` (rfft mesh), under the flat-sky
+    Kaiser model at one scale factor `a`.  Fourier space.
+
+    Parity: bricks.py:170-186."""
+    mesh_shape = ch2rshape(delta_obs.shape)
+    pmesh = lin_power_mesh(cosmo, mesh_shape, box_size, device=delta_obs.device)
+    pmesh = pmesh * float(np.prod(np.divide(mesh_shape, box_size)))  # power in cell units
+    boost = kaiser_boost(cosmo, a, mesh_shape, box_size, b1E, los=los, bg=bg,
+                         device=delta_obs.device)
+    stds = (pmesh / (1 + boost**2 / var_noise * pmesh)) ** 0.5
+    means = stds**2 * boost / var_noise * delta_obs
+    return means, stds
+
+
 # ======================================================================= reparametrization
 def samp2base(params: dict, config, inv=False, temp=1.0) -> dict:
     """Sample-space <-> base-space transform per scalar latent: affine
@@ -348,6 +365,15 @@ def set_radial_count(mesh, rmesh, redges, rcounts):
     inside = (idx >= 0) & (idx < n_bins)
     mult = take_rows(rcounts, torch.clamp(idx, 0, n_bins - 1))
     return mesh * torch.where(inside, mult, torch.ones_like(mult))
+
+
+def count2delta(mesh, selec_mesh):
+    """Counts -> overdensity imposing the global integral constraint against
+    the selection.
+
+    Parity: bricks.py:762-769."""
+    alpha_selec = selec_mesh * mesh.mean() / selec_mesh.mean()
+    return (mesh - alpha_selec) / (alpha_selec**2).mean() ** 0.5
 
 
 def radial_bin_index(rmesh, redges):

@@ -3,16 +3,20 @@ N-body evolve -> quad-Gaussian field likelihood, with the handler algebra of
 `Model`.
 
 Parity: `montecosmo_tpu/models/model.py` (default_config:56-154,
-Model:157-403, FieldLevelModel:420-962 and 1096-1280).  The port covers
+Model:157-403 but `value_and_grad_staged`, `logdf_mesh` and save/load,
+FieldLevelModel:420-962, 1084-1130, 1283-1327 and 1486-1509).  The port covers
 evolution='lpt' and 'nbody' (BullFrog, at one scale factor `a_obs` or on
 the light cone with a_obs=None), B-spline paint orders 1-4 and Kaiser-Bessel
 windows of support 1-4, bias_type='lagrangian', flat or curved sky without
 AP or PNG,
 observable='field' with lik_type='quad_gauss', and precond 'kaiser', 'real'
 or 'fourier'; any other value raises NotImplementedError naming its ROADMAP
-item.  `reparam` works on plain dicts (no `Chains`).
+item.  `reparam` works on plain dicts (no `Chains`).  `kaiser_post`, the
+samplers' start, is the flat-sky Kaiser posterior at the fiducial.
 """
+import functools
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -20,9 +24,9 @@ import torch
 from montecosmo_tpu_torch.convert import params_from_numpy
 from montecosmo_tpu_torch.models import ppl
 from montecosmo_tpu_torch.models.bricks import (
-    Rotation, b1_L2E, cell2phys_pos, kaiser_boost, lagrangian_bias,
-    los_scalefactor_mesh, los_scalefactor_pos, phys2cell_pos, radius_mesh,
-    regular_pos, rsd, samp2base, samp2base_mesh, set_radial_count, white2lin,
+    Rotation, b1_L2E, cell2phys_pos, count2delta, kaiser_boost, kaiser_posterior,
+    lagrangian_bias, lin2white, los_scalefactor_mesh, los_scalefactor_pos, phys2cell_pos,
+    radius_mesh, regular_pos, rsd, samp2base, samp2base_mesh, set_radial_count, white2lin,
 )
 from montecosmo_tpu_torch.models.distributions import (
     DetruncTruncNorm, DetruncUnif, Normal, QuadGaussian,
@@ -30,7 +34,7 @@ from montecosmo_tpu_torch.models.distributions import (
 from montecosmo_tpu_torch.ops.background import Background, get_cosmology
 from montecosmo_tpu_torch.ops.fourier import irfftn, rfftk, rfftn, top_hat
 from montecosmo_tpu_torch.ops.hermitian import (
-    cgh2rg, chreshape, masked2mesh, mesh2masked, r2chshape, scale_shape,
+    cgh2rg, ch2rshape, chreshape, masked2mesh, mesh2masked, r2chshape, rg2cgh, scale_shape,
 )
 from montecosmo_tpu_torch.ops.paint import nufft
 from montecosmo_tpu_torch.ops.pm import lpt, nbody_bf, nbody_bf_lightcone
@@ -141,13 +145,13 @@ default_config = {
 
 
 _ROADMAP = {
-    "evolution": "ROADMAP Queue A item 12 (Kaiser evolution)",
-    "lik_type": "ROADMAP Queue A item 12 (likelihoods and observables)",
-    "bias_type": "ROADMAP Queue A item 12 (Eulerian bias)",
-    "png_type": "ROADMAP Queue A item 12 (PNG)",
-    "ap_auto": "ROADMAP Queue A item 12 (AP)",
-    "observable": "ROADMAP Queue A item 12 (likelihoods and observables)",
-    "register": "ROADMAP Queue A item 13 (register files)",
+    "evolution": "ROADMAP Queue A item 4 (Kaiser evolution)",
+    "lik_type": "ROADMAP Queue A item 4 (likelihoods and observables)",
+    "bias_type": "ROADMAP Queue A item 4 (Eulerian bias)",
+    "png_type": "ROADMAP Queue A item 4 (PNG)",
+    "ap_auto": "ROADMAP Queue A item 4 (AP)",
+    "observable": "ROADMAP Queue A item 4 (likelihoods and observables)",
+    "register": "ROADMAP Queue A item 6 (register files)",
 }
 _SUPPORTED = {"evolution": ("lpt", "nbody"), "lik_type": ("quad_gauss",),
               "bias_type": ("lagrangian",), "png_type": (None,), "ap_auto": (None,),
@@ -156,13 +160,29 @@ _SUPPORTED = {"evolution": ("lpt", "nbody"), "lik_type": ("quad_gauss",),
 
 @dataclass
 class Model:
-    """Handler algebra over a generative `_model` function."""
+    """Handler algebra over a generative `_model` function: `substitute`,
+    `block`, `seed` and `partial` wrap `self.model`, `reset` unwraps it.
+    Seeds are ints or torch.Generators on the model's device."""
 
+    def __post_init__(self):
+        self.data = {}  # observed / substituted values
+
+    # ------------------------------------------------------------------ calls
     def _model(self, *args, **kwargs):
         raise NotImplementedError
 
     def model(self, *args, **kwargs):
         return self._model(*args, **kwargs)
+
+    def reset(self):
+        self.model = self._model
+        self.data = {}
+
+    def __call__(self):
+        return self.model()
+
+    def reparam(self, params, inv=False):
+        return params
 
     def _block_det(self, model, hide_base=True, hide_det=True):
         base_names = set(self.latents.keys())
@@ -180,27 +200,45 @@ class Model:
                 hide_fn = lambda site: False
         return ppl.block(model, hide_fn=hide_fn)
 
-    def predict(self, seed=42, samples=None, hide_base=True, hide_det=True,
+    def predict(self, seed=42, samples=None, batch_ndim=0, hide_base=True, hide_det=True,
                 hide_samp=True, from_base=False):
-        """Run the model once, conditioned on `samples` (a dict, or None for a
-        prior draw).  `seed` is an int or a torch.Generator on the model's
-        device.  Batched predictions (int/tuple `samples`, `batch_ndim`) are
-        not ported yet."""
-        if samples is not None and not isinstance(samples, dict):
-            raise NotImplementedError("batched predictions are not ported yet")
-        gen = seed if isinstance(seed, torch.Generator) else torch.Generator(
-            device=self.device).manual_seed(int(seed))
-        sample = params_from_numpy(samples or {}, self.device)
-        with torch.no_grad():
-            if from_base:
-                sample = self.reparam(sample, inv=True)
-            model = ppl.condition(self.model, data=sample)
-            if hide_samp:
-                model = ppl.block(model, hide=set(sample.keys()))
-            model = self._block_det(model, hide_base=hide_base, hide_det=hide_det)
-            tr = ppl.trace(ppl.seed(model, rng_seed=gen)).get_trace()
-        return {k: v["value"] for k, v in tr.items()}
+        """Run the model conditioned on samples.
 
+        samples None -> single prediction; int/tuple -> that batch shape of
+        prior predictions; dict -> one prediction per sample (`batch_ndim`
+        leading dims).  A batch runs one prediction after another (no vmap
+        through the kernels), all drawn from one generator, and stacks them.
+        `seed` is an int or a torch.Generator on the model's device."""
+        gen = ppl._generator(seed, self.device)
+
+        def single(sample):
+            with torch.no_grad():
+                if from_base:
+                    sample = self.reparam(sample, inv=True)
+                model = ppl.condition(self.model, data=sample)
+                if hide_samp:
+                    model = ppl.block(model, hide=set(sample.keys()))
+                model = self._block_det(model, hide_base=hide_base, hide_det=hide_det)
+                tr = ppl.trace(ppl.seed(model, rng_seed=gen)).get_trace()
+            return {k: v["value"] for k, v in tr.items()}
+
+        if samples is None:
+            return single({})
+        if isinstance(samples, (int, tuple)):
+            shape = (samples,) if isinstance(samples, int) else tuple(samples)
+            return _stacked([single({}) for _ in np.ndindex(shape)], shape)
+        if isinstance(samples, dict):
+            if len(samples) == 0:
+                return {}
+            samples = params_from_numpy(samples, self.device)
+            shape = tuple(next(iter(samples.values())).shape[:batch_ndim])
+            if not shape:
+                return single(samples)
+            return _stacked([single({k: v[idx] for k, v in samples.items()})
+                             for idx in np.ndindex(shape)], shape)
+        raise ValueError("samples must be None, int, tuple, or dict")
+
+    # ------------------------------------------------------------------ densities
     def logpdf(self, params={}):
         """Joint log-probability density at `params` (recentred by the
         zero-points of `recenter_logpdf`, when set)."""
@@ -220,6 +258,79 @@ class Model:
                                            sum_log_prob=False)
         self._lp_zero = {k: float(v.mean()) for k, v in lps.items()}
         return self._lp_zero
+
+    def potential(self, params={}):
+        return -self.logpdf(params)
+
+    def force(self, params={}):
+        """Gradient of `logpdf` with respect to every entry of `params` (the
+        keys of the JAX package's `grad`); zero where logpdf does not depend
+        on an entry."""
+        leaves = {k: v.detach().requires_grad_(v.is_floating_point() or v.is_complex())
+                  for k, v in params_from_numpy(params, self.device).items()}
+        with torch.enable_grad():
+            lp = self.logpdf(leaves)
+            wrt = [v for v in leaves.values() if v.requires_grad]
+            grads = iter(torch.autograd.grad(lp, wrt, allow_unused=True))
+        out = {}
+        for k, v in leaves.items():
+            g = next(grads) if v.requires_grad else None
+            out[k] = torch.zeros_like(v) if g is None else g
+        return out
+
+    # ------------------------------------------------------------------ handlers
+    def trace(self, seed):
+        gen = ppl._generator(seed, self.device)
+        return ppl.trace(ppl.seed(self.model, rng_seed=gen)).get_trace()
+
+    def seed(self, seed):
+        self.model = ppl.seed(self.model, rng_seed=ppl._generator(seed, self.device))
+
+    def substitute(self, data={}, from_base=False):
+        """Substitute random variables by values, optionally reparametrizing
+        base values into sample space first.  Values accumulate in `data`."""
+        data = params_from_numpy(data, self.device)
+        if from_base:
+            self.data |= data
+            data = self.reparam(data, inv=True)
+        self.data |= data
+        self.model = ppl.condition(self.model, data=data)
+
+    def block(self, hide_fn=None, hide=None, expose_types=None, expose=None,
+              hide_base=True, hide_det=True):
+        """Hide sites from traces.  The default call hides base and other
+        deterministic sites (sampling configuration)."""
+        if all(x is None for x in (hide_fn, hide, expose_types, expose)):
+            self.model = self._block_det(self.model, hide_base=hide_base,
+                                         hide_det=hide_det)
+        else:
+            self.model = ppl.block(self.model, hide_fn=hide_fn, hide=hide,
+                                   expose_types=expose_types, expose=expose)
+
+    def render(self, filename=None):
+        """Text rendering of the model's sites."""
+        with torch.no_grad():
+            tr = self.trace(0)
+        lines = []
+        for name, site in tr.items():
+            fn = type(site["fn"]).__name__ if site["fn"] is not None else ""
+            obs = " [obs]" if site.get("is_observed") else ""
+            shape = tuple(torch.as_tensor(site["value"]).shape)
+            lines.append(f"{name:>24} : {site['type']:<13} {fn:<18} {shape}{obs}")
+        out = "\n".join(lines)
+        if filename:
+            Path(filename).write_text(out)
+        print(out)
+        return out
+
+    def partial(self, *args, **kwargs):
+        self.model = functools.partial(self.model, *args, **kwargs)
+
+
+def _stacked(outs, shape):
+    """Dicts of per-sample values -> one dict of values with leading `shape`."""
+    return {k: torch.stack([torch.as_tensor(o[k]) for o in outs]).reshape(
+        shape + tuple(torch.as_tensor(outs[0][k]).shape)) for k in outs[0]}
 
 
 @dataclass
@@ -266,13 +377,14 @@ class FieldLevelModel(Model):
     device: object = "cuda"
 
     def __post_init__(self):
+        super().__post_init__()
         self.device = torch.device(self.device)
         if self.kernel_type not in ("rectangular", "kaiser_bessel"):
             raise ValueError(f"Unknown kernel type: {self.kernel_type}")
         if self.kernel_type == "kaiser_bessel" and int(self.paint_order) > 4:
             raise NotImplementedError(
                 f"Kaiser-Bessel windows of support {self.paint_order} are not ported yet "
-                "(ROADMAP Queue B, B1: supports 1-4 are)")
+                "(ROADMAP Queue B item 8: supports 1-4 are)")
         if self.paint_order not in (1, 2, 3, 4):
             raise ValueError(f"paint_order must be a window order in 1..4, got "
                              f"{self.paint_order!r}")
@@ -480,10 +592,17 @@ class FieldLevelModel(Model):
         scale2 = stoch["s_e2"] * selec_mesh**0.5
         return ppl.sample("count_mesh", QuadGaussian(count_mesh, scale1, scale2))
 
+    def obs_data(self):
+        """{site: value} to condition the model on its registered data (the
+        count mesh: observable='field' is the one ported)."""
+        return {"count_mesh": self.count_mesh}
+
     # ------------------------------------------------------------------ reparam
     def reparam(self, params: dict, fourier=True, inv=False, temp=1.0):
-        """Sample-space <-> base-space transform of a param dict."""
-        params_ = params_from_numpy(params, self.device)
+        """Sample-space <-> base-space transform of a param dict, on the
+        substituted values `self.data` updated by `params`; the output holds
+        the counterparts of the keys of `params` only."""
+        params_ = params_from_numpy(self.data | params, self.device)
         gdict = self.groups if inv else self.groups_
         suffix = "" if inv else "_"
         out = {}
@@ -507,7 +626,7 @@ class FieldLevelModel(Model):
 
         grouped = {k for names in gdict.values() for k in names}
         out = {k: v for k, v in out.items() if (k[:-1] if inv else k + "_") in params}
-        rest = {k: v for k, v in params_.items() if k not in grouped}
+        rest = {k: v for k, v in params_.items() if k not in grouped and k in params}
         return rest | out
 
     # ------------------------------------------------------------------ getters
@@ -609,3 +728,57 @@ class FieldLevelModel(Model):
 
     def _fiduc(self):
         return {k: v["loc_fid"] for k, v in self.latents.items() if "loc_fid" in v}
+
+    @classmethod
+    def new_latents_from_loc(cls, latents, loc: dict, update_prior: bool = False):
+        """New latents config with updated fiducial (and optionally prior)
+        locations."""
+        new = {}
+        for name, conf in latents.items():
+            new[name] = conf.copy()
+            if name in loc:
+                new[name]["loc_fid"] = loc[name]
+                if update_prior and "loc" in conf:
+                    new[name]["loc"] = loc[name]
+        return new
+
+    # ------------------------------------------------------------------ data helpers
+    def count2delta(self, mesh):
+        """Counts -> overdensity under the global integral constraint."""
+        mesh = masked2mesh(to_tensor(mesh, self.device), self.mask_mesh)
+        selec = self.selec_mesh
+        if np.ndim(selec) == 3 and tuple(np.shape(selec)) != tuple(mesh.shape):
+            selec = irfftn(chreshape(rfftn(to_tensor(selec, self.device)),
+                                     r2chshape(tuple(mesh.shape))))
+            selec = masked2mesh(mesh2masked(selec, self.mask_mesh), self.mask_mesh)
+        else:
+            selec = to_tensor(selec, self.device)
+        return count2delta(mesh, selec)
+
+    def kaiser_post(self, gen, base=False, temp=1.0, scale_field=1.0):
+        """Draw from the analytic Kaiser posterior of the init field given the
+        observed counts, with the fiducial values for the latents not in
+        `data`: the chains' start.  `gen` is a torch.Generator on the model's
+        device (or an int); temp=0 gives the posterior mean."""
+        gen = ppl._generator(gen, self.device)
+        with torch.no_grad():
+            delta_obs = rfftn(self.count2delta(self.count_mesh))
+            delta_obs = chreshape(delta_obs, r2chshape(self.init_shape))
+
+            b1E_fid = b1_L2E(float(np.mean(self.fiduc["b1"])))
+            var_fid = float(np.mean(self.fiduc["s_e"])) / (self.count_fid * self.selec_fid)
+            means, stds = kaiser_posterior(delta_obs, self.cosmo_fid, self.a_fid,
+                                           self.box_size, var_noise=var_fid, b1E=b1E_fid,
+                                           los=self.los_fid, bg=self.bg_fid)
+
+            noise = torch.randn(ch2rshape(means.shape), generator=gen, device=self.device)
+            post_mesh = rg2cgh(noise)
+            post_mesh = temp**0.5 * stds * post_mesh + means
+            post_mesh = lin2white(self.cosmo_fid, post_mesh, self.init_shape,
+                                  self.box_size, self.lin_kpow)
+            # scaling down is recommended when the Kaiser approximation degrades
+            post_mesh = post_mesh * scale_field
+
+            start = {k: self.fiduc[k] for k in self.fiduc.keys() - self.data.keys()}
+            start |= {k: post_mesh for k in {"white_mesh"} - self.data.keys()}
+            return start if base else self.reparam(start, inv=True)

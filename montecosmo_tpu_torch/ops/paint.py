@@ -93,7 +93,7 @@ def _check_window(kernel_type, order):
         if int(order) > max(ORDERS):
             raise NotImplementedError(
                 f"Kaiser-Bessel windows of support {order} are not ported yet (ROADMAP "
-                "Queue B, B1: supports 1-4 are)")
+                "Queue B item 8: supports 1-4 are)")
         _require(order in ORDERS, f"Kaiser-Bessel support must be >= 1, got {order}")
     else:
         raise ValueError(f"Unknown kernel type: {kernel_type}")

@@ -12,7 +12,7 @@ step runs under `torch.utils.checkpoint`, so the backward pass keeps only
 Parity: `montecosmo_tpu/ops/pm.py:32-334` (pm_forces, delta2_source,
 pm_forces2, lpt, alpha_bullfrog, alpha_fastpm, bullfrog_step, nbody_bf,
 nbody_bf_lightcone).  `lpt_fpm`, `nbody_rk4` and `nbody_tsit5` are ROADMAP
-Queue A item 11.
+Queue A item 5.
 """
 import numpy as np
 import torch

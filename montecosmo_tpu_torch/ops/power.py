@@ -86,7 +86,7 @@ def lin_power(cosmo: Cosmology, a=1.0, kpow=None, n_interp=256, bg: Background =
     EH98 normalized to sigma8, scaled by D(a)^2 at a != 1."""
     if kpow is not None:
         raise NotImplementedError(
-            "tabulated register spectra (kpow) are not ported yet (ROADMAP Queue A item 13)")
+            "tabulated register spectra (kpow) are not ported yet (ROADMAP Queue A item 6)")
     device = _device_of(cosmo, device)
     ks = torch.logspace(-4, 1, n_interp, device=device)
     raw = lambda k: k**cosmo.n_s * eisenstein_hu_transfer(cosmo, k)**2

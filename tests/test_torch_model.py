@@ -144,15 +144,20 @@ def test_logpdf_and_grad_match_jax_16_s_e2():
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter that imports the port and builds a model leaves
-    jax out of sys.modules."""
-    code = ("import sys, montecosmo_tpu_torch as m\n"
+    """A fresh interpreter that imports the port and its samplers, builds a
+    model, conditions and blocks it and draws the samplers' start leaves jax
+    out of sys.modules."""
+    code = ("import sys, torch, montecosmo_tpu_torch as m\n"
             "from montecosmo_tpu_torch.ops import paint, pm, _kernels\n"
-            "from montecosmo_tpu_torch import convert\n"
+            "from montecosmo_tpu_torch import convert, samplers\n"
             "c = dict(m.default_config); c.update(final_shape=(8, 8, 8), curved_sky=False,"
             " a_obs=0.5, box_center=(0, 0, 500.0))\n"
-            "m.FieldLevelModel(**c, device='cpu')\n"
+            "f = m.FieldLevelModel(**c, device='cpu')\n"
             "m.FieldLevelModel(**{**c, 'evolution': 'nbody'}, device='cpu')\n"
+            "f.count_mesh = 1 + torch.rand(8, 8, 8)\n"
+            "f.substitute(f.fiduc | f.obs_data(), from_base=True)\n"
+            "f.block()\n"
+            "assert set(f.kaiser_post(0)) == {'white_mesh_'}\n"
             "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib',"
             " 'montecosmo_tpu.')) or k == 'montecosmo_tpu')\n"
             "assert not bad, bad\n")
