@@ -1,7 +1,7 @@
 """GPU smoke run of the PyTorch port (montecosmo_tpu_torch) on one card.
 
     python3 chip_smoke.py            # all phases (what the check runs)
-    python3 chip_smoke.py --quick    # phases 1-3b at 32^3 only (kernel build and agreement)
+    python3 chip_smoke.py --quick    # phases 1-3c at 32^3 only (kernel build and agreement)
     python3 chip_smoke.py --profile  # also per-layer times and a torch.profiler table
 
 Phases, in order; any failure raises and the script exits non-zero:
@@ -73,12 +73,33 @@ Phases, in order; any failure raises and the script exits non-zero:
      a_obs=None) with the Kaiser-Bessel window of support 4: K1 (tiled), K2
      and K3 must each launch at Kaiser-Bessel support 4; then its table
      backwards, as 5c;
+  3c. (after 3b) K6 `paint_cic_grad` and K7 `read_cic_hess` (the double
+     backward, csrc/paint_hess.cu) against their plain versions at 32^3
+     and 224^3, B-spline orders 1-4, clamped and unclamped, the render's
+     case (2 shifts, C = 1) and the force read's (C = 3), timed with their
+     bounds; then one Hessian-vector product of a scalar functional through
+     each pair's Function chain (K1 -> K2, K4 -> K5, K3) against autograd
+     twice of the plain versions (at 224^3 at CIC), HVP_TOL;
+  4f. (after 4e) the golden 32^3 2LPT and N-body models conditioned on the
+     CPU's counts: the Hessian of the logpdf in (Omega_m_, b1_, sigma8_),
+     card against CPU within 1e-4 of its largest entry, finite and nonzero,
+     K6 and K7 launched;
   5e. the sampler loop of run/infer.py at the 2LPT flagship (7.08M
      dimensions): field warmup, full warmup (diagonal mass), MCLMC run, MAMS
      warmup and run (SAMPLER_STEPS), each McLachlan step timed; finite
      chains, n_evals as the JAX package counts them, and K1, K2, K3 launched
      phase 5's count per value+grad times the value+grads made; the same 2
      steps twice from one seed, their difference printed;
+  5f. the NUTS path of run/infer.py --sampler nuts at the same flagship:
+     the blocked full warmup (bracketed step sizes, window adaptation; no
+     Laplace seed: rest_ has 97 > 64 dimensions), NUTS-within-Gibbs sweeps
+     (NUTS_CUTS), every transition timed with its depth and value+grads,
+     n_evals and launches per value+grad asserted; then, each timed with
+     its peak memory and launches, the Laplace seed of (Omega_m_, b1_,
+     sigma8_) at the Kaiser start, the same Hessian with the RK4 tables
+     fixed, the Hutchinson marginal covariance given white_mesh_, and one
+     HVP column of the N-body flagship in Omega_m_ (K6/K7 on both, K4/K5's
+     double backward on the N-body one);
   6. last lines: the kernels JSON (one row per kernel, window and order;
      launches from phase 5b at CIC, 5c at TSC, 4c at NGP and PCS, 5d at
      Kaiser-Bessel 4, 4d at Kaiser-Bessel 1-3; K4/K5 run on no
@@ -87,11 +108,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      launches it made), with `tiled_ms` and `atomic_ms` (K1, K5) or
      `gather_ms` (K4; K2's one design) the designs' times on the same
      inputs, the tiled design's `outlier_share` and source, at CIC the
-     flagship measurements of 5/5b and at TSC those of 5c), then
+     flagship measurements of 5/5b and at TSC those of 5c; K6 and K7 per
+     order, launches and HVP times from 5f at CIC), then
      {"ok": true, "device": {...}}.
 """
 import json
 import subprocess
+from collections import Counter
+from contextlib import contextmanager
 import sys
 import time
 from pathlib import Path
@@ -630,6 +654,132 @@ def check_wide_read():
     assert max(e4[1], e4t[1], e5[1], e5t[1]) <= TOL, "the 6-channel read disagrees with its plain version"
 
 
+# ---------------------------------------------------------------- phase 3c
+HVP_TOL = 1e-4  # max |chain - plain| / max |plain| of one Hessian-vector
+# product: three kernels' float32 sums (K1's and K6's atomics in a
+# run-dependent order) against autograd twice through the plain versions
+
+
+def check_hess_kernels(lattice, stride, H, tag, reps, order):
+    """Phase 3c: K6 (paint_cic_grad) and K7 (read_cic_hess) at B-spline
+    `order`, clamped and unclamped, against their plain versions: the
+    render's case (2 shifts, C = 1, K6 with alpha) and the force read's (1
+    shift, C = 3, K6 without); each timed on the render's case, clamped.
+    Returns the rows of the kernels JSON."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    geom0, pos, w = _particles(lattice, stride, H, gen, dev, ties=order != 2)
+    sfx = _suffix(order, "rectangular")
+    n_p, n_c = pos.shape[0], int(np.prod(geom0.shape))
+    errs, res = {"paint_cic_grad": [], "read_cic_hess": []}, {}
+    for clip in (True, False):
+        for S, C in ((2, 1), (1, 3)):
+            geom = P.cic_geometry(geom0.shape, S, lattice, H, clip, order)
+            alpha = torch.randn((n_p, C), generator=gen, device=dev) if S == 2 else None
+            beta = torch.randn((n_p, C, 3), generator=gen, device=dev)
+            mesh = torch.randn((S,) + geom.shape + (C,), generator=gen, device=dev)
+            b = torch.randn((n_p, 3), generator=gen, device=dev)
+            args6, args7 = (pos, alpha, beta, geom), (pos, mesh, b, geom)
+            e6 = rel_err(P.paint_cic_grad_kernel(*args6), P.paint_cic_grad_plain(*args6))
+            e7 = rel_err_pair(*(x for pair in zip(P.read_cic_hess_kernel(*args7),
+                                                  P.read_cic_hess_plain(*args7)) for x in pair))
+            errs["paint_cic_grad"].append(e6)
+            errs["read_cic_hess"].append(e7)
+            log(f"# {tag} order {order} {'clamped' if clip else 'unclamped'} S {S} C {C}: "
+                f"paint_cic_grad max_rel_err {e6[1]:.3e}, read_cic_hess max_rel_err {e7[1]:.3e}")
+            if clip and S == 2:
+                times = {n: (cuda_ms(lambda: k(*a), reps), cuda_ms(lambda: pl(*a), max(2, reps // 5)))
+                         for n, k, pl, a in (
+                             ("paint_cic_grad", P.paint_cic_grad_kernel, P.paint_cic_grad_plain, args6),
+                             ("read_cic_hess", P.read_cic_hess_kernel, P.read_cic_hess_plain, args7))}
+    # bounds (render's case, S = 2, C = 1): bytes of the inputs read once and
+    # outputs written once; the least arithmetic of a particle's shift (an
+    # FMA as 2 operations): the window set-up (30); per (i, j) its
+    # channel-free factors and per channel their combinations (K6: 3 and 6,
+    # a corner's alpha W + beta . grad W being A_ij w_k + B_ij d_k; K7: 18
+    # and 18, g and H_W b being sums over (i, j) of the z-sums of M against
+    # w_k, d_k and d2_k); per corner and channel one FMA (K6) or three (K7,
+    # those z-sums)
+    corners, columns, S, C = order**3, order**2, 2, 1
+    bounds = {"paint_cic_grad": bound(12 * n_p + 16 * C * n_p + 4 * S * n_c * C,
+                                      S * n_p * (30 + columns * (3 + 6 * C) + corners * 2 * C)),
+              "read_cic_hess": bound(24 * n_p + 4 * S * n_c * C + 24 * C * n_p,
+                                     S * n_p * (30 + columns * 18 * (1 + C) + corners * 6 * C))}
+    for name in ("paint_cic_grad", "read_cic_hess"):
+        ea, er = max(e[0] for e in errs[name]), max(e[1] for e in errs[name])
+        (tk, tp), (bm, bb) = times[name], bounds[name]
+        log(f"# {tag} {name + sfx:25s} max_abs_err {ea:.3e} max_rel_err {er:.3e}  kernel "
+            f"{tk:.3f} ms  plain {tp:.3f} ms  bound {bm:.4f} ms ({bb})  library None ms")
+        assert er <= TOL, f"{name}{sfx} disagrees with its plain version at {tag}: {er:.3e}"
+        res[name + sfx] = {"max_abs_err": ea, "ms": tk, "plain_ms": tp, "bound_ms": bm,
+                           "bound_by": bb, "library_ms": None, "design": "atomic"
+                           if name == "paint_cic_grad" else "gather"}
+    if tag == "32^3" or order == 2:  # autograd twice of a plain PCS at 224^3: > 80 GB
+        check_hvp_chain(lattice, stride, H, tag, order, gen)
+    return res
+
+
+def _hvp(f, args, vs):
+    """The Hessian-vector product of the scalar f(*args) in the direction
+    `vs`, reverse over reverse (a None gradient as 0)."""
+    leaves = [a.detach().clone().requires_grad_(True) for a in args]
+    grads = torch.autograd.grad(f(*leaves), leaves, create_graph=True, allow_unused=True)
+    dot = sum((g * v).sum().real for g, v in zip(grads, vs) if g is not None)
+    out = torch.autograd.grad(dot, leaves, allow_unused=True)
+    return [torch.zeros_like(a) if o is None else o for a, o in zip(leaves, out)]
+
+
+def check_hvp_chain(lattice, stride, H, tag, order, gen):
+    """One Hessian-vector product of a scalar functional of each pair's
+    output through the Function chain (K1 -> K2 -> K6/K7; K4 -> K5 ->
+    K6/K7/K4/K5; K3 -> K3), against the same through autograd twice of
+    the plain versions, at HVP_TOL; the launches of the chain's HVPs.  No
+    particle on a tie: there the window's second derivative jumps, and the
+    plain versions' autograd takes the other side of it."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    dev = torch.device("cuda")
+    geom0, pos, w = _particles(lattice, stride, H, gen, dev)
+    shape = geom0.shape
+    rn = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    geom2 = P.cic_geometry(shape, 2, lattice, H, True, order)
+    geom1 = P.cic_geometry(shape, 1, lattice, H, True, order)
+    G, D = rn(2, *shape), rn(2, *shape)
+    mesh, ct, E = rn(*shape, 3), rn(pos.shape[0], 3), rn(pos.shape[0], 3)
+
+    def quad(x, lin, sq):
+        return (lin * x).sum() + 0.5 * (sq * x * x).sum()
+
+    pairs = {
+        "K1->K2": ((pos, w), lambda paint: lambda p, ww: quad(paint(p, ww, geom2), G, D),
+                   lambda p, ww, g: P._PaintCIC.apply(p, ww, g), P.paint_cic_plain),
+        "K4->K5": ((pos, mesh), lambda read: lambda p, m: quad(read(p, m, geom1), ct, E),
+                   lambda p, m, g: P._ReadCIC.apply(p, m, g), P.read_cic_plain)}
+    errs = {}
+    P.reset_launches()
+    for name, (args, fn, chain, plain) in pairs.items():
+        vs = [rn(*a.shape) for a in args]
+        got, ref = _hvp(fn(chain), args, vs), _hvp(fn(plain), args, vs)
+        errs[name] = max(rel_err(a, b)[1] for a, b in zip(got, ref))
+    launches = P.launches_at(order)
+    eg = P.EpilogueGeometry(shape, 2, float((7 / 6) ** 3), order, None)
+    fk, c, d = randc((2,) + P.r2chshape(shape), gen), randc(P.r2chshape(shape), gen), rn(
+        *P.r2chshape(shape))
+    k3 = lambda epi: lambda x: (torch.view_as_real(epi(x)) * torch.view_as_real(c)).sum() + (
+        0.5 * d * epi(x).abs() ** 2).sum()
+    v = randc(fk.shape, gen)
+    got = _hvp(k3(lambda x: P._NufftEpilogue.apply(x, eg)), (fk,), (v.conj(),))[0]
+    ref = _hvp(k3(lambda x: P._epilogue_math(x, eg, False)), (fk,), (v.conj(),))[0]
+    errs["K3"] = rel_err(got, ref)[1]
+    log(f"# {tag} order {order} double backward, chain vs plain (max_rel_err, limit "
+        f"{HVP_TOL:.0e}): {errs}; launches of the K1/K4 HVPs {launches}")
+    assert max(errs.values()) <= HVP_TOL, f"{tag} order {order}: a double backward disagrees"
+    missing = [k for k in ("paint_cic_grad", "read_cic_hess") if not launches.get(k)]
+    assert not missing, f"the double backward never launched {missing}"
+
+
 WINDOWS = [(k, o) for k in ("rectangular", KB) for o in ORDERS]
 
 
@@ -638,12 +788,16 @@ def phase_kernels():
         check_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order, kernel)
         check_read_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order, kernel)
     check_wide_read()
+    for order in ORDERS:
+        check_hess_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order)
     if QUICK:
         return None
     res = {}
     for kernel, order in WINDOWS:
         res |= check_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", 10, order, kernel)
         res |= check_read_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", 10, order, kernel)
+    for order in ORDERS:
+        res |= check_hess_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", 10, order)
     return res
 
 
@@ -908,6 +1062,51 @@ def phase_sampler_32():
     assert lp_rel <= 1e-4 and pos_rel <= 1e-4, "the 32^3 sampler steps: card and CPU disagree"
 
 
+# ---------------------------------------------------------------- phase 4f
+HESS_KEYS = ("Omega_m_", "b1_", "sigma8_")
+
+
+def scalar_hessian(m, p, obs):
+    """The Hessian of m.logpdf in the scalar latents HESS_KEYS (the others
+    at `p`, conditioned on `obs`): the port's `script.block_hessian`, one
+    Hessian-vector product a column."""
+    from montecosmo_tpu_torch.script import block_hessian
+
+    others = {**{k: v for k, v in p.items() if k not in HESS_KEYS}, **obs}
+    return block_hessian(m.logpdf, {k: p[k] for k in HESS_KEYS}, others)
+
+
+def phase_hessian_32(evolution):
+    """Phase 4f: the golden 32^3 model (`evolution`), conditioned on the CPU's
+    counts, its logpdf's Hessian in {Omega_m_, b1_, sigma8_} on the card and
+    on the CPU: finite, nonzero, within 1e-4 of the largest entry (float32
+    value+grads in another order, differentiated once more).  Returns the
+    card's launches (K6 and K7 must run)."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    hess, obs, launches = {}, None, None
+    for dev in ("cpu", "cuda"):
+        m, p, pred = golden_predict(dev, evolution)
+        if obs is None:
+            obs = pred["count_mesh"].cpu()
+        P.reset_launches()
+        t0 = time.perf_counter()
+        hess[dev] = scalar_hessian(m, p, {"count_mesh": obs.to(dev)}).cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = P.launches_at(m.paint_order)
+        log(f"# 4f 32^3 {evolution} Hessian on {dev} ({time.perf_counter() - t0:.2f} s): "
+            f"{hess[dev].tolist()}")
+    rel = float((hess["cuda"] - hess["cpu"]).abs().max() / hess["cpu"].abs().max())
+    log(f"# 4f 32^3 {evolution} Hessian in {HESS_KEYS}, card vs CPU: max|difference| / "
+        f"max|entry| {rel:.3e} (limit 1e-4); card launches {launches}")
+    assert bool(torch.isfinite(hess["cuda"]).all()) and float(hess["cuda"].abs().max()) > 1e-3
+    assert rel <= 1e-4, f"4f: the {evolution} Hessian disagrees between the card and the CPU"
+    missing = [k for k in ("paint_cic_grad", "read_cic_hess") if not launches.get(k)]
+    assert not missing, f"4f: {missing} never launched"
+    return launches
+
+
 # ----------------------------------------------------------------- phase 5
 def bench_model(final=128, evolution="lpt", **updates):
     from montecosmo_tpu_torch import FieldLevelModel, default_config
@@ -920,6 +1119,24 @@ def bench_model(final=128, evolution="lpt", **updates):
     return FieldLevelModel(**conf, device="cuda")
 
 
+@contextmanager
+def fixed_tables(m):
+    """Every evaluation inside builds no RK4 background tables: it takes
+    the tables of `m`'s fiducial cosmology, built once here (the timing
+    changes; the gradient through the tables w.r.t. Omega_m and sigma8 is
+    dropped)."""
+    from montecosmo_tpu_torch.ops.background import Background, get_cosmology
+
+    fixed = Background.create(get_cosmology(Omega_m=float(m.cosmo_fid.Omega_m),
+                                            sigma8=float(m.cosmo_fid.sigma8)), "cuda")
+    create = Background.__dict__["create"]
+    Background.create = classmethod(lambda cls, cosmo, device="cpu": fixed)
+    try:
+        yield
+    finally:
+        Background.create = create
+
+
 def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **updates):
     """The flagship value+grad with `evolution` and the config `updates`;
     every kernel in `kernels` must launch at the model's paint order and
@@ -928,7 +1145,6 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
     With `lookups` (the light cones), also the table gathers' backwards of
     one more value+grad by call site (`table_backwards`)."""
     from montecosmo_tpu_torch.ops import paint as P
-    from montecosmo_tpu_torch.ops.background import Background, get_cosmology
 
     t0 = time.perf_counter()
     m = bench_model(evolution=evolution, **updates)
@@ -986,13 +1202,8 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
         table_backwards(m, leaves, obs, tag)
 
     # share of the background RK4 tables: the same evaluations with the
-    # tables built once, outside the timed loop (the timing changes, the
-    # gradient w.r.t. Omega_m and sigma8 through the tables is dropped)
-    fixed = Background.create(get_cosmology(Omega_m=float(m.cosmo_fid.Omega_m),
-                                            sigma8=float(m.cosmo_fid.sigma8)), "cuda")
-    create = Background.__dict__["create"]
-    Background.create = classmethod(lambda cls, cosmo, device="cpu": fixed)
-    try:
+    # tables built once, outside the timed loop
+    with fixed_tables(m):
         t_fixed = []
         for _ in range(2):
             value_and_grad()
@@ -1002,8 +1213,6 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
             value_and_grad()
             torch.cuda.synchronize()
             t_fixed.append(time.perf_counter() - t)
-    finally:
-        Background.create = create
     share = 1 - np.median(t_fixed) / np.median(times)
     log(f"# ({tag}) with the background tables held fixed: ms/eval "
         f"{[round(1e3 * t, 3) for t in t_fixed]} median {1e3 * np.median(t_fixed):.3f}; "
@@ -1212,7 +1421,221 @@ def phase_sampler(per_eval):
     log(f"# 5e the same 2 McLachlan steps twice from one state and seed: largest position "
         f"difference {diff:.3e}, logdensities {ends[0].logdensity.item():.6e} / "
         f"{ends[1].logdensity.item():.6e} (not asserted: the table gradients' atomics)")
-    return launches, n_evals
+    return m, state_f
+
+
+# ---------------------------------------------------------------- phase 5f
+# the NUTS path's cuts at the flagship: warmup steps per block, doublings
+# per transition, Gibbs sweeps, Hutchinson probes
+NUTS_CUTS = {"warmup steps": 4, "max doublings": 3, "sweeps": 2, "probes": 4}
+SECOND_ORDER = ("paint_cic_grad", "read_cic_hess")
+
+
+def _timed_nuts(H, record, evals):
+    """A drop-in for hmc.nuts_kernel whose transitions are synchronised and
+    timed: each appends (ms, depth, integration steps, value+grads)."""
+    nuts = H.nuts_kernel
+
+    def factory(*args, **kwargs):
+        kernel = nuts(*args, **kwargs)
+
+        def timed(rng, state):
+            torch.cuda.synchronize()
+            n, t = evals[0], time.perf_counter()
+            new, info = kernel(rng, state)
+            torch.cuda.synchronize()
+            record.append((1e3 * (time.perf_counter() - t), info["depth"],
+                           info["num_integration_steps"], evals[0] - n))
+            return new, info
+        return timed
+    return nuts, factory
+
+
+def timed_hvp(tag, fn):
+    """fn() (a Hessian-vector product) synchronised and timed, counted from
+    0: (its output, ms, peak GiB, launches by (kernel, window, order))."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    P.reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms, peak = 1e3 * (time.perf_counter() - t), torch.cuda.max_memory_allocated() / 2**30
+    launches = dict(P.LAUNCHES)
+    log(f"# 5f {tag}: {ms:.3f} ms, peak {peak:.3f} GiB, launches "
+        f"{ {k[0]: v for k, v in launches.items()} }")
+    return out, ms, peak, launches
+
+
+def phase_nuts(m, state_f, per_eval):
+    """Phase 5f: the NUTS path of run/infer.py --sampler nuts at the 2LPT
+    flagship (5e's model and field-warmup state), I/O left out: the blocked
+    NUTS full warmup (mesh_, rest_; bracketed step sizes, then window
+    adaptation steps), one NUTS-within-Gibbs sweep; every transition timed
+    with its tree depth and value+grads; finite states; n_evals as the JAX
+    package counts them; K1, K2, K3 launched `per_eval` times a
+    value+grad.  Then the second-order work at full width, each HVP timed
+    with its peak memory and launches: the Laplace seed of {Omega_m_, b1_,
+    sigma8_} at the Kaiser start (and the same Hessian with the RK4 tables
+    fixed), the Hutchinson marginal covariance of those given
+    white_mesh_, one HVP column of the N-body flagship in Omega_m_.
+    Returns the K6/K7 launches of the HVPs and their rows' extras."""
+    from montecosmo_tpu_torch import lapprox as L
+    from montecosmo_tpu_torch import script as SC
+    from montecosmo_tpu_torch.ops import paint as P
+    from montecosmo_tpu_torch.samplers import hmc as H
+
+    log(f"# 5f NUTS at the 2LPT flagship, cuts {NUTS_CUTS} (the mesh is not cut)")
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    evals, record = [0], []
+    logpdf = m.logpdf
+
+    def counted(p):
+        evals[0] += 1
+        return logpdf(p)
+
+    nuts, factory = _timed_nuts(H, record, evals)
+    # a Laplace seed of rest_ (at most 64 dimensions; the flagship's has 97)
+    # costs value+grads and double backwards outside n_evals
+    seed_cost, laplace_seed = {"evals": 0, "launches": Counter()}, SC._laplace_seed
+
+    def seed(*args):
+        n, before = evals[0], Counter(P.LAUNCHES)
+        out = laplace_seed(*args)
+        seed_cost["evals"] += evals[0] - n
+        seed_cost["launches"] += Counter(P.LAUNCHES) - before
+        return out
+
+    m.logpdf, H.nuts_kernel, SC._laplace_seed = counted, factory, seed
+    P.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        field = H.HMCState({k: v[None] for k, v in state_f.position.items()}, None, None)
+        state, config, n_evals = SC.full_warmup(
+            m, {}, field, NUTS_CUTS["warmup steps"], 1, gen,
+            max_num_doublings=NUTS_CUTS["max doublings"], log=lambda *a: log("#", *a))
+        made_warm, n_warm = evals[0], len(record)
+        step_fn, init_fn, _, _ = H.nutswg_init(m.logpdf, max_num_doublings=NUTS_CUTS["max doublings"])
+        chain = {k: H.HMCState({kk: v[0] for kk, v in st.position.items()}, st.logdensity[0],
+                               {kk: v[0] for kk, v in st.logdensity_grad.items()})
+                 for k, st in state.items()}
+        conf = {k: {kk: v[0] for kk, v in c.items()} for k, c in config.items()}
+        last, (samples, infos) = H.sampling_loop_general(gen, chain, m.logpdf, step_fn, init_fn,
+                                                         conf, NUTS_CUTS["sweeps"])
+        torch.cuda.synchronize()
+    finally:
+        m.logpdf, H.nuts_kernel, SC._laplace_seed = logpdf, nuts, laplace_seed
+    wall = time.perf_counter() - t0
+    launches = {k: n for (k, w, o), n in (Counter(P.LAUNCHES) - seed_cost["launches"]).items()
+                if (w, o) == ("bspline", 2)}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    made = evals[0]
+    for k, st in last.items():
+        _finite_state(st, f"5f NUTS-within-Gibbs block {k}")
+    for k, st in state.items():
+        assert all(bool(torch.isfinite(v).all()) for v in st.position.values()), k
+    log(f"# 5f NUTS warmup: {n_warm} transitions, value+grads made {made_warm}, n_evals "
+        f"{n_evals} (+ {len(state)} carry inits, + {seed_cost['evals']} of a Laplace seed); config "
+        f"{ {k: (float(c['step_size'][0]), tuple(c['inverse_mass_matrix'].shape)) for k, c in config.items()} }")
+    for i, (ms, depth, n_int, n_ev) in enumerate(record):
+        log(f"# 5f NUTS transition {i} ({'warmup' if i < n_warm else 'sweep'}): {ms:.3f} ms, "
+            f"depth {depth}, integration steps {n_int}, value+grads {n_ev}")
+    sweep_evals = int(infos["n_evals"].sum())
+    log(f"# 5f sweep: n_evals {sweep_evals}, logdensity {infos['logdensity'].tolist()}; "
+        f"all {made} value+grads in {wall:.2f} s, peak {peak:.3f} GiB; launches {launches}")
+    assert all(n_int == n_ev for _, _, n_int, n_ev in record), "5f: value+grads per transition"
+    assert made_warm == n_evals + len(state) + seed_cost["evals"], "5f: the warmup's n_evals"
+    # each sweep re-initialises every block (one value+grad) before its step
+    assert made - made_warm == sweep_evals + len(last) * NUTS_CUTS["sweeps"], \
+        "5f: the sweeps' n_evals"
+    made -= seed_cost["evals"]
+    assert set(launches) == set(per_eval) and all(
+        launches[k] == per_eval[k] * made for k in per_eval), "5f: launches per value+grad"
+
+    # second order at full width: the Kaiser start of the full warmup
+    p0 = m.kaiser_post(gen)
+    keys = HESS_KEYS
+    p_block = {k: p0[k] for k in keys}
+    others = {k: v for k, v in p0.items() if k not in keys}
+    (cov, w), ms_seed, peak_seed, l_seed = timed_hvp(
+        "_laplace_seed of (Omega_m_, b1_, sigma8_) at the Kaiser start (3 HVP columns)",
+        lambda: SC._laplace_seed(m.logpdf, p_block, others))
+    log(f"# 5f Laplace seed: covariance {cov.tolist()}, curvatures {w.tolist()}")
+    assert bool(torch.isfinite(cov).all()) and np.all(np.isfinite(w))
+
+    def fixed_hessian():
+        with fixed_tables(m):
+            return scalar_hessian(m, p0, {})
+
+    hess_f, ms_fixed, _, _ = timed_hvp("the same Hessian (3 HVP columns), RK4 tables fixed",
+                                       fixed_hessian)
+    log(f"# 5f Hessian, tables fixed {hess_f.tolist()} ({ms_fixed:.3f} ms against the seed's "
+        f"{ms_seed:.3f} ms): the RK4 tables' share {1 - ms_fixed / ms_seed:.3f}")
+
+    wm = others["white_mesh_"]
+    rest = {k: v for k, v in others.items() if k != "white_mesh_"}
+
+    def pot(x, y):
+        return -m.logpdf({**rest, "white_mesh_": y.reshape(wm.shape),
+                          **{k: x[i] for i, k in enumerate(keys)}})
+
+    x0 = torch.stack([p_block[k].reshape(()) for k in keys])
+    (cov_h, schur), ms_h, peak_h, l_h = timed_hvp(
+        f"marginal_covariance(method='hutchinson') given white_mesh_ ({wm.numel()} dims), "
+        f"{NUTS_CUTS['probes']} probes (3 + {NUTS_CUTS['probes']} HVPs)",
+        lambda: L.marginal_covariance(pot, x0, wm.reshape(-1), "hutchinson", NUTS_CUTS["probes"],
+                                      key=gen))
+    log(f"# 5f marginal covariance {cov_h.tolist()}; Schur complement {schur.tolist()}")
+    assert bool(torch.isfinite(cov_h).all()) and bool(torch.isfinite(schur).all())
+
+    # one HVP column of the N-body flagship in Omega_m_
+    mb = bench_model(evolution="nbody")
+    pb = mb.reparam({k: np.asarray(v) for k, v in mb.fiduc.items()}, inv=True)
+    pb["white_mesh_"] = torch.randn(mb.init_shape, generator=gen, device="cuda")
+    obs = {"count_mesh": mb.predict(seed=gen, samples=pb, hide_samp=False)["count_mesh"]}
+    k5_double = [0]
+    k5_backward = P._ReadCICAdjoint.backward
+
+    def counted_backward(ctx, *grads):
+        k5_double[0] += 1
+        return k5_backward(ctx, *grads)
+
+    def nbody_column():
+        leaves = {k: torch.as_tensor(v).detach().clone().requires_grad_(True)
+                  for k, v in pb.items()}
+        lp = mb.logpdf({**leaves, **obs})
+        (g,) = torch.autograd.grad(lp, leaves["Omega_m_"], create_graph=True)
+        col = torch.autograd.grad(g, list(leaves.values()), allow_unused=True)
+        return [torch.zeros_like(v) if c is None else c for v, c in zip(leaves.values(), col)]
+
+    P._ReadCICAdjoint.backward = staticmethod(counted_backward)
+    try:
+        col_b, ms_b, peak_b, l_b = timed_hvp("one HVP column of the N-body flagship in Omega_m_",
+                                             nbody_column)
+    finally:
+        P._ReadCICAdjoint.backward = staticmethod(k5_backward)
+    log(f"# 5f N-body HVP column: d2/dOmega_m_^2 {col_b[list(pb).index('Omega_m_')].item():.6e}, "
+        f"|column| max {max(float(c.abs().max()) for c in col_b):.6e}; K4/K5 double backwards "
+        f"{k5_double[0]}")
+    assert all(bool(torch.isfinite(c).all()) for c in col_b)
+    assert k5_double[0] > 0, "5f: K4/K5's double backward never ran on the N-body flagship"
+    hvps = {"2LPT Laplace seed": l_seed, "2LPT Hutchinson": l_h, "N-body column": l_b}
+    for tag, l in hvps.items():
+        missing = [k for k in SECOND_ORDER if not l.get((k, "bspline", 2))]
+        assert not missing, f"5f: {missing} never launched in the {tag}"
+    launches_2 = {k: sum(l.get((k, "bspline", 2), 0) for l in hvps.values()) for k in SECOND_ORDER}
+    per_hvp = {k: {tag: l.get((k, "bspline", 2), 0) for tag, l in hvps.items()}
+               for k in SECOND_ORDER}
+    extras = {k: {"launches_per_hvp": per_hvp[k],
+                  "hvp_ms": {"2LPT Laplace seed (3 columns)": ms_seed,
+                             "2LPT Hessian, tables fixed (3 columns)": ms_fixed,
+                             "2LPT Hutchinson": ms_h, "N-body column": ms_b},
+                  "hvp_peak_gib": {"2LPT Laplace seed": peak_seed, "2LPT Hutchinson": peak_h,
+                                   "N-body column": peak_b}} for k in SECOND_ORDER}
+    return launches_2, extras
 
 
 # the kernels whose inputs each flagship capture records: the 2LPT render's
@@ -1402,6 +1825,9 @@ def main():
     done("4d")
     phase_sampler_32()
     done("4e")
+    for evolution in ("lpt", "nbody"):
+        phase_hessian_32(evolution)
+    done("4f")
     # the flagships' own inputs by B-spline order: CIC from 5 and 5b, TSC from 5c
     lpt_launches, flagship = phase_bench("lpt", path_kernels(2), capture="paint")
     flagship = {2: flagship}
@@ -1420,8 +1846,12 @@ def main():
                                   paint_order=4)
     done("5d")
     assert all(v % 7 == 0 for v in lpt_launches.values()), lpt_launches
-    phase_sampler({k: v // 7 for k, v in lpt_launches.items()})
+    per_eval = {k: v // 7 for k, v in lpt_launches.items()}
+    m, state_f = phase_sampler(per_eval)
     done("5e")
+    hvp_launches, hvp_extras = phase_nuts(m, state_f, per_eval)
+    del m, state_f
+    done("5f")
     for run in PROFILES:
         run()
     kernels = []
@@ -1442,6 +1872,14 @@ def main():
                             **res[n + sfx]})
             if kernel != KB and n in flagship.get(order, {}):
                 kernels[-1] |= flagship[order][n]
+    for order in ORDERS:
+        sfx = _suffix(order, "rectangular")
+        for n, rep in (("paint_cic_grad", "montecosmo_tpu/ops/paint_window.py:240"),
+                       ("read_cic_hess", "montecosmo_tpu/ops/paint_window.py:330")):
+            kernels.append({"name": n + sfx, "route": "cuda", "source": CSRC + "paint_hess.cu",
+                            "replaces": rep, "window": "bspline", "order": order,
+                            "launches": hvp_launches[n] if order == 2 else 0,
+                            **res[n + sfx], **(hvp_extras[n] if order == 2 else {})})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -31,8 +31,8 @@
 // writes dweights (the weighted read) and dpos (the read of the derivative
 // window, times the weight), zeroed on the axes where the clamp was active.
 // No atomics; bounded by the scattered 4-byte reads (P^3 n per particle),
-// which are as local as K1's writes.  Double backward is not supported (the
-// autograd wrapper is once_differentiable).
+// which are as local as K1's writes.  Its own backward (the double
+// backward) is K6 and K7 of paint_hess.cu.
 //
 // K4 reads C <= 4 fields of a channel-last (X, Y, Z, C) mesh (the wrapper
 // launches once per 4 channels of a wider one) at the same

@@ -1,0 +1,195 @@
+// The double backward of the paint (K1 -> K2) and of the read (K4 -> K5):
+// K6, the paint of the window and its gradient, and K7, the read of the
+// window's gradient and Hessian.  Windows, clamp and geometry are shared
+// with the other particle kernels (paint_window.cuh).
+//
+// Replaces the second derivatives that XLA's autodiff takes of
+// montecosmo_tpu/ops/paint_window.py::paint_window (:240) and ::read_window
+// (:330), and of ops/paint.py::paint / read / read_multi, when a
+// Hessian-vector product (the Laplace mass seed, lapprox) differentiates
+// their VJPs once more.  The JAX package has no kernel for it: XLA
+// re-linearises its one-hot window matmuls.
+//
+// Math, per particle p at (clamped) position x_p and interlace shift s, the
+// window W = w_x w_y w_z of paint_window.cuh, its gradient grad W and its
+// Hessian H_W, each derivative zero along an axis where the clamp is
+// active (|pos - site| >= H: K2's rule):
+//   K6: out_s[c, ch] += alpha[p, ch] W(x_ps - c) + beta[p, ch, :] . grad W(x_ps - c)
+//       (alpha may be absent: 0).  It is K2's backward with respect to the
+//       cotangent meshes (alpha = a, beta = w b for cotangents a on dw and b
+//       on dpos), and K5's with respect to the mesh (beta = r (x) b).
+//   K7: g[p, ch, :] = sum_s sum_c M_s[c, ch] grad W(x_ps - c),
+//       h[p, ch, :] = sum_s sum_c M_s[c, ch] H_W(x_ps - c) b[p, :].
+//       K2's backward with respect to the positions (a g + w h, M = the
+//       cotangent meshes) and the weights (b . g), and K5's with respect to
+//       the positions and the cotangent.
+// Meshes are channel-last, (S, X, Y, Z, C) with C <= kMaxC (the wrapper
+// launches once per 4 channels of a wider one).
+//
+// What bounds them on an H100: at the 224^3 render (11.24M particles, two
+// shifts, CIC, C = 1) K6 moves 315 MB of positions and per-particle vectors
+// and 90 MB of meshes, >= 0.12 ms at 3.35 TB/s, but makes P^3 S C float
+// atomics a particle (180M at CIC) as K1's atomic design does, so it is
+// bound by the L2 atomic rate; K7 reads 270 MB of positions and b, 90 MB of
+// meshes and writes 270 MB of g and h (>= 0.19 ms), as local a gather as
+// K2's.  Design: one thread per particle in lattice order (a warp's corners
+// share L2 lines), the P per-axis weights, derivatives and second
+// derivatives computed once per particle and shift, the clamped axes'
+// derivatives zeroed there, then the P^3 corners unrolled around the
+// channel loop; K6 adds each corner to device memory with atomics, K7 keeps
+// its 6 C sums in registers and writes them once.  A fast design (the
+// lattice-brick tiles of paint_tiled.cu) is later work.
+//
+// Plain C interface, loaded with ctypes; each entry point returns
+// cudaGetLastError() of its launch (cudaErrorInvalidValue for an order
+// outside 1-4, a channel count outside 1-4, or K7 at a Kaiser-Bessel
+// window, whose second derivative is not ported).
+#include "paint_window.cuh"
+
+namespace {
+
+// The windows of particle p at shift sh, the derivatives of a clamped axis
+// zeroed.
+template <class W>
+__device__ __forceinline__ void windows(const float* __restrict__ pos, int64_t p, const Site& q,
+                                        const Geom& g, float sh, Win<W::P>& wx, Win<W::P>& wy,
+                                        Win<W::P>& wz) {
+  constexpr int P = W::P;
+  float x, y, z;
+  const bool ax = place(pos[3 * p] + sh, q.qx, g.Hx, g.clamp, x);
+  const bool ay = place(pos[3 * p + 1] + sh, q.qy, g.Hy, g.clamp, y);
+  const bool az = place(pos[3 * p + 2] + sh, q.qz, g.Hz, g.clamp, z);
+  W::eval(x, g.X, q.bx, g, wx);
+  W::eval(y, g.Y, q.by, g, wy);
+  W::eval(z, g.Z, q.bz, g, wz);
+#pragma unroll
+  for (int k = 0; k < P; ++k) {
+    if (!ax) wx.d[k] = wx.d2[k] = 0.f;
+    if (!ay) wy.d[k] = wy.d2[k] = 0.f;
+    if (!az) wz.d[k] = wz.d2[k] = 0.f;
+  }
+}
+
+template <class W>
+__global__ void paint_cic_grad_kernel(const float* __restrict__ pos,
+                                      const float* __restrict__ alpha,
+                                      const float* __restrict__ beta, int64_t n_p, int C, Geom g,
+                                      float* __restrict__ out) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_p) return;
+  constexpr int P = W::P;
+  const Site q = site<P>(p, g);
+  const int64_t N = (int64_t)g.X * g.Y * g.Z;
+  float a[kMaxC], bx[kMaxC], by[kMaxC], bz[kMaxC];
+#pragma unroll
+  for (int ch = 0; ch < kMaxC; ++ch) {
+    const bool on = ch < C;
+    a[ch] = on && alpha ? alpha[p * C + ch] : 0.f;
+    bx[ch] = on ? beta[(p * C + ch) * 3] : 0.f;
+    by[ch] = on ? beta[(p * C + ch) * 3 + 1] : 0.f;
+    bz[ch] = on ? beta[(p * C + ch) * 3 + 2] : 0.f;
+  }
+  for (int s = 0; s < g.n_shift; ++s) {
+    Win<P> wx, wy, wz;
+    windows<W>(pos, p, q, g, (float)s / (float)g.n_shift, wx, wy, wz);
+    float* o = out + (int64_t)s * N * C;
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int64_t row = ((int64_t)wx.i[i] * g.Y + wy.i[j]) * g.Z;
+        const float wxy = wx.w[i] * wy.w[j], dxy = wx.d[i] * wy.w[j], xdy = wx.w[i] * wy.d[j];
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const float wt = wxy * wz.w[k], gx = dxy * wz.w[k], gy = xdy * wz.w[k],
+                      gz = wxy * wz.d[k];
+          float* cell = o + (row + wz.i[k]) * C;
+#pragma unroll
+          for (int ch = 0; ch < kMaxC; ++ch)
+            if (ch < C) atomicAdd(cell + ch, a[ch] * wt + bx[ch] * gx + by[ch] * gy + bz[ch] * gz);
+        }
+      }
+  }
+}
+
+template <class W>
+__global__ void read_cic_hess_kernel(const float* __restrict__ pos,
+                                     const float* __restrict__ mesh,
+                                     const float* __restrict__ b, int64_t n_p, int C, Geom g,
+                                     float* __restrict__ gout, float* __restrict__ hout) {
+  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n_p) return;
+  constexpr int P = W::P;
+  const Site q = site<P>(p, g);
+  const int64_t N = (int64_t)g.X * g.Y * g.Z;
+  const float b0 = b[3 * p], b1 = b[3 * p + 1], b2 = b[3 * p + 2];
+  float gs[kMaxC][3] = {}, hs[kMaxC][3] = {};
+  for (int s = 0; s < g.n_shift; ++s) {
+    Win<P> wx, wy, wz;
+    windows<W>(pos, p, q, g, (float)s / (float)g.n_shift, wx, wy, wz);
+    const float* m = mesh + (int64_t)s * N * C;
+#pragma unroll
+    for (int i = 0; i < P; ++i)
+#pragma unroll
+      for (int j = 0; j < P; ++j) {
+        const int64_t row = ((int64_t)wx.i[i] * g.Y + wy.i[j]) * g.Z;
+        const float wxy = wx.w[i] * wy.w[j], dxy = wx.d[i] * wy.w[j], xdy = wx.w[i] * wy.d[j],
+                    hxy = wx.d2[i] * wy.w[j], xhy = wx.w[i] * wy.d2[j], dd = wx.d[i] * wy.d[j];
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const float wk = wz.w[k], dk = wz.d[k];
+          // grad W and H_W b at this corner
+          const float gx = dxy * wk, gy = xdy * wk, gz = wxy * dk;
+          const float hx = hxy * wk * b0 + dd * wk * b1 + dxy * dk * b2;
+          const float hy = dd * wk * b0 + xhy * wk * b1 + xdy * dk * b2;
+          const float hz = dxy * dk * b0 + xdy * dk * b1 + wxy * wz.d2[k] * b2;
+          const float* cell = m + (row + wz.i[k]) * C;
+#pragma unroll
+          for (int ch = 0; ch < kMaxC; ++ch)
+            if (ch < C) {
+              const float v = __ldg(cell + ch);
+              gs[ch][0] += v * gx;
+              gs[ch][1] += v * gy;
+              gs[ch][2] += v * gz;
+              hs[ch][0] += v * hx;
+              hs[ch][1] += v * hy;
+              hs[ch][2] += v * hz;
+            }
+        }
+      }
+  }
+#pragma unroll
+  for (int ch = 0; ch < kMaxC; ++ch)
+    if (ch < C)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        gout[(p * C + ch) * 3 + a] = gs[ch][a];
+        hout[(p * C + ch) * 3 + a] = hs[ch][a];
+      }
+}
+
+constexpr int kThreads = 256;
+
+unsigned blocks_for(long long n_p) { return (unsigned)((n_p + kThreads - 1) / kThreads); }
+
+}  // namespace
+
+extern "C" int paint_cic_grad(const float* pos, const float* alpha, const float* beta_p,
+                              long long n_p, int C, GEOM_PARAMS, float* out, void* stream) {
+  if (C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
+  const Geom g = make_geom(GEOM_ARGS);
+  DISPATCH_WINDOW(order, kb, paint_cic_grad_kernel<W><<<blocks_for(n_p), kThreads, 0,
+                                                  (cudaStream_t)stream>>>(pos, alpha, beta_p, n_p,
+                                                                          C, g, out));
+  return (int)cudaGetLastError();
+}
+
+extern "C" int read_cic_hess(const float* pos, const float* mesh, const float* b, long long n_p,
+                             int C, GEOM_PARAMS, float* gout, float* hout, void* stream) {
+  if (C < 1 || C > kMaxC || kb) return (int)cudaErrorInvalidValue;
+  const Geom g = make_geom(GEOM_ARGS);
+  DISPATCH_WINDOW(order, 0, read_cic_hess_kernel<W><<<blocks_for(n_p), kThreads, 0,
+                                                 (cudaStream_t)stream>>>(pos, mesh, b, n_p, C, g,
+                                                                         gout, hout));
+  return (int)cudaGetLastError();
+}

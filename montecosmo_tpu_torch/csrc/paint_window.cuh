@@ -1,5 +1,6 @@
 // The particle windows shared by the atomic kernels (paint_cic.cu: K1, K2,
-// K4, K5) and the lattice-brick kernels (paint_tiled.cu: tiled K1 and K5):
+// K4, K5), the lattice-brick kernels (paint_tiled.cu: tiled K1 and K5) and
+// the double-backward kernels (paint_hess.cu: K6, K7):
 // the geometry, the clamp to the lattice sites, and the window of each
 // particle on each axis.  Every kernel is a template on its window W: the
 // B-spline BSpline<P> of order P = 1 (NGP), 2 (CIC), 3 (TSC) or 4 (PCS), or
@@ -74,13 +75,15 @@ __device__ __forceinline__ bool place(float v, float q, float H, int clamp, floa
 }
 
 // The P cells of one axis around x (wrapped to [0, n); lo the first one
-// unwrapped), their window weights w and the weights' derivatives
-// d = dw/dx.  b is the NGP tie origin.
+// unwrapped), their window weights w, the weights' derivatives d = dw/dx
+// and (the B-spline only: K7 takes no other window) their second
+// derivatives d2 = d^2w/dx^2.  b is the NGP tie origin.
 template <int P>
 struct Win {
   int i[P];
   float w[P];
   float d[P];
+  float d2[P];
   int lo;
 };
 
@@ -91,6 +94,7 @@ __device__ __forceinline__ void bspline_window(float x, int n, float b, Win<P>& 
     c0 = rintf(x - b) + b;
     o.w[0] = 1.f;
     o.d[0] = 0.f;
+    o.d2[0] = 0.f;
   } else if constexpr (P == 2) {
     c0 = floorf(x);
     const float t = x - c0;
@@ -98,6 +102,7 @@ __device__ __forceinline__ void bspline_window(float x, int n, float b, Win<P>& 
     o.w[1] = t;
     o.d[0] = -1.f;
     o.d[1] = 1.f;
+    o.d2[0] = o.d2[1] = 0.f;  // the mixed partials of the product are not
   } else if constexpr (P == 3) {
     c0 = rintf(x);
     const float t = x - c0;  // in [-1/2, 1/2]
@@ -108,6 +113,9 @@ __device__ __forceinline__ void bspline_window(float x, int n, float b, Win<P>& 
     o.d[0] = -u;
     o.d[1] = -2.f * t;
     o.d[2] = v;
+    o.d2[0] = 1.f;
+    o.d2[1] = -2.f;
+    o.d2[2] = 1.f;
   } else {
     c0 = floorf(x);
     const float t = x - c0;  // in [0, 1)
@@ -120,6 +128,10 @@ __device__ __forceinline__ void bspline_window(float x, int n, float b, Win<P>& 
     o.d[1] = -2.f * t + 1.5f * t * t;
     o.d[2] = 2.f * u - 1.5f * u * u;
     o.d[3] = 0.5f * t * t;
+    o.d2[0] = u;
+    o.d2[1] = -2.f + 3.f * t;
+    o.d2[2] = -2.f + 3.f * u;
+    o.d2[3] = t;
   }
   const int first = (int)c0 - (P - 1) / 2;
   o.lo = first;

@@ -15,6 +15,7 @@ import torch
 
 from montecosmo_tpu_torch.models.truncnorm import std2trunc, trunc2std
 from montecosmo_tpu_torch.utils import to_tensor
+from montecosmo_tpu_torch.utils.safe import logaddexp
 
 _HALF_LOG_2PI = 0.5 * math.log(2 * math.pi)
 
@@ -237,7 +238,7 @@ class QuadGaussian(Distribution):
     def log_prob(self, value):
         c, w, q, root = self._completed_square(value)
         near, far = torch.sign(c) * w / (1.0 + root), (1.0 + root) / c.abs()
-        two_phi = torch.logaddexp(_norm_logpdf(near), _norm_logpdf(far))
+        two_phi = logaddexp(_norm_logpdf(near), _norm_logpdf(far))
         lp = two_phi - torch.log(to_tensor(self.scale1, value.device).abs() * root)
         lp = torch.where(q > 0, lp, torch.full_like(lp, -np.inf))
         scale1 = to_tensor(self.scale1, value.device)

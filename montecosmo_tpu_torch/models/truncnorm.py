@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from montecosmo_tpu_torch.utils import to_tensor
+from montecosmo_tpu_torch.utils.safe import logaddexp
 
 _TAIL_TEMP = 1 / 6.2842226 / 2
 _LIM = 8.0
@@ -34,7 +35,7 @@ def ndtr(x):
 
 
 def _softmax_pair(a, b):
-    return _TAIL_TEMP * torch.logaddexp(a / _TAIL_TEMP, b / _TAIL_TEMP)
+    return _TAIL_TEMP * logaddexp(a / _TAIL_TEMP, b / _TAIL_TEMP)
 
 
 def _softmin_pair(a, b):

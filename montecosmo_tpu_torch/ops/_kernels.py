@@ -99,6 +99,10 @@ def cuda_library(rebuild=False):
     lib.nufft_epilogue.argtypes = [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P,
                                    _P]
     lib.nufft_epilogue.restype = _I
+    lib.paint_cic_grad.argtypes = [_P, _P, _P, _L, _I, *_GEOM, _P, _P]
+    lib.paint_cic_grad.restype = _I
+    lib.read_cic_hess.argtypes = [_P, _P, _P, _L, _I, *_GEOM, _P, _P, _P]
+    lib.read_cic_hess.restype = _I
     _LIB = lib
     return lib
 

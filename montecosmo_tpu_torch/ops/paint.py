@@ -31,6 +31,19 @@ support 1 is the one-hot NGP whatever the kernel type.
 * K5 `read_cic_adjoint`: its VJP in one particle pass, the C-channel paint
   of the cotangent and the position gradient; CUDA, lattice-brick
   (`read_cic_adjoint_tiled`) as K1, or atomic.
+* K6 `paint_cic_grad`: the paint of the window and its gradient,
+  sum_p alpha_p W(x_p - c) + beta_p . grad W(x_p - c), over the interlace
+  shifts and C channels; CUDA (`csrc/paint_hess.cu`), per-particle atomics.
+* K7 `read_cic_hess`: the read of the window's gradient and Hessian,
+  g_p = sum_c M[c] grad W(x_p - c) and h_p = sum_c M[c] H_W(x_p - c) b_p;
+  CUDA (`csrc/paint_hess.cu`), one thread per particle.
+
+The double backward (Hessian-vector products): K1's backward is an
+`_PaintCICAdjoint` (K2) and K4's a `_ReadCICAdjoint` (K5), whose own
+backwards are built from K6, K7 and the K4/K5 launches; K3 is linear, and
+its backward and the backward's backward are K3 itself.  Derivatives on a
+clamped axis (|pos - site| >= H) are 0 at every order.  Kaiser-Bessel
+windows have no double backward yet (`_KB_HESSIAN`).
 
 The route is fixed by the kernel, the geometry and the order (`_tiled`,
 `TILED_FROM`): on a clamped (lattice) geometry K1 and K5 take the
@@ -97,6 +110,18 @@ def _check_window(kernel_type, order):
         _require(order in ORDERS, f"Kaiser-Bessel support must be >= 1, got {order}")
     else:
         raise ValueError(f"Unknown kernel type: {kernel_type}")
+
+
+# the Kaiser-Bessel windows' double backward is not ported: the JAX window
+# path's own first derivative there is NaN (ROADMAP Queue C, KB finding 1)
+_KB_HESSIAN = ("double backward (Hessian-vector products) through Kaiser-Bessel windows is not "
+               "ported yet (ROADMAP Queue B item 10: the B-spline windows of orders 1-4 are)")
+
+
+def _check_hessian(geom):
+    """Raise for a second derivative of a Kaiser-Bessel paint or read."""
+    if geom.kcut is not None:
+        raise NotImplementedError(_KB_HESSIAN)
 
 
 def _kcut(kernel_type, oversamp):
@@ -195,13 +220,14 @@ def _tie_base(sites, geom):
     return torch.div(sites, span, rounding_mode="floor") * span - margin
 
 
-def _axis_windows(x, geom, tie_base=None):
+def _axis_windows(x, geom, tie_base=None, hess=False):
     """Per axis, the `order` cells around x (order, P, 3) (unwrapped), their
-    window weights and the weights' derivatives d/dx.  The base cell is
-    round(x) (half to even) for odd orders, floor(x) for even ones, and the
-    stencil `arange(order) - (order - 1) // 2`, as `ops/paint.py::paint`.
-    The Kaiser-Bessel derivative is written out (`dkaiser_bessel`), finite
-    at the support edge; the clamped window of order 1 is the one-hot NGP."""
+    window weights, the weights' derivatives d/dx and, with `hess`, their
+    second derivatives.  The base cell is round(x) (half to even) for odd
+    orders, floor(x) for even ones, and the stencil
+    `arange(order) - (order - 1) // 2`, as `ops/paint.py::paint`.  The
+    Kaiser-Bessel derivative is written out (`dkaiser_bessel`), finite at the
+    support edge; the clamped window of order 1 is the one-hot NGP."""
     order = geom.order
     if order % 2:
         c0 = torch.round(x) if tie_base is None else torch.round(x - tie_base) + tie_base
@@ -211,31 +237,63 @@ def _axis_windows(x, geom, tie_base=None):
     cells = c0[None] + offs[:, None, None]
     s = cells - x
     if geom.kcut is not None and not (order == 1 and geom.lattice is not None):
+        if hess:
+            _check_hessian(geom)
         return (cells.long(), kaiser_bessel(s, order, geom.kcut),
                 -dkaiser_bessel(s, order, geom.kcut))
+    t = x - c0
     if order == 2:  # 1 - t and t: K1's arithmetic
-        t = x - c0
         one = torch.ones_like(t)
-        return cells.long(), torch.stack([1 - t, t]), torch.stack([-one, one])
-    return cells.long(), bspline(s, order), -dbspline(s, order)
+        out = cells.long(), torch.stack([1 - t, t]), torch.stack([-one, one])
+    else:
+        out = cells.long(), bspline(s, order), -dbspline(s, order)
+    return out + (_d2_window(t, order),) if hess else out
 
 
-def _corner_terms(x, geom, grad=False, tie_base=None):
+def _d2_window(t, order):
+    """The B-spline weights' second derivatives d^2/dx^2 at the order cells,
+    from t = x - c0 as `csrc/paint_window.cuh` writes them: 0 at NGP and
+    CIC, (1, -2, 1) at TSC, (1 - t, -2 + 3t, -2 + 3(1 - t), t) at PCS (at a
+    cell edge, the side the base cell puts the particle on)."""
+    one = torch.ones_like(t)
+    if order in (1, 2):
+        return torch.zeros((order,) + t.shape, dtype=t.dtype, device=t.device)
+    if order == 3:
+        return torch.stack([one, -2 * one, one])
+    u = 1 - t
+    return torch.stack([u, -2 + 3 * t, -2 + 3 * u, t])
+
+
+def _corner_terms(x, geom, grad=False, tie_base=None, mask=None, hess=False):
     """The order^3 (flat wrapped cell, weight, weight gradient (P, 3) or
-    None) of the window at x; the gradient only with `grad` (the
-    adjoints)."""
+    None, weight Hessian (P, 3, 3) or None) of the window at x; the gradient
+    only with `grad` (the adjoints), the Hessian only with `hess`.  `mask`
+    (P, 3), where given, zeroes the derivatives along the axes it is False
+    on (the clamped ones)."""
     shape, order = geom.shape, geom.order
-    cells, w, dw = _axis_windows(x, geom, tie_base)
+    cells, w, dw, *d2 = _axis_windows(x, geom, tie_base, hess)
+    if mask is not None:
+        dw = dw * mask
+        d2 = [d * mask for d in d2]
     n = torch.tensor(shape, device=x.device)
     cells = torch.remainder(cells, n)
     for a, b, c in product(range(order), repeat=3):
         idx = (cells[a, :, 0] * shape[1] + cells[b, :, 1]) * shape[2] + cells[c, :, 2]
         wx, wy, wz = w[a, :, 0], w[b, :, 1], w[c, :, 2]
-        if not grad:
-            yield idx, wx * wy * wz, None
+        if not (grad or hess):
+            yield idx, wx * wy * wz, None, None
             continue
         dx, dy, dz = dw[a, :, 0], dw[b, :, 1], dw[c, :, 2]
-        yield idx, wx * wy * wz, torch.stack([dx * wy * wz, wx * dy * wz, wx * wy * dz], -1)
+        grad_w = torch.stack([dx * wy * wz, wx * dy * wz, wx * wy * dz], -1)
+        if not hess:
+            yield idx, wx * wy * wz, grad_w, None
+            continue
+        hx, hy, hz = d2[0][a, :, 0], d2[0][b, :, 1], d2[0][c, :, 2]
+        xy, xz, yz = dx * dy * wz, dx * wy * dz, wx * dy * dz
+        hess_w = torch.stack([torch.stack([hx * wy * wz, xy, xz], -1),
+                              torch.stack([xy, wx * hy * wz, yz], -1),
+                              torch.stack([xz, yz, wx * wy * hz], -1)], -2)
+        yield idx, wx * wy * wz, grad_w, hess_w
 
 
 # ------------------------------------------------------------ K1 / K2 plain
@@ -247,7 +305,7 @@ def paint_cic_plain(pos, weights, geom: CICGeometry):
     meshes = []
     for _, x, sites in _shifted(pos, geom):
         mesh = pos.new_zeros(N)
-        for idx, wc, _ in _corner_terms(x, geom, tie_base=_tie_base(sites, geom)):
+        for idx, wc, _, _ in _corner_terms(x, geom, tie_base=_tie_base(sites, geom)):
             mesh = mesh.index_add(0, idx, w * wc)
         meshes.append(mesh.reshape(geom.shape))
     return torch.stack(meshes)
@@ -262,7 +320,7 @@ def paint_cic_adjoint_plain(pos, weights, grads, geom: CICGeometry):
     for s, (v, x, sites) in enumerate(_shifted(pos, geom)):
         g = grads[s].reshape(-1)
         ds = torch.zeros_like(pos)
-        for idx, wc, dwc in _corner_terms(x, geom, True, _tie_base(sites, geom)):
+        for idx, wc, dwc, _ in _corner_terms(x, geom, True, _tie_base(sites, geom)):
             val = g[idx]
             dw = dw + val * wc
             ds = ds + val[:, None] * dwc
@@ -271,6 +329,49 @@ def paint_cic_adjoint_plain(pos, weights, grads, geom: CICGeometry):
             ds = torch.where((v - sites).abs() < H, ds, torch.zeros_like(ds))
         dpos = dpos + ds
     return dpos * weights[:, None], dw
+
+
+def _clamp_mask(v, sites, geom):
+    """(P, 3) where the position derivative passes the clamp, |d| < H (K2's
+    rule), or None without a lattice."""
+    if sites is None:
+        return None
+    return (v - sites).abs() < torch.tensor(geom.H, dtype=v.dtype, device=v.device)
+
+
+# ------------------------------------------------------------ K6 / K7 plain
+def paint_cic_grad_plain(pos, alpha, beta, geom: CICGeometry):
+    """Plain PyTorch K6: the (S, X, Y, Z, C) meshes sum_p alpha_p W(x_p - c)
+    + beta_p . grad W(x_p - c) for alpha (P, C) (None: 0) and beta (P, C, 3),
+    at every interlace shift, the window's gradient zero along clamped axes."""
+    C, N = beta.shape[1], int(np.prod(geom.shape))
+    meshes = []
+    for v, x, sites in _shifted(pos, geom):
+        mesh = pos.new_zeros((N, C))
+        for idx, wc, dwc, _ in _corner_terms(x, geom, True, _tie_base(sites, geom),
+                                             _clamp_mask(v, sites, geom)):
+            val = (beta * dwc[:, None]).sum(-1)
+            mesh = mesh.index_add(0, idx, val if alpha is None else val + alpha * wc[:, None])
+        meshes.append(mesh.reshape(geom.shape + (C,)))
+    return torch.stack(meshes)
+
+
+def read_cic_hess_plain(pos, mesh, b, geom: CICGeometry):
+    """Plain PyTorch K7: from (S, X, Y, Z, C) meshes M_s and b (P, 3), the
+    (P, C, 3) sums over the shifts g_p = sum_c M_s[c] grad W(x_ps - c) and
+    h_p = sum_c M_s[c] H_W(x_ps - c) b_p, both derivatives zero along clamped
+    axes."""
+    C = mesh.shape[-1]
+    g = pos.new_zeros((pos.shape[0], C, 3))
+    h = torch.zeros_like(g)
+    for s, (v, x, sites) in enumerate(_shifted(pos, geom)):
+        flat = mesh[s].reshape(-1, C)
+        for idx, _, dwc, hwc in _corner_terms(x, geom, True, _tie_base(sites, geom),
+                                              _clamp_mask(v, sites, geom), hess=True):
+            val = flat[idx][:, :, None]
+            g = g + val * dwc[:, None]
+            h = h + val * (hwc @ b[:, :, None])[:, None, :, 0]
+    return g, h
 
 
 # ---------------------------------------------------------- K1 / K2 launch
@@ -465,28 +566,75 @@ def _tiled(kernel, geom):
     return geom.lattice is not None and geom.order >= TILED_FROM.get(kernel, np.inf)
 
 
+def _paint(pos, weights, geom):
+    """K1 in the design `_tiled` picks on the card, its plain version on the
+    CPU."""
+    if pos.is_cuda:
+        kernel = paint_cic_tiled_kernel if _tiled("paint_cic", geom) else paint_cic_kernel
+        return kernel(pos, weights, geom)
+    return paint_cic_plain(pos, weights, geom)
+
+
+def _paint_adjoint(pos, weights, grads, geom):
+    """K2 on the card, its plain version on the CPU."""
+    if pos.is_cuda:
+        return paint_cic_adjoint_kernel(pos, weights, grads, geom)
+    return paint_cic_adjoint_plain(pos, weights, grads, geom)
+
+
+def _add(a, b):
+    """a + b, where None stands for a zero."""
+    return b if a is None else a if b is None else a + b
+
+
 class _PaintCIC(torch.autograd.Function):
-    """K1 forward in the design `_tiled` picks, K2 backward.  Double
-    backward is not supported."""
+    """K1 forward in the design `_tiled` picks; backward `_PaintCICAdjoint`
+    (K2), itself differentiable."""
 
     @staticmethod
     def forward(ctx, pos, weights, geom):
         ctx.geom = geom
         ctx.save_for_backward(pos, weights)
-        if pos.is_cuda:
-            kernel = paint_cic_tiled_kernel if _tiled("paint_cic", geom) else paint_cic_kernel
-            return kernel(pos, weights, geom)
-        return paint_cic_plain(pos, weights, geom)
+        return _paint(pos, weights, geom)
+
+    @staticmethod
+    def backward(ctx, grads):
+        pos, weights = ctx.saved_tensors
+        dpos, dw = _PaintCICAdjoint.apply(pos, weights, grads, ctx.geom)
+        return dpos, dw, None
+
+
+class _PaintCICAdjoint(torch.autograd.Function):
+    """K2: (positions, weights w, cotangent meshes G) -> (dpos, dweights).
+    Its backward, for cotangents b (P, 3) on dpos and a (P,) on dweights:
+    G gets K6 with alpha = a and beta = w b; with (g, h) = K7 of G and b,
+    the positions get a g + w h and the weights b . g (a 0 where a
+    cotangent is None)."""
+
+    @staticmethod
+    def forward(ctx, pos, weights, grads, geom):
+        ctx.geom = geom
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(pos, weights, grads)
+        return _paint_adjoint(pos, weights, grads.contiguous(), geom)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, grads):
-        pos, weights = ctx.saved_tensors
-        if grads.is_cuda:
-            dpos, dw = paint_cic_adjoint_kernel(pos, weights, grads, ctx.geom)
-        else:
-            dpos, dw = paint_cic_adjoint_plain(pos, weights, grads, ctx.geom)
-        return dpos, dw, None
+    def backward(ctx, b, a):
+        geom = ctx.geom
+        _check_hessian(geom)
+        pos, weights, grads = ctx.saved_tensors
+        need_pos, need_w, need_grads = ctx.needs_input_grad[:3]
+        b = torch.zeros_like(pos) if b is None else b.contiguous()
+        a = torch.zeros_like(weights) if a is None else a.contiguous()
+        dpos = dw = dgrads = None
+        if need_grads:
+            dgrads = _paint_grad(pos, a[:, None], (weights[:, None] * b)[:, None], geom)[..., 0]
+        if need_pos or need_w:
+            g, h = (t[:, 0] for t in _read_hess(pos, grads.contiguous()[..., None], b, geom))
+            dpos = a[:, None] * g + weights[:, None] * h if need_pos else None
+            dw = (b * g).sum(-1) if need_w else None
+        return dpos, dw, dgrads, None
 
 
 def paint_cic(pos, shape, weights=1.0, n_shift=1, lattice_shape=None, max_disp=8,
@@ -522,7 +670,7 @@ def read_cic_plain(pos, mesh, geom: CICGeometry):
     ((_, x, sites),) = _shifted(pos, geom)
     flat = mesh.reshape(-1, mesh.shape[-1])
     out = 0.0
-    for idx, w, _ in _corner_terms(x, geom, tie_base=_tie_base(sites, geom)):
+    for idx, w, _, _ in _corner_terms(x, geom, tie_base=_tie_base(sites, geom)):
         out = out + flat[idx] * w[:, None]
     return out
 
@@ -535,7 +683,7 @@ def read_cic_adjoint_plain(pos, mesh, ct, geom: CICGeometry):
     flat = mesh.reshape(-1, C)
     dmesh = mesh.new_zeros(flat.shape)
     dpos = torch.zeros_like(pos)
-    for idx, w, dw in _corner_terms(x, geom, True, _tie_base(sites, geom)):
+    for idx, w, dw, _ in _corner_terms(x, geom, True, _tie_base(sites, geom)):
         dmesh = dmesh.index_add(0, idx, ct * w[:, None])
         dpos = dpos + (flat[idx] * ct).sum(-1, keepdim=True) * dw
     if sites is not None:
@@ -651,30 +799,79 @@ def _read_cic_adjoint(pos, mesh, ct, geom, tiled, outliers=None):
     return dpos, dmesh
 
 
+def _read(pos, mesh, geom):
+    """K4 in the design `_tiled` picks on the card, its plain version on the
+    CPU."""
+    if pos.is_cuda:
+        kernel = read_cic_tiled_kernel if _tiled("read_cic", geom) else read_cic_kernel
+        return kernel(pos, mesh, geom)
+    return read_cic_plain(pos, mesh, geom)
+
+
+def _read_adjoint(pos, mesh, ct, geom):
+    """K5 in the design `_tiled` picks on the card, its plain version on the
+    CPU."""
+    if pos.is_cuda:
+        kernel = (read_cic_adjoint_tiled_kernel if _tiled("read_cic_adjoint", geom)
+                  else read_cic_adjoint_kernel)
+        return kernel(pos, mesh, ct, geom)
+    return read_cic_adjoint_plain(pos, mesh, ct, geom)
+
+
 class _ReadCIC(torch.autograd.Function):
-    """K4 forward, K5 backward, each in the design `_tiled` picks.  Double
-    backward is not supported."""
+    """K4 forward; backward `_ReadCICAdjoint` (K5), itself differentiable."""
 
     @staticmethod
     def forward(ctx, pos, mesh, geom):
         ctx.geom = geom
         ctx.save_for_backward(pos, mesh)
-        if pos.is_cuda:
-            kernel = read_cic_tiled_kernel if _tiled("read_cic", geom) else read_cic_kernel
-            return kernel(pos, mesh, geom)
-        return read_cic_plain(pos, mesh, geom)
+        return _read(pos, mesh, geom)
+
+    @staticmethod
+    def backward(ctx, ct):
+        pos, mesh = ctx.saved_tensors
+        dpos, dmesh = _ReadCICAdjoint.apply(pos, mesh, ct, ctx.geom)
+        return dpos, dmesh, None
+
+
+class _ReadCICAdjoint(torch.autograd.Function):
+    """K5: (positions, mesh M (X, Y, Z, C), cotangent r (P, C)) -> (dpos,
+    dmesh).  Its backward, for cotangents b (P, 3) on dpos and B (X, Y, Z,
+    C) on dmesh: M gets K6 with beta = r (x) b; with (g, h) = K7 of M and b,
+    r gets b . g plus K4 of B, and the positions sum_C r h plus K5's
+    position gradient of B for r."""
+
+    @staticmethod
+    def forward(ctx, pos, mesh, ct, geom):
+        ctx.geom = geom
+        ctx.set_materialize_grads(False)
+        ctx.save_for_backward(pos, mesh, ct)
+        return _read_adjoint(pos, mesh, ct.contiguous(), geom)
 
     @staticmethod
     @once_differentiable
-    def backward(ctx, ct):
-        pos, mesh = ctx.saved_tensors
-        if ct.is_cuda:
-            kernel = (read_cic_adjoint_tiled_kernel if _tiled("read_cic_adjoint", ctx.geom)
-                      else read_cic_adjoint_kernel)
-            dpos, dmesh = kernel(pos, mesh, ct, ctx.geom)
-        else:
-            dpos, dmesh = read_cic_adjoint_plain(pos, mesh, ct, ctx.geom)
-        return dpos, dmesh, None
+    def backward(ctx, b, bmesh):
+        geom = ctx.geom
+        _check_hessian(geom)
+        pos, mesh, ct = ctx.saved_tensors
+        ct = ct.contiguous()
+        need_pos, need_mesh, need_ct = ctx.needs_input_grad[:3]
+        dpos = dmesh = dct = None
+        if b is not None:
+            b = b.contiguous()
+            if need_mesh:
+                dmesh = _paint_grad(pos, None, ct[:, :, None] * b[:, None], geom)[0]
+            if need_pos or need_ct:
+                g, h = _read_hess(pos, mesh[None], b, geom)
+                dpos = (ct[:, :, None] * h).sum(1) if need_pos else None
+                dct = (b[:, None] * g).sum(-1) if need_ct else None
+        if bmesh is not None:
+            bmesh = bmesh.contiguous()
+            if need_ct:
+                dct = _add(dct, _read(pos, bmesh, geom))
+            if need_pos:
+                dpos = _add(dpos, _read_adjoint(pos, bmesh, ct, geom)[0])
+        return dpos, dmesh, dct, None
 
 
 def _channels_last(meshes):
@@ -746,6 +943,87 @@ def read_sites(meshes, sites_shape: tuple):
     r = [int(m) // int(p) for m, p in zip(shape, sites_shape)]
     vals = meshes[::r[0], ::r[1], ::r[2]]
     return vals.reshape((-1,) + tuple(meshes.shape[3:]))
+
+
+# ---------------------------------------------------------- K6 / K7 launch
+def _check_hess_inputs(pos, vec, geom):
+    """What K6 and K7 assume of the positions and of the per-particle
+    vectors `vec` (K6's beta, K7's b) they are handed."""
+    _check_hessian(geom)
+    _require(pos.dtype == vec.dtype == torch.float32, "float32 positions and vectors only")
+    _require(pos.ndim == 2 and pos.shape[1] == 3 and vec.shape[0] == pos.shape[0]
+             and vec.shape[-1] == 3, f"positions (P, 3) and (P, ..., 3) vectors, got "
+             f"{tuple(pos.shape)}, {tuple(vec.shape)}")
+    _require(pos.is_contiguous() and vec.is_contiguous(), "contiguous buffers only")
+    _require(vec.device == pos.device, "positions and vectors on one device")
+    _require(geom.lattice is None or int(np.prod(geom.lattice)) == pos.shape[0],
+             "lattice paint: one particle per lattice site, in lattice order")
+
+
+def paint_cic_grad_kernel(pos, alpha, beta, geom: CICGeometry):
+    """K6 on the card, the per-particle atomic design: (S, X, Y, Z, C)
+    float32 meshes for alpha (P, C) (or None) and beta (P, C, 3), one launch
+    per 4 channels."""
+    from montecosmo_tpu_torch.ops import _kernels
+
+    _check_hess_inputs(pos, beta, geom)
+    C = beta.shape[1]
+    _require(alpha is None or (alpha.shape == beta.shape[:2] and alpha.dtype == torch.float32
+                               and alpha.is_contiguous() and alpha.device == pos.device),
+             f"alpha {tuple(beta.shape[:2])} float32, contiguous, expected")
+    if C > MAX_CHANNELS:
+        return torch.cat([paint_cic_grad_kernel(
+            pos, None if alpha is None else alpha[:, c:c + MAX_CHANNELS].contiguous(),
+            beta[:, c:c + MAX_CHANNELS].contiguous(), geom) for c in range(0, C, MAX_CHANNELS)], -1)
+    lib = _kernels.cuda_library()
+    out = torch.zeros((geom.n_shift,) + geom.shape + (C,), dtype=torch.float32, device=pos.device)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(pos.device).cuda_stream)
+    code = lib.paint_cic_grad(_ptr(pos), ctypes.c_void_p(None) if alpha is None else _ptr(alpha),
+                              _ptr(beta), ctypes.c_longlong(pos.shape[0]), ctypes.c_int(C),
+                              *_geom_args(geom), _ptr(out), stream)
+    LAUNCHES["paint_cic_grad", geom.window, geom.order] += 1
+    _launch_status(code, "paint_cic_grad")
+    return out
+
+
+def read_cic_hess_kernel(pos, mesh, b, geom: CICGeometry):
+    """K7 on the card, one thread per particle: (g, h), each (P, C, 3)
+    float32, for the (S, X, Y, Z, C) meshes and b (P, 3), one launch per 4
+    channels."""
+    from montecosmo_tpu_torch.ops import _kernels
+
+    _check_hess_inputs(pos, b, geom)
+    _require(mesh.dtype == torch.float32 and mesh.is_contiguous() and mesh.device == pos.device
+             and tuple(mesh.shape[:4]) == (geom.n_shift,) + geom.shape and mesh.ndim == 5,
+             f"contiguous float32 meshes {(geom.n_shift,) + geom.shape} + (C,) expected, got "
+             f"{tuple(mesh.shape)}")
+    C = mesh.shape[-1]
+    if C > MAX_CHANNELS:
+        parts = [read_cic_hess_kernel(pos, m, b, geom) for (m,) in _channel_chunks(mesh)]
+        return tuple(torch.cat(t, 1) for t in zip(*parts))
+    lib = _kernels.cuda_library()
+    g = torch.empty((pos.shape[0], C, 3), dtype=torch.float32, device=pos.device)
+    h = torch.empty_like(g)
+    stream = ctypes.c_void_p(torch.cuda.current_stream(pos.device).cuda_stream)
+    code = lib.read_cic_hess(_ptr(pos), _ptr(mesh), _ptr(b), ctypes.c_longlong(pos.shape[0]),
+                             ctypes.c_int(C), *_geom_args(geom), _ptr(g), _ptr(h), stream)
+    LAUNCHES["read_cic_hess", geom.window, geom.order] += 1
+    _launch_status(code, "read_cic_hess")
+    return g, h
+
+
+def _paint_grad(pos, alpha, beta, geom):
+    """K6 on the card, its plain version on the CPU."""
+    if pos.is_cuda:
+        return paint_cic_grad_kernel(pos, alpha, beta.contiguous(), geom)
+    return paint_cic_grad_plain(pos, alpha, beta, geom)
+
+
+def _read_hess(pos, mesh, b, geom):
+    """K7 on the card, its plain version on the CPU."""
+    if pos.is_cuda:
+        return read_cic_hess_kernel(pos, mesh.contiguous(), b.contiguous(), geom)
+    return read_cic_hess_plain(pos, mesh, b, geom)
 
 
 # ---------------------------------------------------------------- K3 plain
@@ -847,6 +1125,9 @@ def nufft_epilogue_kernel(x, geom: EpilogueGeometry, backward=False):
 
 
 class _NufftEpilogue(torch.autograd.Function):
+    """K3 forward; backward `_NufftEpilogueAdjoint` (K3 with the conjugated
+    phase): K3 is linear, so each is the other's backward."""
+
     @staticmethod
     def forward(ctx, fk, geom):
         ctx.geom = geom
@@ -855,11 +1136,21 @@ class _NufftEpilogue(torch.autograd.Function):
         return _epilogue_math(fk, geom, backward=False)
 
     @staticmethod
-    @once_differentiable
     def backward(ctx, g):
+        return _NufftEpilogueAdjoint.apply(g, ctx.geom), None
+
+
+class _NufftEpilogueAdjoint(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, g, geom):
+        ctx.geom = geom
         if g.is_cuda:
-            return nufft_epilogue_kernel(g, ctx.geom, backward=True), None
-        return _epilogue_math(g, ctx.geom, backward=True), None
+            return nufft_epilogue_kernel(g, geom, backward=True)
+        return _epilogue_math(g, geom, backward=True)
+
+    @staticmethod
+    def backward(ctx, gg):
+        return _NufftEpilogue.apply(gg, ctx.geom), None
 
 
 def nufft_epilogue(fk, shape, scale=1.0, order=0, kcut=None):

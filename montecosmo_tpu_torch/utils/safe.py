@@ -1,6 +1,7 @@
 """Small numerics helpers shared across the port.
 
-Parity: `montecosmo_tpu/utils/safe.py:40-62` (safe_sqrt, safe_div).
+Parity: `montecosmo_tpu/utils/safe.py:40-62` (safe_sqrt, safe_div);
+`logaddexp` is `jnp.logaddexp` with JAX's all-orders-stable derivatives.
 """
 import numpy as np
 import torch
@@ -34,3 +35,14 @@ def safe_div(x, y):
     denom = torch.where(y == 0, torch.ones_like(y), y)
     q = x / denom
     return torch.where(y == 0, torch.zeros_like(q), q)
+
+
+def logaddexp(a, b):
+    """log(e^a + e^b) as max(a, b) + log1p(e^-|a - b|), whose derivatives
+    of every order stay finite for finite inputs.  torch.logaddexp's
+    backward is grad / (1 + e^(b - a)): where b - a > 88 (float32) e^(b - a)
+    overflows, and its derivative inf / inf is NaN -- a Hessian-vector
+    product through a branch that `where` discards still multiplies that
+    NaN by 0 (the quad-Gaussian likelihood's unused quadratic branch at
+    s_e2 = 0).  jnp.logaddexp carries its own stable derivative rule."""
+    return torch.maximum(a, b) + torch.log1p(torch.exp(-(a - b).abs()))

@@ -215,3 +215,60 @@ def test_tiled_read_matches_plain_and_per_particle_on_card():
         k1 = "paint_cic_tiled" if order > 1 else "paint_cic"
         assert tpa.launches_at(order, g2.window) == {k1: 1, "paint_cic_adjoint": 1}
     assert outliers > 0
+
+
+@pytest.mark.cuda
+def test_double_backward_kernels_match_plain_on_card():
+    """K6 (paint_cic_grad) and K7 (read_cic_hess) against their plain
+    versions on the card at B-spline orders 1-4, clamped and unclamped, with
+    ties, for the render's case (2 shifts, C = 1, K6 with alpha) and the
+    force read's (1 shift, C = 3; C = 6 in two launches); then one
+    Hessian-vector product through each Function chain against autograd
+    twice of the plain versions (no ties: the second derivative jumps
+    there), 1e-4 of the largest entry (K1's and K6's atomics, three kernels
+    deep).  Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K6/K7 are CUDA")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    pos0, w = (torch.tensor(a, device=dev) for a in _lattice_particles((16, 16, 16), (2, 2, 2),
+                                                                        5, 19))
+    pos = torch.tensor(_with_ties(pos0.cpu().numpy(), (16, 16, 16), (2, 2, 2),
+                                  np.random.default_rng(20)), device=dev)
+    n = pos.shape[0]
+    close = lambda a, b: torch.testing.assert_close(a, b, rtol=1e-5,
+                                                    atol=1e-5 * float(b.abs().max()) + 1e-30)
+    for order in (1, 2, 3, 4):
+        for clip in (True, False):
+            for S, C in ((2, 1), (1, 3), (1, 6)):
+                geom = tpa.cic_geometry((32, 32, 32), S, (16, 16, 16), 5, clip, order)
+                alpha = torch.randn((n, C), generator=gen, device=dev) if S == 2 else None
+                beta = torch.randn((n, C, 3), generator=gen, device=dev)
+                mesh = torch.randn((S, 32, 32, 32, C), generator=gen, device=dev)
+                b = torch.randn((n, 3), generator=gen, device=dev)
+                close(tpa.paint_cic_grad_kernel(pos, alpha, beta, geom),
+                      tpa.paint_cic_grad_plain(pos, alpha, beta, geom))
+                for x, y in zip(tpa.read_cic_hess_kernel(pos, mesh, b, geom),
+                                tpa.read_cic_hess_plain(pos, mesh, b, geom)):
+                    close(x, y)
+        geom2 = tpa.cic_geometry((32, 32, 32), 2, (16, 16, 16), 5, True, order)
+        geom1 = tpa.cic_geometry((32, 32, 32), 1, (16, 16, 16), 5, True, order)
+        G = torch.randn((2, 32, 32, 32), generator=gen, device=dev)
+        M = torch.randn((32, 32, 32, 3), generator=gen, device=dev)
+        ct = torch.randn((n, 3), generator=gen, device=dev)
+        for args, f in (((pos0, w), lambda paint: lambda p, ww: (G * paint(p, ww, geom2) ** 2).sum()),
+                        ((pos0, M), lambda read: lambda p, m: (ct * read(p, m, geom1) ** 2).sum())):
+            vs = [torch.randn(a.shape, generator=gen, device=dev) for a in args]
+            out = []
+            for fn in ((tpa._PaintCIC.apply, tpa.paint_cic_plain) if args[1] is w
+                       else (tpa._ReadCIC.apply, tpa.read_cic_plain)):
+                leaves = [a.clone().requires_grad_(True) for a in args]
+                grads = torch.autograd.grad(f(fn)(*leaves), leaves, create_graph=True,
+                                            allow_unused=True)
+                out.append(torch.autograd.grad(
+                    sum((g * v).sum() for g, v in zip(grads, vs) if g is not None), leaves,
+                    allow_unused=True))
+            for x, y in zip(*out):
+                if y is not None:
+                    torch.testing.assert_close(x, y, rtol=1e-4,
+                                               atol=1e-4 * float(y.abs().max()) + 1e-30)
