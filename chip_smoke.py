@@ -8,7 +8,14 @@ Phases, in order; any failure raises and the script exits non-zero:
   1. a CUDA card is required; print its name and power limit (nvidia-smi);
   2. build the CUDA kernels (nvcc, sm_90a) from the checkout and print the
      build time;
-  3. hold K1 (paint), K2 (paint adjoint) and K3 (NUFFT epilogue) against
+  3. K8 (background_tables, csrc/background_rk4.cu) against its plain
+     version (the raw tables and both Omega_m derivatives, float32 and
+     float64 Omega_m) within K8_TOL, timed, its bound the growth's 127
+     dependent steps times one step's FP64 chain counted from its SASS
+     times a dependent FP64 FMA's latency timed on the card; a
+     Background.create and its gradient, K8 against the parent's loop
+     (`parent_tables`) on the card and the host; then
+     hold K1 (paint), K2 (paint adjoint) and K3 (NUFFT epilogue) against
      their plain PyTorch versions at 32^3 (stride-2 lattice; the tiled
      kernels' margins of 0-2 cells send many particles to device memory,
      and some tiles are wider than the mesh) and at the 128^3 flagship
@@ -56,7 +63,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      card: draw the observation with `predict`, then 2 warm-up and 5 timed
      logpdf value+grad evaluations; print ms/eval, peak memory and the
      launches of its kernels (K1, K2, K3, each in the design the route
-     takes), counted from 0 over those 7; then, from one more value+grad,
+     takes, and K8), counted from 0 over those 7; the same with the
+     background tables held fixed; then, from one more value+grad,
      the render paint's and its backward's own inputs: quantiles of
      |pos - site| per axis, K1's two designs on them (outlier share, times
      in turns) and K2 on them;
@@ -74,10 +82,13 @@ Phases, in order; any failure raises and the script exits non-zero:
      and K3 must each launch at Kaiser-Bessel support 4; then its table
      backwards, as 5c;
   3c. (after 3b) K6 `paint_cic_grad` and K7 `read_cic_hess` (the double
-     backward, csrc/paint_hess.cu) against their plain versions at 32^3
-     and 224^3, B-spline orders 1-4, clamped and unclamped, the render's
-     case (2 shifts, C = 1) and the force read's (C = 3), timed with their
-     bounds; then one Hessian-vector product of a scalar functional through
+     backward) against their plain versions at 32^3 and 224^3, B-spline
+     orders 1-4, clamped and unclamped, the render's case (2 shifts, C =
+     1) and the force read's (C = 3); clamped, both designs of each (K6
+     lattice-brick in csrc/paint_tiled.cu and atomic in paint_hess.cu, K7
+     lattice-brick in read_tiled.cu and per-particle in paint_hess.cu),
+     held and timed in turns, with the route's design and the bounds; then
+     one Hessian-vector product of a scalar functional through
      each pair's Function chain (K1 -> K2, K4 -> K5, K3) against autograd
      twice of the plain versions (at 224^3 at CIC), HVP_TOL;
   4f. (after 4e) the golden 32^3 2LPT and N-body models conditioned on the
@@ -96,10 +107,15 @@ Phases, in order; any failure raises and the script exits non-zero:
      (NUTS_CUTS), every transition timed with its depth and value+grads,
      n_evals and launches per value+grad asserted; then, each timed with
      its peak memory and launches, the Laplace seed of (Omega_m_, b1_,
-     sigma8_) at the Kaiser start, the same Hessian with the RK4 tables
-     fixed, the Hutchinson marginal covariance given white_mesh_, and one
+     sigma8_) at the Kaiser start, the same Hessian with the background
+     tables fixed (K6's and K7's own inputs captured in one more HVP
+     column, both designs held and timed on them), the Hutchinson marginal
+     covariance given white_mesh_, and one
      HVP column of the N-body flagship in Omega_m_ (K6/K7 on both, K4/K5's
      double backward on the N-body one);
+  5g. one 2LPT flagship value+grad with K8 and with the parent's loop in
+     its place: device kernels launched and device busy (profiled), and
+     each timed in turns;
   6. last lines: the kernels JSON (one row per kernel, window and order;
      launches from phase 5b at CIC, 5c at TSC, 4c at NGP and PCS, 5d at
      Kaiser-Bessel 4, 4d at Kaiser-Bessel 1-3; K4/K5 run on no
@@ -109,7 +125,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      `gather_ms` (K4; K2's one design) the designs' times on the same
      inputs, the tiled design's `outlier_share` and source, at CIC the
      flagship measurements of 5/5b and at TSC those of 5c; K6 and K7 per
-     order, launches and HVP times from 5f at CIC), then
+     order, both designs' times and the route's, launches and HVP times
+     from 5f at CIC with the flagship-input times; K8 with its launches in
+     phase 5's 2LPT run and 5g's counts), then
      {"ok": true, "device": {...}}.
 """
 import json
@@ -168,12 +186,16 @@ def designs(P):
             "paint_cic_adjoint": (None, P.paint_cic_adjoint_kernel, P.paint_cic_adjoint_plain),
             "read_cic": (P.read_cic_tiled_kernel, P.read_cic_kernel, P.read_cic_plain),
             "read_cic_adjoint": (P.read_cic_adjoint_tiled_kernel, P.read_cic_adjoint_kernel,
-                                 P.read_cic_adjoint_plain)}
+                                 P.read_cic_adjoint_plain),
+            "paint_cic_grad": (P.paint_cic_grad_tiled_kernel, P.paint_cic_grad_kernel,
+                               P.paint_cic_grad_plain),
+            "read_cic_hess": (P.read_cic_hess_tiled_kernel, P.read_cic_hess_kernel,
+                              P.read_cic_hess_plain)}
 
 
 # what the JSON calls each kernel's second design
 OTHER = {"paint_cic": "atomic", "paint_cic_adjoint": "gather", "read_cic": "gather",
-         "read_cic_adjoint": "atomic"}
+         "read_cic_adjoint": "atomic", "paint_cic_grad": "atomic", "read_cic_hess": "gather"}
 
 
 def routed(P, name, geom):
@@ -216,8 +238,12 @@ def each_design(P, name, args, geom, ref, reps, tag, share_of):
 
 def plan_of(P, name, geom, args):
     """The tile plan of `name`'s tiled design on these inputs: K1 one
-    channel, K4/K5 the mesh's channels; a read tile for K4, a paint tile
-    for K1 and K5."""
+    channel, K4/K5 the mesh's channels, K6 beta's, K7 the meshes' times the
+    shifts; a read tile for K4 and K7, a paint tile for K1, K5 and K6."""
+    if name == "paint_cic_grad":
+        return P.tile_plan(geom, args[2].shape[1])
+    if name == "read_cic_hess":
+        return P.tile_plan(geom, geom.n_shift * args[1].shape[-1], "read")
     channels = 1 if name == "paint_cic" else args[1].shape[-1]
     return P.tile_plan(geom, channels, "read" if name == "read_cic" else "paint")
 
@@ -664,8 +690,9 @@ def check_hess_kernels(lattice, stride, H, tag, reps, order):
     """Phase 3c: K6 (paint_cic_grad) and K7 (read_cic_hess) at B-spline
     `order`, clamped and unclamped, against their plain versions: the
     render's case (2 shifts, C = 1, K6 with alpha) and the force read's (1
-    shift, C = 3, K6 without); each timed on the render's case, clamped.
-    Returns the rows of the kernels JSON."""
+    shift, C = 3, K6 without); clamped, both designs (lattice-brick and
+    per-particle), held and timed in turns (`each_design`), the render's
+    case the row's.  Returns the rows of the kernels JSON."""
     from montecosmo_tpu_torch.ops import paint as P
 
     dev = torch.device("cuda")
@@ -673,7 +700,7 @@ def check_hess_kernels(lattice, stride, H, tag, reps, order):
     geom0, pos, w = _particles(lattice, stride, H, gen, dev, ties=order != 2)
     sfx = _suffix(order, "rectangular")
     n_p, n_c = pos.shape[0], int(np.prod(geom0.shape))
-    errs, res = {"paint_cic_grad": [], "read_cic_hess": []}, {}
+    errs, res, rows = {"paint_cic_grad": [], "read_cic_hess": []}, {}, {}
     for clip in (True, False):
         for S, C in ((2, 1), (1, 3)):
             geom = P.cic_geometry(geom0.shape, S, lattice, H, clip, order)
@@ -681,19 +708,23 @@ def check_hess_kernels(lattice, stride, H, tag, reps, order):
             beta = torch.randn((n_p, C, 3), generator=gen, device=dev)
             mesh = torch.randn((S,) + geom.shape + (C,), generator=gen, device=dev)
             b = torch.randn((n_p, 3), generator=gen, device=dev)
-            args6, args7 = (pos, alpha, beta, geom), (pos, mesh, b, geom)
-            e6 = rel_err(P.paint_cic_grad_kernel(*args6), P.paint_cic_grad_plain(*args6))
-            e7 = rel_err_pair(*(x for pair in zip(P.read_cic_hess_kernel(*args7),
-                                                  P.read_cic_hess_plain(*args7)) for x in pair))
-            errs["paint_cic_grad"].append(e6)
-            errs["read_cic_hess"].append(e7)
-            log(f"# {tag} order {order} {'clamped' if clip else 'unclamped'} S {S} C {C}: "
-                f"paint_cic_grad max_rel_err {e6[1]:.3e}, read_cic_hess max_rel_err {e7[1]:.3e}")
-            if clip and S == 2:
-                times = {n: (cuda_ms(lambda: k(*a), reps), cuda_ms(lambda: pl(*a), max(2, reps // 5)))
-                         for n, k, pl, a in (
-                             ("paint_cic_grad", P.paint_cic_grad_kernel, P.paint_cic_grad_plain, args6),
-                             ("read_cic_hess", P.read_cic_hess_kernel, P.read_cic_hess_plain, args7))}
+            args = {"paint_cic_grad": (pos, alpha, beta), "read_cic_hess": (pos, mesh, b)}
+            case = f"{tag} order {order} {'clamped' if clip else 'unclamped'} S {S} C {C}"
+            for name, a in args.items():
+                tiled, other, plain = designs(P)[name]
+                ref = plain(*a, geom)
+                if clip:
+                    row = each_design(P, name, a, geom, ref, reps, case, S * n_p * order**3)
+                    errs[name].append(row["_err"])
+                    if S == 2:
+                        rows[name] = row | {"_plain_ms": cuda_ms(lambda: plain(*a, geom),
+                                                                 max(2, reps // 5))}
+                else:
+                    e = err_of(other(*a, geom), ref)
+                    errs[name].append(e)
+                    log(f"# {case} {name} {OTHER[name]} max_rel_err {e[1]:.3e}")
+                    assert e[1] <= TOL, f"{name} ({case}) disagrees with its plain version"
+                del ref
     # bounds (render's case, S = 2, C = 1): bytes of the inputs read once and
     # outputs written once; the least arithmetic of a particle's shift (an
     # FMA as 2 operations): the window set-up (30); per (i, j) its
@@ -708,14 +739,16 @@ def check_hess_kernels(lattice, stride, H, tag, reps, order):
               "read_cic_hess": bound(24 * n_p + 4 * S * n_c * C + 24 * C * n_p,
                                      S * n_p * (30 + columns * 18 * (1 + C) + corners * 6 * C))}
     for name in ("paint_cic_grad", "read_cic_hess"):
+        row = rows[name]
         ea, er = max(e[0] for e in errs[name]), max(e[1] for e in errs[name])
-        (tk, tp), (bm, bb) = times[name], bounds[name]
+        tk, tp, (bm, bb) = row.pop("_ms"), row.pop("_plain_ms"), bounds[name]
+        row.pop("_err")
         log(f"# {tag} {name + sfx:25s} max_abs_err {ea:.3e} max_rel_err {er:.3e}  kernel "
-            f"{tk:.3f} ms  plain {tp:.3f} ms  bound {bm:.4f} ms ({bb})  library None ms")
+            f"({row['design']}) {tk:.3f} ms  plain {tp:.3f} ms  bound {bm:.4f} ms ({bb})  "
+            f"library None ms")
         assert er <= TOL, f"{name}{sfx} disagrees with its plain version at {tag}: {er:.3e}"
         res[name + sfx] = {"max_abs_err": ea, "ms": tk, "plain_ms": tp, "bound_ms": bm,
-                           "bound_by": bb, "library_ms": None, "design": "atomic"
-                           if name == "paint_cic_grad" else "gather"}
+                           "bound_by": bb, "library_ms": None, **row}
     if tag == "32^3" or order == 2:  # autograd twice of a plain PCS at 224^3: > 80 GB
         check_hvp_chain(lattice, stride, H, tag, order, gen)
     return res
@@ -776,14 +809,184 @@ def check_hvp_chain(lattice, stride, H, tag, order, gen):
     log(f"# {tag} order {order} double backward, chain vs plain (max_rel_err, limit "
         f"{HVP_TOL:.0e}): {errs}; launches of the K1/K4 HVPs {launches}")
     assert max(errs.values()) <= HVP_TOL, f"{tag} order {order}: a double backward disagrees"
-    missing = [k for k in ("paint_cic_grad", "read_cic_hess") if not launches.get(k)]
+    missing = [k for k in hess_names(order) if not launches.get(k)]
     assert not missing, f"the double backward never launched {missing}"
+
+
+# ------------------------------------------------------------ phase 3 (K8)
+# max |K8 - plain| / max |plain| of each output: the same float64
+# arithmetic (the card's pow, exp and sqrt round otherwise), rounded once
+# to the output type
+K8_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+
+
+def growth_chain_depth():
+    """The FP64 operations on the longest dependency path of one growth
+    step of K8, counted from the SASS of csrc/background_rk4.cu (built alone
+    to a cubin, `cuobjdump -sass`): in background_tables_kernel<float>, the
+    loop (a backward branch) with the most FP64 operations among those that
+    store; each DFMA, DMUL or DADD one link of the path through the
+    registers it reads and writes (a 64-bit operand a register pair)."""
+    import re
+    from montecosmo_tpu_torch.ops import _kernels
+
+    nvcc = _kernels.nvcc_path()
+    cubin = _kernels.BUILD / "background_rk4.cubin"
+    subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+                    "-cubin", "-o", str(cubin), str(_kernels.CSRC / "background_rk4.cu")],
+                   check=True)
+    sass = subprocess.run([str(Path(nvcc).parent / "cuobjdump"), "-sass", str(cubin)],
+                          capture_output=True, text=True, check=True).stdout
+    cubin.unlink()
+    func = sass.split("Function : ")
+    func = next(f for f in func if f.split("\n")[0].find("background_tables_kernelIf") >= 0)
+    ins = [(int(a, 16), t.strip()) for a, t in
+           re.findall(r"/\*([0-9a-f]{4,})\*/\s*([^;]*);", func)]
+    where = {a: i for i, (a, _) in enumerate(ins)}
+    fp64 = re.compile(r"D(FMA|MUL|ADD)\b")
+    loops = []
+    for i, (a, t) in enumerate(ins):
+        m = re.search(r"BRA\s+0x([0-9a-f]+)", t)
+        if m and int(m.group(1), 16) < a:
+            body = [x for _, x in ins[where[int(m.group(1), 16)]:i + 1]]
+            if any(x.startswith("STG") or " STG" in x for x in body):
+                loops.append((sum(bool(fp64.search(x)) for x in body), body))
+    _, body = max(loops, key=lambda lb: lb[0])
+    depth, longest = {}, 0
+    for t in body:
+        t = re.sub(r"^@!?P\w+\s+", "", t)
+        op = t.split()[0]
+        regs = [int(r) for r in re.findall(r"(?<![\w.])[-|]*R(\d+)", t)]
+        if not regs or op.startswith(("ST", "BRA", "ISETP")):
+            continue
+        wide = op.startswith("D") or ".64" in op
+        srcs = {r + k for r in regs[1:] for k in ((0, 1) if wide else (0,))}
+        d = max((depth.get(r, 0) for r in srcs), default=0) + bool(fp64.match(op))
+        for k in (0, 1) if wide else (0,):
+            depth[regs[0] + k] = d
+        longest = max(longest, d)
+    return longest
+
+
+def parent_tables(cosmo, device):
+    """The parent's Background.create: the same tables by fixed-step RK4 as
+    a Python loop of float32 scalar tensor operations (127 + 255 steps, four
+    evaluations each, every operation a launch and an autograd node).  Kept
+    here only to count and time what K8 replaced (3, 5g)."""
+    from montecosmo_tpu_torch.ops import background as B
+
+    def rk4(f, y0, ts):
+        ys, y = [y0], y0
+        for n in range(ts.shape[0] - 1):
+            t0, t1 = ts[n], ts[n + 1]
+            h = t1 - t0
+            k1 = f(y, t0)
+            k2 = f(tuple(yi + h / 2 * ki for yi, ki in zip(y, k1)), t0 + h / 2)
+            k3 = f(tuple(yi + h / 2 * ki for yi, ki in zip(y, k2)), t0 + h / 2)
+            k4 = f(tuple(yi + h * ki for yi, ki in zip(y, k3)), t1)
+            y = tuple(yi + h / 6 * (a + 2 * b + 2 * c + d)
+                      for yi, a, b, c, d in zip(y, k1, k2, k3, k4))
+            ys.append(y)
+        return tuple(torch.stack([st[i] for st in ys]) for i in range(len(y0)))
+
+    def derivs(y, a):
+        esqr = B.Esqr(cosmo, a)
+        om_a = cosmo.Omega_m * a**-3 / esqr
+        ode_a = cosmo.Omega_de * B.f_de(cosmo, a) / esqr
+        w = cosmo.w0 + cosmo.wa * (1.0 - a)
+        q = (2.0 - (om_a + (1.0 + 3.0 * w) * ode_a) / 2.0) / a
+        r = 1.5 * om_a / a**2
+        g1, g2, d1, d2 = y
+        return (d1, d2, -q * d1 + r * g1, -q * d2 + r * g2 - r * g1**2)
+
+    device = B._device_of(cosmo, device)
+    atab, adist, lna = B._nodes(torch.device(device))
+    a0 = atab[0]
+    y1, y2, d1, d2 = rk4(derivs, (a0, -3.0 / 7 * a0**2, torch.ones_like(a0), -6.0 / 7 * a0), atab)
+    gtab, g2tab = y1 / y1[-1], y2 / y2[-1]
+    ftab, f2tab = d1 / y1[-1] * atab / gtab, d2 / y2[-1] * atab / g2tab
+    (chitab,) = rk4(lambda y, x: (B.RH / (torch.exp(x) * torch.sqrt(B.Esqr(cosmo, torch.exp(x)))),),
+                    (torch.zeros((), device=device),), lna)
+    chitab = chitab[-1] - chitab
+    chi_grid = torch.linspace(0.0, B.CHI_GRID_MAX, B.CHI_STEPS, device=device)
+    a_chi_tab = B.interp(chi_grid, chitab.flip(0), adist.flip(0))
+    return B.Background(cosmo, atab, torch.stack([gtab, g2tab, ftab, f2tab], -1), adist, chitab,
+                        a_chi_tab)
+
+
+def check_background(reps):
+    """Phase 3 (K8): `background_tables` against its plain version on the
+    card (the tables and both Omega_m derivatives, float32 and float64
+    Omega_m, flat LCDM and w0waCDM with curvature) within K8_TOL; its time,
+    the plain version's on the card, and its bound: the growth's 127
+    dependent steps times the FP64 operations on one step's longest path
+    (`growth_chain_depth`) times the latency of a dependent FP64 FMA, timed
+    here (`fp64_chain`).  Then a `Background.create` with its Omega_m
+    gradient on the card and on the host, against the parent's loop
+    (`parent_tables`) on both.  Returns the row of the kernels JSON."""
+    import ctypes
+    from montecosmo_tpu_torch.ops import _kernels, background as B
+
+    dev = torch.device("cuda")
+    errs = []
+    for dtype in (torch.float32, torch.float64):
+        for consts in ((0.0, -1.0, 0.0), (0.02, -0.9, 0.1)):
+            om = torch.tensor(0.31, dtype=dtype, device=dev)
+            got = B.background_tables_kernel(om, *consts, dtype)
+            ref = B.background_tables_plain(om, *consts, dev, dtype)
+            e = [rel_err(x, y) for x, y in zip(got, ref)]
+            log(f"# K8 background_tables {dtype} (Omega_k, w0, wa) {consts}: max_rel_err "
+                f"(tables, d/dOmega_m, d2/dOmega_m2) {[f'{r:.3e}' for _, r in e]} (limit "
+                f"{K8_TOL[dtype]:.0e})")
+            assert max(r for _, r in e) <= K8_TOL[dtype], "K8 disagrees with its plain version"
+            errs += e if dtype == torch.float32 else []
+    om = torch.tensor(0.31, device=dev)
+    t_k = cuda_ms(lambda: B.background_tables_kernel(om, 0.0, -1.0, 0.0), reps)
+    t_p = cuda_ms(lambda: B.background_tables_plain(om, 0.0, -1.0, 0.0, dev), 3, 1)
+    lib, n = _kernels.cuda_library(), 1 << 22
+    out = torch.empty(1, dtype=torch.float64, device=dev)
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    lat = cuda_ms(lambda: lib.fp64_chain(ctypes.c_longlong(n), ctypes.c_double(0.5),
+                                         ctypes.c_void_p(out.data_ptr()), stream), 3, 1) / n
+    depth = growth_chain_depth()
+    bm = (B.GROWTH_STEPS - 1) * depth * lat
+    ea, er = max(e[0] for e in errs), max(e[1] for e in errs)
+    log(f"# K8 background_tables max_abs_err {ea:.3e} max_rel_err {er:.3e}  kernel {t_k:.4f} ms  "
+        f"plain (on the card) {t_p:.3f} ms  bound {bm:.4f} ms (operations: "
+        f"{B.GROWTH_STEPS - 1} steps x {depth} dependent FP64 operations, counted from the "
+        f"SASS, x {lat * 1e6:.3f} ns a dependent FP64 FMA, timed)  library None ms")
+
+    def create_and_grad(create, device):
+        o = torch.tensor(0.31, device=device, requires_grad=True)
+        bg = create(B.get_cosmology(Omega_m=o, sigma8=torch.tensor(0.8, device=device)), device)
+        (g,) = torch.autograd.grad(bg.growth_tab.sum() + bg.a_chi_tab.sum(), o)
+        return g
+
+    walls = {}
+    for device, n_rep in (("cuda", 10), ("cpu", 3)):
+        for what, create in (("K8", B.Background.create), ("parent loop", parent_tables)):
+            create_and_grad(create, device)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            for _ in range(n_rep):
+                g = create_and_grad(create, device)
+            torch.cuda.synchronize()
+            walls[device, what] = (1e3 * (time.perf_counter() - t) / n_rep, float(g))
+    log(f"# K8 Background.create + its Omega_m gradient, wall ms (d/dOmega_m of the tables' "
+        f"sum): {[(d, w, round(ms, 3), f'{g:.6e}') for (d, w), (ms, g) in walls.items()]} "
+        f"(the parent loop in float32 steps; on the host CPU K8's plain version runs)")
+    return {"background_tables": {"max_abs_err": ea, "ms": t_k, "plain_ms": t_p, "bound_ms": bm,
+                                  "bound_by": "operations", "library_ms": None,
+                                  "chain_fp64_ops": depth, "fp64_fma_latency_ns": lat * 1e6,
+                                  "create_and_grad_wall_ms": {
+                                      f"{w} ({d})": ms for (d, w), (ms, _) in walls.items()}}}
 
 
 WINDOWS = [(k, o) for k in ("rectangular", KB) for o in ORDERS]
 
 
 def phase_kernels():
+    res = check_background(50)
     for kernel, order in WINDOWS:  # max_disp 5: odd NGP window bases (9 at 224^3)
         check_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order, kernel)
         check_read_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order, kernel)
@@ -792,7 +995,6 @@ def phase_kernels():
         check_hess_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order)
     if QUICK:
         return None
-    res = {}
     for kernel, order in WINDOWS:
         res |= check_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", 10, order, kernel)
         res |= check_read_kernels((224, 224, 224), (1, 1, 1), 9, "224^3", 10, order, kernel)
@@ -1102,7 +1304,7 @@ def phase_hessian_32(evolution):
         f"max|entry| {rel:.3e} (limit 1e-4); card launches {launches}")
     assert bool(torch.isfinite(hess["cuda"]).all()) and float(hess["cuda"].abs().max()) > 1e-3
     assert rel <= 1e-4, f"4f: the {evolution} Hessian disagrees between the card and the CPU"
-    missing = [k for k in ("paint_cic_grad", "read_cic_hess") if not launches.get(k)]
+    missing = [k for k in hess_names(m.paint_order) if not launches.get(k)]
     assert not missing, f"4f: {missing} never launched"
     return launches
 
@@ -1137,6 +1339,34 @@ def fixed_tables(m):
         Background.create = create
 
 
+def flagship(evolution="lpt", **updates):
+    """The flagship model with `evolution` and the config `updates`, its
+    latents at the fiducial with a random white mesh (leaves that require
+    grad), the observation drawn with `predict`, and a closure making one
+    logpdf value+grad."""
+    m = bench_model(evolution=evolution, **updates)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = m.reparam({k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True)
+    params["white_mesh_"] = torch.randn(m.init_shape, generator=gen, device="cuda")
+    obs = {"count_mesh": m.predict(seed=gen, samples=params, hide_base=False, hide_det=False,
+                                   hide_samp=False)["count_mesh"]}
+    torch.cuda.synchronize()
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+
+    def value_and_grad():
+        for v in leaves.values():
+            v.grad = None
+        lp = m.logpdf({**leaves, **obs})
+        lp.backward()
+        return lp
+
+    return m, leaves, obs, value_and_grad
+
+
+# K8's launches in each flagship's 7 timed value+grads (phase 5), by tag
+K8_LAUNCHES = {}
+
+
 def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **updates):
     """The flagship value+grad with `evolution` and the config `updates`;
     every kernel in `kernels` must launch at the model's paint order and
@@ -1147,14 +1377,8 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
     from montecosmo_tpu_torch.ops import paint as P
 
     t0 = time.perf_counter()
-    m = bench_model(evolution=evolution, **updates)
+    m, leaves, obs, value_and_grad = flagship(evolution, **updates)
     tag = tag or evolution
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    params = m.reparam({k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True)
-    params["white_mesh_"] = torch.randn(m.init_shape, generator=gen, device="cuda")
-    obs = {"count_mesh": m.predict(seed=gen, samples=params, hide_base=False, hide_det=False,
-                                   hide_samp=False)["count_mesh"]}
-    torch.cuda.synchronize()
     log(f"# bench model ({tag}): final {m.final_shape} init {m.init_shape} "
         f"evol {m.evol_shape} paint {m.paint_shape} steps "
         f"{m.nbody_n_steps if evolution == 'nbody' else 0} "
@@ -1162,15 +1386,6 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
         f"lattice {m.paint_lattice} rbins {m.n_rbins} a_obs {m.a_obs} curved_sky "
         f"{m.curved_sky} paint_order {m.paint_order} kernel_type {m.kernel_type}; set-up "
         f"{time.perf_counter() - t0:.2f} s")
-
-    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
-
-    def value_and_grad():
-        for v in leaves.values():
-            v.grad = None
-        lp = m.logpdf({**leaves, **obs})
-        lp.backward()
-        return lp
 
     P.reset_launches()
     torch.cuda.reset_peak_memory_stats()
@@ -1193,8 +1408,11 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
         f"evals/s {1 / np.median(times):.4f} (median); logpdf {values[-1]:.6e}; "
         f"peak memory {peak / 2**30:.3f} GiB; launches in 7 evals {launches}")
     assert np.all(np.isfinite(values)) and grads_ok, "non-finite logpdf or gradient"
+    k8 = P.LAUNCHES["background_tables", "background", 0]
+    K8_LAUNCHES[tag] = k8
     log(f"# ({tag}) launches per value+grad at {window} order {m.paint_order}: "
-        f"{ {k: v / 7 for k, v in launches.items()} }")
+        f"{ {k: v / 7 for k, v in launches.items()} }; K8 background_tables {k8 / 7}")
+    assert k8 >= 7, f"K8 never ran on the {tag} path ({k8} launches in 7 value+grads)"
     missing = [k for k in kernels if not launches.get(k)]
     assert not missing, f"kernels of the {tag} path never ran: {missing} ({launches})"
     captured = flagship_inputs(tag, value_and_grad, capture) if capture else None
@@ -1222,7 +1440,8 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
         # host's launches in the evaluations timed after it
         PROFILES.append(lambda: (log(f"# --- profile ({tag})"),
                                  layer_times(m, value_and_grad),
-                                 profile_eval(value_and_grad, np.mean(times))))
+                                 profile_eval(value_and_grad, np.mean(times)),
+                                 fixed_profile(m, value_and_grad, np.median(t_fixed), tag)))
     return (launches, captured) if capture else launches
 
 
@@ -1572,6 +1791,10 @@ def phase_nuts(m, state_f, per_eval):
 
     hess_f, ms_fixed, _, _ = timed_hvp("the same Hessian (3 HVP columns), RK4 tables fixed",
                                        fixed_hessian)
+    # K6's and K7's own inputs inside an HVP column of the flagship, each
+    # design held and timed on them
+    flagship_hess = flagship_inputs("2LPT HVP column", lambda: hvp_column(m.logpdf, p0, "Omega_m_"),
+                                    "hess")
     log(f"# 5f Hessian, tables fixed {hess_f.tolist()} ({ms_fixed:.3f} ms against the seed's "
         f"{ms_seed:.3f} ms): the RK4 tables' share {1 - ms_fixed / ms_seed:.3f}")
 
@@ -1604,12 +1827,7 @@ def phase_nuts(m, state_f, per_eval):
         return k5_backward(ctx, *grads)
 
     def nbody_column():
-        leaves = {k: torch.as_tensor(v).detach().clone().requires_grad_(True)
-                  for k, v in pb.items()}
-        lp = mb.logpdf({**leaves, **obs})
-        (g,) = torch.autograd.grad(lp, leaves["Omega_m_"], create_graph=True)
-        col = torch.autograd.grad(g, list(leaves.values()), allow_unused=True)
-        return [torch.zeros_like(v) if c is None else c for v, c in zip(leaves.values(), col)]
+        return hvp_column(lambda p: mb.logpdf({**p, **obs}), pb, "Omega_m_")
 
     P._ReadCICAdjoint.backward = staticmethod(counted_backward)
     try:
@@ -1623,31 +1841,91 @@ def phase_nuts(m, state_f, per_eval):
     assert all(bool(torch.isfinite(c).all()) for c in col_b)
     assert k5_double[0] > 0, "5f: K4/K5's double backward never ran on the N-body flagship"
     hvps = {"2LPT Laplace seed": l_seed, "2LPT Hutchinson": l_h, "N-body column": l_b}
+    routed_2 = dict(zip(SECOND_ORDER, hess_names(2)))
     for tag, l in hvps.items():
-        missing = [k for k in SECOND_ORDER if not l.get((k, "bspline", 2))]
+        missing = [k for k in routed_2.values() if not l.get((k, "bspline", 2))]
         assert not missing, f"5f: {missing} never launched in the {tag}"
-    launches_2 = {k: sum(l.get((k, "bspline", 2), 0) for l in hvps.values()) for k in SECOND_ORDER}
-    per_hvp = {k: {tag: l.get((k, "bspline", 2), 0) for tag, l in hvps.items()}
-               for k in SECOND_ORDER}
+    launches_2 = {k: sum(l.get((r, "bspline", 2), 0) for l in hvps.values())
+                  for k, r in routed_2.items()}
+    per_hvp = {k: {tag: l.get((r, "bspline", 2), 0) for tag, l in hvps.items()}
+               for k, r in routed_2.items()}
     extras = {k: {"launches_per_hvp": per_hvp[k],
                   "hvp_ms": {"2LPT Laplace seed (3 columns)": ms_seed,
                              "2LPT Hessian, tables fixed (3 columns)": ms_fixed,
                              "2LPT Hutchinson": ms_h, "N-body column": ms_b},
                   "hvp_peak_gib": {"2LPT Laplace seed": peak_seed, "2LPT Hutchinson": peak_h,
-                                   "N-body column": peak_b}} for k in SECOND_ORDER}
+                                   "N-body column": peak_b}} | flagship_hess[k]
+              for k in SECOND_ORDER}
     return launches_2, extras
+
+
+def hvp_column(logpdf, p, key):
+    """One Hessian-vector product column of logpdf at the latents `p`: the
+    gradient of d logpdf / d p[key] with respect to every latent, reverse
+    over reverse (a None as zeros)."""
+    leaves = {k: torch.as_tensor(v).detach().clone().requires_grad_(True) for k, v in p.items()}
+    (g,) = torch.autograd.grad(logpdf(leaves), leaves[key], create_graph=True)
+    col = torch.autograd.grad(g, list(leaves.values()), allow_unused=True)
+    return [torch.zeros_like(v) if c is None else c for v, c in zip(leaves.values(), col)]
+
+
+# ---------------------------------------------------------------- phase 5g
+def phase_tables_launches():
+    """5g: one value+grad of the 2LPT flagship profiled (torch.profiler)
+    with K8 and with the parent's loop (`parent_tables`) in its place: the
+    device kernels launched and the device-busy ms of each; then each timed
+    in turns (K8, loop, loop, K8), 3 value+grads a turn after a warm-up.
+    Returns {what: (launches, busy ms, median wall ms)}."""
+    from torch.profiler import ProfilerActivity, profile
+    from montecosmo_tpu_torch.ops.background import Background
+
+    m, _, _, value_and_grad = flagship("lpt")
+    create = Background.__dict__["create"]
+    loop = classmethod(lambda cls, cosmo, device="cpu": parent_tables(cosmo, device))
+    walls, counts = {"K8": [], "parent loop": []}, {}
+    try:
+        for what, c in (("K8", create), ("parent loop", loop), ("parent loop", loop),
+                        ("K8", create)):
+            Background.create = c
+            value_and_grad()
+            for _ in range(3):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                value_and_grad()
+                torch.cuda.synchronize()
+                walls[what].append(1e3 * (time.perf_counter() - t))
+        for what, c in (("K8", create), ("parent loop", loop)):
+            Background.create = c
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                value_and_grad()
+                torch.cuda.synchronize()
+            kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+            counts[what] = (sum(e.count for e in kernels),
+                            sum(e.self_device_time_total for e in kernels) / 1e3,
+                            float(np.median(walls[what])))
+    finally:
+        Background.create = create
+    for what, (n, busy, wall) in counts.items():
+        log(f"# 5g 2LPT flagship value+grad with {what}: {n} device kernels launched, device "
+            f"busy {busy:.3f} ms (profiled); wall ms {[round(t, 3) for t in walls[what]]} "
+            f"median {wall:.3f}")
+    assert counts["K8"][0] < counts["parent loop"][0]
+    return counts
 
 
 # the kernels whose inputs each flagship capture records: the 2LPT render's
 # paint and its backward; the N-body force read's VJP at the last step (the
-# first K5 of the backward) and that step's read (the last K4 before it)
-CAPTURES = {"paint": ("paint_cic", "paint_cic_adjoint"), "read": ("read_cic_adjoint", "read_cic")}
+# first K5 of the backward) and that step's read (the last K4 before it);
+# K6 and K7 at their first launch in a 2LPT HVP column (the render's)
+CAPTURES = {"paint": ("paint_cic", "paint_cic_adjoint"), "read": ("read_cic_adjoint", "read_cic"),
+            "hess": SECOND_ORDER}
 
 
 def flagship_inputs(tag, value_and_grad, which):
     """The flagship's own inputs of the kernels CAPTURES[which] names,
-    recorded from one more value+grad through whichever design the route
-    calls: the per-axis quantiles of |pos - site| in cells, the tiled
+    recorded from one more value+grad (or HVP column) through whichever
+    design the route calls: the per-axis quantiles of |pos - site| in cells, the tiled
     design's outlier share, and each design on them, held against the
     plain version and timed (`each_design`).  Returns each kernel's JSON
     extras."""
@@ -1661,7 +1939,8 @@ def flagship_inputs(tag, value_and_grad, which):
             first_k5 = "read_cic_adjoint" in seen
             if name in ("paint_cic", "paint_cic_adjoint") or (
                     name == "read_cic_adjoint" and not first_k5) or (
-                    name == "read_cic" and not first_k5):
+                    name == "read_cic" and not first_k5) or (
+                    name in SECOND_ORDER and name not in seen):
                 seen[name] = tuple(a.detach().clone() if torch.is_tensor(a) else a for a in args)
             return f(*args)
         return record
@@ -1725,15 +2004,25 @@ def layer_times(m, fn, reps=3):
         + ", ".join(f"{k} {1e3 * v / reps:.1f}" for k, v in acc.items()))
 
 
-def profile_eval(fn, eval_s):
-    """Device time by kernel name for one evaluation."""
+def fixed_profile(m, fn, eval_s, tag):
+    """The profile's summary for one evaluation with the background tables
+    held fixed: against the unfixed one, what the tables' gradient path
+    (K8's backward and every lookup's) launches and costs."""
+    log(f"# --- profile ({tag}), background tables held fixed")
+    with fixed_tables(m):
+        fn()
+        profile_eval(fn, eval_s, table=False)
+
+
+def profile_eval(fn, eval_s, table=True):
+    """Device time by kernel name for one evaluation (and, with `table`,
+    the profiler's table of the 40 largest)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
-    table = events.table(sort_by="cuda_time_total", row_limit=40)
     kernels = [e for e in events if e.device_type.name == "CUDA"]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     launches = sum(e.count for e in kernels)
@@ -1742,11 +2031,13 @@ def profile_eval(fn, eval_s):
         f"{launches} device kernels")
     for tag in ("paint_cic_tiled_kernel", "paint_cic_forward_kernel", "paint_cic_adjoint_kernel",
                 "read_cic_forward_kernel", "read_cic_tiled_kernel", "read_cic_adjoint_tiled_kernel",
-                "read_cic_adjoint_kernel", "nufft_epilogue", "indexing_backward", "indexFunc"):
+                "read_cic_adjoint_kernel", "nufft_epilogue", "background_tables_kernel",
+                "indexing_backward", "indexFunc"):
         ms = sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
         log(f"# profiler: kernels named *{tag}* {ms:.3f} ms = "
             f"{100 * ms / max(busy_ms, 1e-9):.2f}% of device time")
-    log(table)
+    if table:
+        log(events.table(sort_by="cuda_time_total", row_limit=40))
 
 
 # ----------------------------------------------------------------- main
@@ -1765,6 +2056,12 @@ SOURCES = {
     "read_cic_adjoint": ("cuda", CSRC + "paint_tiled.cu", CSRC + "paint_cic.cu",
                          "montecosmo_tpu/ops/paint_window.py:395"),
 }
+# K6 and K7 (the double backward): lattice-brick and per-particle sources,
+# and what each replaces
+HESS_SOURCES = {"paint_cic_grad": (CSRC + "paint_tiled.cu", CSRC + "paint_hess.cu",
+                                   "montecosmo_tpu/ops/paint_window.py:240"),
+                "read_cic_hess": (CSRC + "read_tiled.cu", CSRC + "paint_hess.cu",
+                                  "montecosmo_tpu/ops/paint_window.py:330")}
 # at orders 1, 3 and 4 K1 and K2 replace the deleted Pallas window kernels
 # (git show d9c3c2e^:montecosmo_tpu/ops/paint_window_pallas.py)
 WINDOW_PALLAS = {"paint_cic": "d9c3c2e^:montecosmo_tpu/ops/paint_window_pallas.py:52",
@@ -1787,6 +2084,12 @@ def path_name(name, order):
 
     geom = P.cic_geometry((8, 8, 8), 2, (8, 8, 8), 2, True, order)
     return name + "_tiled" if P._tiled(name, geom) else name
+
+
+def hess_names(order):
+    """The launch names of K6 and K7 (the double backward) at B-spline
+    `order` on a clamped geometry, in the design the route takes."""
+    return tuple(path_name(n, order) for n in SECOND_ORDER)
 
 
 def path_kernels(order, nbody=False):
@@ -1852,6 +2155,8 @@ def main():
     hvp_launches, hvp_extras = phase_nuts(m, state_f, per_eval)
     del m, state_f
     done("5f")
+    tables = phase_tables_launches()
+    done("5g")
     for run in PROFILES:
         run()
     kernels = []
@@ -1874,12 +2179,19 @@ def main():
                 kernels[-1] |= flagship[order][n]
     for order in ORDERS:
         sfx = _suffix(order, "rectangular")
-        for n, rep in (("paint_cic_grad", "montecosmo_tpu/ops/paint_window.py:240"),
-                       ("read_cic_hess", "montecosmo_tpu/ops/paint_window.py:330")):
-            kernels.append({"name": n + sfx, "route": "cuda", "source": CSRC + "paint_hess.cu",
+        for n, (tiled, other, rep) in HESS_SOURCES.items():
+            src = tiled if res[n + sfx]["design"] == "tiled" else other
+            kernels.append({"name": n + sfx, "route": "cuda", "source": src, "tiled_source": tiled,
                             "replaces": rep, "window": "bspline", "order": order,
                             "launches": hvp_launches[n] if order == 2 else 0,
                             **res[n + sfx], **(hvp_extras[n] if order == 2 else {})})
+    kernels.append({"name": "background_tables", "route": "cuda",
+                    "source": CSRC + "background_rk4.cu",
+                    "replaces": "montecosmo_tpu/ops/background.py:115",
+                    "launches": K8_LAUNCHES["lpt"], **res["background_tables"],
+                    "launches_per_2lpt_value_and_grad": {
+                        w: n for w, (n, _, _) in tables.items()},
+                    "2lpt_value_and_grad_ms": {w: t for w, (_, _, t) in tables.items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,6 @@
 // The lattice-brick decomposition shared by the tiled kernels (paint_tiled.cu:
-// K1 and K5, which sum a brick's corner products in a shared-memory tile;
-// read_tiled.cu: K4, which gathers them from a staged tile): the plan of a
+// K1, K5 and K6, which sum a brick's corner products in a shared-memory
+// tile; read_tiled.cu: K4 and K7, which gather them from a staged tile): the plan of a
 // launch, a CTA's brick of lattice sites and its tile of the mesh, each
 // particle's position, stencil and whether it falls in the tile, the box
 // of tile cells the brick's particles reach, the outlier count, and the
@@ -112,6 +112,18 @@ __device__ __forceinline__ void stencil(Stencil<W>& st, const Particle& a, const
   st.inside = in_tile(st.w[0], k.o[0], t.T[0], st.t0[0]) &
               in_tile(st.w[1], k.o[1], t.T[1], st.t0[1]) &
               in_tile(st.w[2], k.o[2], t.T[2], st.t0[2]);
+}
+
+// Zeroes the window derivatives of every order along the axes where the
+// clamp is active (K2's rule), as the double-backward kernels (K6, K7)
+// take them.
+template <class W>
+__device__ __forceinline__ void clamp_derivatives(Stencil<W>& st) {
+#pragma unroll
+  for (int a = 0; a < 3; ++a)
+#pragma unroll
+    for (int k = 0; k < W::P; ++k)
+      if (!st.pass[a]) st.w[a].d[k] = st.w[a].d2[k] = 0.f;
 }
 
 // The box of tile cells that the CTA's in-tile particles reached, in tile

@@ -28,17 +28,26 @@
 //
 // What bounds them on an H100: at the 224^3 render (11.24M particles, two
 // shifts, CIC, C = 1) K6 moves 315 MB of positions and per-particle vectors
-// and 90 MB of meshes, >= 0.12 ms at 3.35 TB/s, but makes P^3 S C float
-// atomics a particle (180M at CIC) as K1's atomic design does, so it is
-// bound by the L2 atomic rate; K7 reads 270 MB of positions and b, 90 MB of
-// meshes and writes 270 MB of g and h (>= 0.19 ms), as local a gather as
-// K2's.  Design: one thread per particle in lattice order (a warp's corners
-// share L2 lines), the P per-axis weights, derivatives and second
+// and 90 MB of meshes, >= 0.12 ms at 3.35 TB/s, but this design makes
+// P^3 S C float atomics a particle (180M at CIC) as K1's atomic design
+// does, so it is bound by the L2 atomic rate; K7 reads 270 MB of positions
+// and b, 90 MB of meshes and writes 270 MB of g and h (>= 0.19 ms), as
+// local a gather as K2's, and its least arithmetic (three z-sums a corner
+// and channel) bounds it at PCS.
+//
+// The designs here are one thread per particle in lattice order (a warp's
+// corners share L2 lines), the P per-axis weights, derivatives and second
 // derivatives computed once per particle and shift, the clamped axes'
-// derivatives zeroed there, then the P^3 corners unrolled around the
-// channel loop; K6 adds each corner to device memory with atomics, K7 keeps
-// its 6 C sums in registers and writes them once.  A fast design (the
-// lattice-brick tiles of paint_tiled.cu) is later work.
+// derivatives zeroed there.  K6 (atomic) adds each corner's value to
+// device memory; K7 (gather) reads the corners from device memory and
+// keeps its 6 C sums in registers, factored per (i, j) (hess_corners,
+// paint_window.cuh: three FMAs a corner and channel, not the nine
+// products of H_W b), and writes them once (more than one channel staged
+// through shared memory so that a block's stores are contiguous,
+// `store_staged`).  The lattice-brick designs,
+// the route's from the order ops/paint.py::TILED_FROM names, sum K6's
+// corners in a fixed-point shared-memory tile (paint_tiled.cu) and stage
+// K7's boxes of the meshes in shared memory (read_tiled.cu).
 //
 // Plain C interface, loaded with ctypes; each entry point returns
 // cudaGetLastError() of its launch (cudaErrorInvalidValue for an order
@@ -112,63 +121,58 @@ __global__ void paint_cic_grad_kernel(const float* __restrict__ pos,
   }
 }
 
-template <class W>
-__global__ void read_cic_hess_kernel(const float* __restrict__ pos,
-                                     const float* __restrict__ mesh,
-                                     const float* __restrict__ b, int64_t n_p, int C, Geom g,
-                                     float* __restrict__ gout, float* __restrict__ hout) {
-  const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n_p) return;
-  constexpr int P = W::P;
-  const Site q = site<P>(p, g);
-  const int64_t N = (int64_t)g.X * g.Y * g.Z;
-  const float b0 = b[3 * p], b1 = b[3 * p + 1], b2 = b[3 * p + 2];
-  float gs[kMaxC][3] = {}, hs[kMaxC][3] = {};
-  for (int s = 0; s < g.n_shift; ++s) {
-    Win<P> wx, wy, wz;
-    windows<W>(pos, p, q, g, (float)s / (float)g.n_shift, wx, wy, wz);
-    const float* m = mesh + (int64_t)s * N * C;
+constexpr int kThreads = 256;
+
+// Writes each thread's n floats v (the block's particles' outputs, n a
+// particle) to out, staged in shared memory so that the block's stores are
+// contiguous: a thread's own n floats lie n apart from its neighbour's, so
+// direct stores touch a sector a float (at C = 3, 9 floats a thread, they
+// made K7 3.0-4.4x slower at CIC and NGP: chip_smoke.py 3c, PERF.md).
+// Every thread of the block calls it.
+template <int n>
+__device__ __forceinline__ void store_staged(float* stage, const float (&v)[n], int64_t first,
+                                             int64_t n_p, float* __restrict__ out) {
 #pragma unroll
-    for (int i = 0; i < P; ++i)
-#pragma unroll
-      for (int j = 0; j < P; ++j) {
-        const int64_t row = ((int64_t)wx.i[i] * g.Y + wy.i[j]) * g.Z;
-        const float wxy = wx.w[i] * wy.w[j], dxy = wx.d[i] * wy.w[j], xdy = wx.w[i] * wy.d[j],
-                    hxy = wx.d2[i] * wy.w[j], xhy = wx.w[i] * wy.d2[j], dd = wx.d[i] * wy.d[j];
-#pragma unroll
-        for (int k = 0; k < P; ++k) {
-          const float wk = wz.w[k], dk = wz.d[k];
-          // grad W and H_W b at this corner
-          const float gx = dxy * wk, gy = xdy * wk, gz = wxy * dk;
-          const float hx = hxy * wk * b0 + dd * wk * b1 + dxy * dk * b2;
-          const float hy = dd * wk * b0 + xhy * wk * b1 + xdy * dk * b2;
-          const float hz = dxy * dk * b0 + xdy * dk * b1 + wxy * wz.d2[k] * b2;
-          const float* cell = m + (row + wz.i[k]) * C;
-#pragma unroll
-          for (int ch = 0; ch < kMaxC; ++ch)
-            if (ch < C) {
-              const float v = __ldg(cell + ch);
-              gs[ch][0] += v * gx;
-              gs[ch][1] += v * gy;
-              gs[ch][2] += v * gz;
-              hs[ch][0] += v * hx;
-              hs[ch][1] += v * hy;
-              hs[ch][2] += v * hz;
-            }
-        }
-      }
-  }
-#pragma unroll
-  for (int ch = 0; ch < kMaxC; ++ch)
-    if (ch < C)
-#pragma unroll
-      for (int a = 0; a < 3; ++a) {
-        gout[(p * C + ch) * 3 + a] = gs[ch][a];
-        hout[(p * C + ch) * 3 + a] = hs[ch][a];
-      }
+  for (int k = 0; k < n; ++k) stage[threadIdx.x * n + k] = v[k];
+  __syncthreads();
+  const int count = (int)min((int64_t)blockDim.x, n_p - first) * n;
+  for (int i = threadIdx.x; i < count; i += blockDim.x) out[first * n + i] = stage[i];
+  __syncthreads();
 }
 
-constexpr int kThreads = 256;
+template <class W, int C>
+__global__ void __launch_bounds__(kThreads)
+    read_cic_hess_kernel(const float* __restrict__ pos, const float* __restrict__ mesh,
+                         const float* __restrict__ b, int64_t n_p, Geom g,
+                         float* __restrict__ gout, float* __restrict__ hout) {
+  __shared__ float stage[kThreads * 3 * C];
+  const int64_t first = (int64_t)blockIdx.x * blockDim.x, p = first + threadIdx.x;
+  constexpr int P = W::P;
+  float gs[C][3] = {}, hs[C][3] = {};
+  if (p < n_p) {
+    const Site q = site<P>(p, g);
+    const int64_t N = (int64_t)g.X * g.Y * g.Z;
+    const float bv[3] = {b[3 * p], b[3 * p + 1], b[3 * p + 2]};
+    for (int s = 0; s < g.n_shift; ++s) {
+      Win<P> wx, wy, wz;
+      windows<W>(pos, p, q, g, (float)s / (float)g.n_shift, wx, wy, wz);
+      const MeshCells<C, P> cells{mesh + (int64_t)s * N * C, g, wx, wy, wz};
+      hess_corners<C>(cells, wx, wy, wz, bv, gs, hs);
+    }
+  }
+  if constexpr (C == 1) {  // 3 floats a thread, 12 bytes apart: near contiguous
+    if (p < n_p)
+#pragma unroll
+      for (int a = 0; a < 3; ++a) {
+        gout[3 * p + a] = gs[0][a];
+        hout[3 * p + a] = hs[0][a];
+      }
+  } else {
+    store_staged(stage, reinterpret_cast<const float(&)[3 * C]>(gs), first, n_p, gout);
+    store_staged(stage, reinterpret_cast<const float(&)[3 * C]>(hs), first, n_p, hout);
+  }
+}
+
 
 unsigned blocks_for(long long n_p) { return (unsigned)((n_p + kThreads - 1) / kThreads); }
 
@@ -184,12 +188,34 @@ extern "C" int paint_cic_grad(const float* pos, const float* alpha, const float*
   return (int)cudaGetLastError();
 }
 
+template <class W>
+int read_hess(int C, const Geom& g, long long n_p, void* stream, const float* pos,
+              const float* mesh, const float* b, float* gout, float* hout) {
+  const unsigned nb = blocks_for(n_p);
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (C) {
+    case 1:
+      read_cic_hess_kernel<W, 1><<<nb, kThreads, 0, st>>>(pos, mesh, b, n_p, g, gout, hout);
+      break;
+    case 2:
+      read_cic_hess_kernel<W, 2><<<nb, kThreads, 0, st>>>(pos, mesh, b, n_p, g, gout, hout);
+      break;
+    case 3:
+      read_cic_hess_kernel<W, 3><<<nb, kThreads, 0, st>>>(pos, mesh, b, n_p, g, gout, hout);
+      break;
+    case 4:
+      read_cic_hess_kernel<W, 4><<<nb, kThreads, 0, st>>>(pos, mesh, b, n_p, g, gout, hout);
+      break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
 extern "C" int read_cic_hess(const float* pos, const float* mesh, const float* b, long long n_p,
                              int C, GEOM_PARAMS, float* gout, float* hout, void* stream) {
   if (C < 1 || C > kMaxC || kb) return (int)cudaErrorInvalidValue;
   const Geom g = make_geom(GEOM_ARGS);
-  DISPATCH_WINDOW(order, 0, read_cic_hess_kernel<W><<<blocks_for(n_p), kThreads, 0,
-                                                 (cudaStream_t)stream>>>(pos, mesh, b, n_p, C, g,
-                                                                         gout, hout));
-  return (int)cudaGetLastError();
+  int code = (int)cudaSuccess;
+  DISPATCH_BSPLINE(order, code = read_hess<W>(C, g, n_p, stream, pos, mesh, b, gout, hout));
+  return code;
 }

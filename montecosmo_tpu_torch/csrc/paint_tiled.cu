@@ -333,6 +333,109 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
   count_outliers(mine, n_glob, n_out);
 }
 
+// K6's corner values for one particle and shift, alpha W + beta . grad W
+// per channel, factored per (i, j) as A_ij w_k + B_ij d_k with A_ij =
+// alpha w_i w_j + beta_x d_i w_j + beta_y w_i d_j and B_ij = beta_z w_i w_j;
+// add(i, j, k, ch, value) takes each.
+template <int C, int P, class Add>
+__device__ __forceinline__ void grad_corners(const Win<P>& wx, const Win<P>& wy,
+                                             const Win<P>& wz, const float (&al)[C],
+                                             const float (&be)[C][3], Add&& add) {
+#pragma unroll
+  for (int a = 0; a < P; ++a)
+#pragma unroll
+    for (int b = 0; b < P; ++b) {
+      const float wxy = wx.w[a] * wy.w[b], dxy = wx.d[a] * wy.w[b], xdy = wx.w[a] * wy.d[b];
+      float A[C], B[C];
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        A[ch] = al[ch] * wxy + be[ch][0] * dxy + be[ch][1] * xdy;
+        B[ch] = be[ch][2] * wxy;
+      }
+#pragma unroll
+      for (int c = 0; c < P; ++c)
+#pragma unroll
+        for (int ch = 0; ch < C; ++ch) add(a, b, c, ch, A[ch] * wz.w[c] + B[ch] * wz.d[c]);
+    }
+}
+
+// K6: out (S meshes, zeroed by the caller) gets, shift by shift, the
+// C-channel paint of alpha W + beta . grad W (alpha may be absent) through
+// the tile, the derivatives of clamped axes zeroed.  The fixed-point scale
+// comes from the brick's largest |alpha| + |beta_x| + |beta_y| + |beta_z|,
+// which bounds every corner value (the B-spline weights and their
+// derivatives are at most 1 in magnitude).
+template <class W, int C>
+__global__ void __launch_bounds__(kTileThreads, kTileCTAs)
+    paint_cic_grad_tiled_kernel(const float* __restrict__ pos, const float* __restrict__ alpha,
+                                const float* __restrict__ beta, Geom g, Tiles t,
+                                float* __restrict__ out, unsigned long long* n_out) {
+  extern __shared__ float4 smem[];
+  Fixed* tile = reinterpret_cast<Fixed*>(smem);
+  __shared__ unsigned n_glob, vmax;
+  __shared__ Box box;
+  constexpr int P = W::P;
+  const Brick k = brick_of<P>(blockIdx.x, g, t);
+  const int n_site = k.n[0] * k.n[1] * k.n[2];
+  const int64_t NC = (int64_t)g.X * g.Y * g.Z * C;
+  if (threadIdx.x == 0) n_glob = vmax = 0;
+  zero_tile(tile, t.T[0] * t.T[1] * t.T[2] * C);  // each fold leaves it zeroed
+  unsigned mine = 0;
+  for (int i = threadIdx.x; i < n_site; i += blockDim.x) {
+    int l[3];
+    const int64_t p = brick_site(k, i, g, l);
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) {
+      const float* be = beta + (p * C + ch) * 3;
+      const float m = (alpha ? fabsf(alpha[p * C + ch]) : 0.f) + fabsf(be[0]) + fabsf(be[1]) +
+                      fabsf(be[2]);
+      mine = max(mine, abs_bits(m));
+    }
+  }
+  __syncthreads();
+  reduce_max(mine, vmax);
+  mine = 0;
+  for (int s = 0; s < g.n_shift; ++s) {
+    if (threadIdx.x == 0) open_box(box);
+    __syncthreads();
+    const Scale sc = scale_of(vmax, n_site);
+    const float sh = (float)s / (float)g.n_shift;
+    float* o = out + s * NC;
+    Box reached;
+    open_box(reached);
+    for (int i = threadIdx.x; i < n_site; i += blockDim.x) {
+      Stencil<W> st;
+      stencil(st, particle<P>(pos, k, g, i), k, t, g, sh);
+      clamp_derivatives(st);
+      float al[C], be[C][3];
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        al[ch] = alpha ? alpha[st.p * C + ch] : 0.f;
+#pragma unroll
+        for (int a = 0; a < 3; ++a) be[ch][a] = beta[(st.p * C + ch) * 3 + a];
+      }
+      const Win<P>&wx = st.w[0], &wy = st.w[1], &wz = st.w[2];
+      if (sc.ok & st.inside) {
+        Fixed* first = tile + ((st.t0[0] * t.T[1] + st.t0[1]) * t.T[2] + st.t0[2]) * C;
+        grad_corners<C>(wx, wy, wz, al, be, [&](int a, int b, int c, int ch, float v) {
+          add_fixed(first + ((a * t.T[1] + b) * t.T[2] + c) * C + ch, v * sc.to_fixed);
+        });
+        widen<P>(reached, st.t0);
+      } else {
+        grad_corners<C>(wx, wy, wz, al, be, [&](int a, int b, int c, int ch, float v) {
+          atomicAdd(o + (((int64_t)wx.i[a] * g.Y + wy.i[b]) * g.Z + wz.i[c]) * C + ch, v);
+        });
+        mine += P * P * P;
+      }
+    }
+    reach(reached, box);
+    __syncthreads();
+    fold<C>(tile, box, k, t, g, sc.to_float, o);
+    __syncthreads();
+  }
+  count_outliers(mine, n_glob, n_out);
+}
+
 }  // namespace
 
 extern "C" int paint_cic_tiled_forward(const float* pos, const float* w, GEOM_PARAMS,
@@ -375,5 +478,36 @@ extern "C" int read_cic_adjoint_tiled(const float* pos, const float* mesh, const
   int code = (int)cudaSuccess;
   DISPATCH_WINDOW(order, kb, code = read_adjoint_tiled<W>(C, g, t, smem, stream, pos, mesh, ct,
                                                           dmesh, dpos, n_out));
+  return code;
+}
+
+template <class W>
+int paint_grad_tiled(int C, const Geom& g, const Tiles& t, int smem, void* stream,
+                     const float* pos, const float* alpha, const float* beta, float* out,
+                     unsigned long long* n_out) {
+  switch (C) {
+    case 1: return launch_tiled(paint_cic_grad_tiled_kernel<W, 1>, g, t, smem, stream, pos,
+                                alpha, beta, g, t, out, n_out);
+    case 2: return launch_tiled(paint_cic_grad_tiled_kernel<W, 2>, g, t, smem, stream, pos,
+                                alpha, beta, g, t, out, n_out);
+    case 3: return launch_tiled(paint_cic_grad_tiled_kernel<W, 3>, g, t, smem, stream, pos,
+                                alpha, beta, g, t, out, n_out);
+    case 4: return launch_tiled(paint_cic_grad_tiled_kernel<W, 4>, g, t, smem, stream, pos,
+                                alpha, beta, g, t, out, n_out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K6's lattice-brick design (B-spline windows: K6 takes no other).
+extern "C" int paint_cic_grad_tiled(const float* pos, const float* alpha, const float* beta_p,
+                                    int C, GEOM_PARAMS, TILE_PARAMS, float* out,
+                                    unsigned long long* n_out, void* stream) {
+  const Geom g = make_geom(GEOM_ARGS);
+  const Tiles t{{bx, by, bz}, R, {Tx, Ty, Tz}};
+  if (kb || !plan_ok(g, t, C, smem, 8)) return (int)cudaErrorInvalidValue;
+  const long long n_p = (long long)Lx * Ly * Lz;
+  int code = (int)cudaSuccess;
+  DISPATCH_BSPLINE(order, code = paint_grad_tiled<W>(C, g, t, smem, stream, pos, alpha, beta_p,
+                                                    out, n_out));
   return code;
 }

@@ -1,8 +1,9 @@
 // The particle windows shared by the atomic kernels (paint_cic.cu: K1, K2,
-// K4, K5), the lattice-brick kernels (paint_tiled.cu: tiled K1 and K5) and
-// the double-backward kernels (paint_hess.cu: K6, K7):
-// the geometry, the clamp to the lattice sites, and the window of each
-// particle on each axis.  Every kernel is a template on its window W: the
+// K4, K5), the lattice-brick kernels (paint_tiled.cu: tiled K1, K5 and K6;
+// read_tiled.cu: tiled K4 and K7) and the per-particle double-backward
+// kernels (paint_hess.cu: K6, K7): the geometry, the clamp to the lattice
+// sites, the window of each particle on each axis, the mesh gather of a
+// corner and K7's factored corner sums.  Every kernel is a template on its window W: the
 // B-spline BSpline<P> of order P = 1 (NGP), 2 (CIC), 3 (TSC) or 4 (PCS), or
 // the Kaiser-Bessel window KaiserBessel<P> of support P = 1-4.
 //
@@ -204,6 +205,61 @@ __device__ __forceinline__ Site site(int64_t p, const Geom& g) {
 
 constexpr int kMaxC = 4;  // channels of one K4/K5 launch (the force read has 3)
 
+// A particle's corner cells read from the (X, Y, Z, C) mesh at the
+// window's wrapped cells: cell(i, j, k, ch).
+template <int C, int P>
+struct MeshCells {
+  const float* mesh;
+  const Geom& g;
+  const Win<P>&wx, &wy, &wz;
+  __device__ __forceinline__ float operator()(int a, int b, int c, int ch) const {
+    return __ldg(mesh + (((int64_t)wx.i[a] * g.Y + wy.i[b]) * g.Z + wz.i[c]) * C + ch);
+  }
+};
+
+// K7's sums for one particle and shift: g[ch] += sum_c M[c, ch] grad W and
+// h[ch] += sum_c M[c, ch] H_W b over the P^3 corners c = (i, j, k), with
+// the derivatives of a clamped axis already zeroed in the windows.  Both
+// are factored per (i, j): three z-sums of M against w_k, d_k and d2_k (a
+// corner costs three FMAs a channel), then
+//   grad W: (d_i w_j S_w, w_i d_j S_w, w_i w_j S_d),
+//   H_W b:  ((d2_i w_j b0 + d_i d_j b1) S_w + d_i w_j b2 S_d,
+//            (d_i d_j b0 + w_i d2_j b1) S_w + w_i d_j b2 S_d,
+//            (d_i w_j b0 + w_i d_j b1) S_d + w_i w_j b2 S_h).
+template <int C, int P, class Cells>
+__device__ __forceinline__ void hess_corners(const Cells& cell, const Win<P>& wx,
+                                             const Win<P>& wy, const Win<P>& wz,
+                                             const float (&b)[3], float (&gs)[C][3],
+                                             float (&hs)[C][3]) {
+#pragma unroll
+  for (int i = 0; i < P; ++i)
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      const float wxy = wx.w[i] * wy.w[j], dxy = wx.d[i] * wy.w[j], xdy = wx.w[i] * wy.d[j];
+      const float dd = wx.d[i] * wy.d[j];
+      const float hxw = wx.d2[i] * wy.w[j] * b[0] + dd * b[1], hxd = dxy * b[2];
+      const float hyw = dd * b[0] + wx.w[i] * wy.d2[j] * b[1], hyd = xdy * b[2];
+      const float hzd = dxy * b[0] + xdy * b[1], hzh = wxy * b[2];
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        float sw = 0.f, sd = 0.f, sh = 0.f;
+#pragma unroll
+        for (int k = 0; k < P; ++k) {
+          const float v = cell(i, j, k, ch);
+          sw += v * wz.w[k];
+          sd += v * wz.d[k];
+          sh += v * wz.d2[k];
+        }
+        gs[ch][0] += dxy * sw;
+        gs[ch][1] += xdy * sw;
+        gs[ch][2] += wxy * sd;
+        hs[ch][0] += hxw * sw + hxd * sd;
+        hs[ch][1] += hyw * sw + hyd * sd;
+        hs[ch][2] += hzd * sd + hzh * sh;
+      }
+    }
+}
+
 Geom make_geom(int X, int Y, int Z, int Lx, int Ly, int Lz, float sx, float sy, float sz,
                float Hx, float Hy, float Hz, int clamp, int n_shift, int Bx, int By, int Bz,
                int Mx, int My, int Mz, float beta, float inv_norm) {
@@ -233,4 +289,14 @@ Geom make_geom(int X, int Y, int Z, int Lx, int Ly, int Lz, float sx, float sy, 
     case 8: { using W = BSpline<4>; if (n_p > 0) __VA_ARGS__; } break;              \
     case 9: { using W = KaiserBessel<4>; if (n_p > 0) __VA_ARGS__; } break;         \
     default: return (int)cudaErrorInvalidValue;                                      \
+  }
+// The same for the B-spline windows alone (the double-backward kernels
+// take no other).
+#define DISPATCH_BSPLINE(order, ...)                                  \
+  switch (order) {                                                    \
+    case 1: { using W = BSpline<1>; if (n_p > 0) __VA_ARGS__; } break; \
+    case 2: { using W = BSpline<2>; if (n_p > 0) __VA_ARGS__; } break; \
+    case 3: { using W = BSpline<3>; if (n_p > 0) __VA_ARGS__; } break; \
+    case 4: { using W = BSpline<4>; if (n_p > 0) __VA_ARGS__; } break; \
+    default: return (int)cudaErrorInvalidValue;                       \
   }

@@ -63,10 +63,11 @@ __device__ __forceinline__ int window_lo(float x, float b) {
   return (int)c0 - (P - 1) / 2;
 }
 
-// Widens `reached` by particle a's window when it falls wholly in the tile.
+// Widens `reached` by particle a's window at interlace shift sh when it
+// falls wholly in the tile.
 template <int P>
 __device__ __forceinline__ void reach_particle(Box& reached, const Particle& a, const Brick& k,
-                                               const Tiles& t, const Geom& g) {
+                                               const Tiles& t, const Geom& g, float sh = 0.f) {
   const float qs[3] = {a.q.qx, a.q.qy, a.q.qz}, hs[3] = {g.Hx, g.Hy, g.Hz};
   const float bs[3] = {a.q.bx, a.q.by, a.q.bz};
   int t0[3];
@@ -74,7 +75,7 @@ __device__ __forceinline__ void reach_particle(Box& reached, const Particle& a, 
 #pragma unroll
   for (int ax = 0; ax < 3; ++ax) {
     float x;
-    place(a.v[ax], qs[ax], hs[ax], g.clamp, x);
+    place(a.v[ax] + sh, qs[ax], hs[ax], g.clamp, x);
     t0[ax] = window_lo<P>(x, bs[ax]) - k.o[ax];
     inside &= t0[ax] >= 0 && t0[ax] + P <= t.T[ax];
   }
@@ -175,6 +176,8 @@ __device__ __forceinline__ void stage(float* tile, const Staged& s, const Brick&
   copies_done();
 }
 
+constexpr int kMaxShift = 4;  // interlace shifts of one tiled K7 launch
+
 // Whether the window starting at tile cell t0 lies in the staged box, and
 // its first cell's offset in the tile.
 template <int P>
@@ -186,25 +189,15 @@ __device__ __forceinline__ bool in_staged(const Staged& s, const int (&t0)[3], i
   return in;
 }
 
-// A particle's corner cells: from the staged box (`at` its first cell,
-// channel-last, C values a cell)...
+// A particle's corner cells from the staged box (`at` its first cell,
+// channel-last, C values a cell), or from the mesh (MeshCells,
+// paint_window.cuh).
 template <int C>
 struct TileCells {
   const float* at;
   int dy, dx;  // floats from a cell to its neighbour in y, in x
   __device__ __forceinline__ float operator()(int a, int b, int c, int ch) const {
     return at[a * dx + b * dy + c * C + ch];
-  }
-};
-
-// ...or from the (X, Y, Z, C) mesh at the window's wrapped cells.
-template <int C, int P>
-struct MeshCells {
-  const float* mesh;
-  const Geom& g;
-  const Win<P>&wx, &wy, &wz;
-  __device__ __forceinline__ float operator()(int a, int b, int c, int ch) const {
-    return __ldg(mesh + (((int64_t)wx.i[a] * g.Y + wy.i[b]) * g.Z + wz.i[c]) * C + ch);
   }
 };
 
@@ -283,6 +276,77 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
   count_outliers(mine, n_glob, n_out);
 }
 
+// K7: g and h of paint_hess.cu over the S interlace shifts, each shift's
+// mesh M_s staged in its own region of the tile (`room` floats, a multiple
+// of 4 so that every region is 16-byte aligned: the tile is planned for
+// S C channels), all staged before one barrier, then each particle's
+// corners summed shift by shift from the staged boxes (or from M_s for a
+// window that leaves its box) with the factored sums of hess_corners.
+// Two CTAs an SM, so 128 registers a thread: at K4's four (64 registers)
+// its 6 C sums and three windows spill to local memory (ptxas -v).
+template <class W, int C>
+__global__ void __launch_bounds__(kTileThreads, 2)
+    read_cic_hess_tiled_kernel(const float* __restrict__ pos, const float* __restrict__ mesh,
+                               const float* __restrict__ b, Geom g, Tiles t, int room,
+                               float* __restrict__ gout, float* __restrict__ hout,
+                               unsigned long long* n_out) {
+  extern __shared__ float4 smem[];
+  float* tile = reinterpret_cast<float*>(smem);
+  __shared__ unsigned n_glob;
+  __shared__ Box box[kMaxShift];
+  constexpr int P = W::P;
+  const Brick k = brick_of<P>(blockIdx.x, g, t);
+  const int n_site = k.n[0] * k.n[1] * k.n[2];
+  const int64_t NC = (int64_t)g.X * g.Y * g.Z * C;
+  if (threadIdx.x == 0) {
+    n_glob = 0;
+    for (int s = 0; s < g.n_shift; ++s) open_box(box[s]);
+  }
+  __syncthreads();
+  for (int s = 0; s < g.n_shift; ++s) {
+    Box reached;
+    open_box(reached);
+    const float sh = (float)s / (float)g.n_shift;
+    for (int i = threadIdx.x; i < n_site; i += blockDim.x)
+      reach_particle<P>(reached, particle<P>(pos, k, g, i), k, t, g, sh);
+    reach(reached, box[s]);
+  }
+  __syncthreads();
+  for (int s = 0; s < g.n_shift; ++s)
+    stage<C>(tile + s * room, staged_of<C>(box[s], k, g, mesh + s * NC, room), k, g,
+             mesh + s * NC);
+  __syncthreads();
+  unsigned mine = 0;
+  for (int i = threadIdx.x; i < n_site; i += blockDim.x) {
+    const Particle a = particle<P>(pos, k, g, i);
+    const float bv[3] = {b[3 * a.p], b[3 * a.p + 1], b[3 * a.p + 2]};
+    float gs[C][3] = {}, hs[C][3] = {};
+    for (int s = 0; s < g.n_shift; ++s) {
+      Stencil<W> st;
+      stencil(st, a, k, t, g, (float)s / (float)g.n_shift);
+      clamp_derivatives(st);
+      const Staged ss = staged_of<C>(box[s], k, g, mesh + s * NC, room);
+      int off;
+      if (st.inside && in_staged<P>(ss, st.t0, C, off)) {
+        const TileCells<C> cells{tile + s * room + off, ss.pitch, ss.n[1] * ss.pitch};
+        hess_corners<C>(cells, st.w[0], st.w[1], st.w[2], bv, gs, hs);
+      } else {
+        const MeshCells<C, P> cells{mesh + s * NC, g, st.w[0], st.w[1], st.w[2]};
+        hess_corners<C>(cells, st.w[0], st.w[1], st.w[2], bv, gs, hs);
+        mine += P * P * P;
+      }
+    }
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch)
+#pragma unroll
+      for (int ax = 0; ax < 3; ++ax) {
+        gout[(a.p * C + ch) * 3 + ax] = gs[ch][ax];
+        hout[(a.p * C + ch) * 3 + ax] = hs[ch][ax];
+      }
+  }
+  count_outliers(mine, n_glob, n_out);
+}
+
 template <class W>
 int read_tiled(int C, const Geom& g, const Tiles& t, int smem, void* stream, const float* pos,
                const float* mesh, float* out, unsigned long long* n_out) {
@@ -309,5 +373,42 @@ extern "C" int read_cic_tiled(const float* pos, const float* mesh, int C, GEOM_P
   const long long n_p = (long long)Lx * Ly * Lz;
   int code = (int)cudaSuccess;
   DISPATCH_WINDOW(order, kb, code = read_tiled<W>(C, g, t, smem, stream, pos, mesh, out, n_out));
+  return code;
+}
+
+template <class W>
+int read_hess_tiled(int C, const Geom& g, const Tiles& t, int room, int smem, void* stream,
+                    const float* pos, const float* mesh, const float* b, float* gout,
+                    float* hout, unsigned long long* n_out) {
+  switch (C) {
+    case 1: return launch_tiled(read_cic_hess_tiled_kernel<W, 1>, g, t, smem, stream, pos, mesh,
+                                b, g, t, room, gout, hout, n_out);
+    case 2: return launch_tiled(read_cic_hess_tiled_kernel<W, 2>, g, t, smem, stream, pos, mesh,
+                                b, g, t, room, gout, hout, n_out);
+    case 3: return launch_tiled(read_cic_hess_tiled_kernel<W, 3>, g, t, smem, stream, pos, mesh,
+                                b, g, t, room, gout, hout, n_out);
+    case 4: return launch_tiled(read_cic_hess_tiled_kernel<W, 4>, g, t, smem, stream, pos, mesh,
+                                b, g, t, room, gout, hout, n_out);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// K7's lattice-brick design (B-spline windows: K7 takes no other); the plan
+// is a read tile of n_shift C channels, each shift's region rounded up to
+// a multiple of 4 floats.
+extern "C" int read_cic_hess_tiled(const float* pos, const float* mesh, const float* b, int C,
+                                   GEOM_PARAMS, TILE_PARAMS, float* gout, float* hout,
+                                   unsigned long long* n_out, void* stream) {
+  const Geom g = make_geom(GEOM_ARGS);
+  const Tiles t{{bx, by, bz}, R, {Tx, Ty, Tz}};
+  const int room = (C * Tx * Ty * Tz + 3) & ~3;
+  const int need = 4 * n_shift * room;
+  if (kb || n_shift < 1 || n_shift > kMaxShift || need > smem + 16 * n_shift ||
+      !plan_ok(g, t, C, need, 4 * n_shift))
+    return (int)cudaErrorInvalidValue;
+  const long long n_p = (long long)Lx * Ly * Lz;
+  int code = (int)cudaSuccess;
+  DISPATCH_BSPLINE(order, code = read_hess_tiled<W>(C, g, t, room, need, stream, pos, mesh, b,
+                                                   gout, hout, n_out));
   return code;
 }

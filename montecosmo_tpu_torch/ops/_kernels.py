@@ -13,6 +13,7 @@ import os
 import shutil
 import subprocess
 import time
+from collections import Counter
 from pathlib import Path
 
 PKG = Path(__file__).resolve().parents[1]
@@ -22,9 +23,13 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 BUILD_INFO = {"seconds": None, "log": ""}
+# kernel launches per (kernel, window, order): each wrapper adds one where it
+# launches (ops/paint.py, ops/background.py)
+LAUNCHES = Counter()
 _LIB = None
 
 _P, _I, _F, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+_D = ctypes.c_double
 # mesh, lattice, stride, clamp bound, clamp, n_shift, order, NGP tie span and
 # margin, then the window: Kaiser-Bessel (else B-spline), beta, 1 / norm
 _GEOM = [_I, _I, _I, _I, _I, _I, _F, _F, _F, _F, _F, _F, _I, _I, _I, _I, _I, _I, _I, _I, _I,
@@ -103,6 +108,14 @@ def cuda_library(rebuild=False):
     lib.paint_cic_grad.restype = _I
     lib.read_cic_hess.argtypes = [_P, _P, _P, _L, _I, *_GEOM, _P, _P, _P]
     lib.read_cic_hess.restype = _I
+    lib.paint_cic_grad_tiled.argtypes = [_P, _P, _P, _I, *_GEOM, *_TILE, _P, _P, _P]
+    lib.paint_cic_grad_tiled.restype = _I
+    lib.read_cic_hess_tiled.argtypes = [_P, _P, _P, _I, *_GEOM, *_TILE, _P, _P, _P, _P]
+    lib.read_cic_hess_tiled.restype = _I
+    lib.background_tables.argtypes = [_P, _P, _P, _I, _D, _D, _D, _P, _P, _P, _I, _P]
+    lib.background_tables.restype = _I
+    lib.fp64_chain.argtypes = [_L, _D, _P, _P]
+    lib.fp64_chain.restype = _I
     _LIB = lib
     return lib
 

@@ -33,10 +33,14 @@ support 1 is the one-hot NGP whatever the kernel type.
   (`read_cic_adjoint_tiled`) as K1, or atomic.
 * K6 `paint_cic_grad`: the paint of the window and its gradient,
   sum_p alpha_p W(x_p - c) + beta_p . grad W(x_p - c), over the interlace
-  shifts and C channels; CUDA (`csrc/paint_hess.cu`), per-particle atomics.
+  shifts and C channels; CUDA, lattice-brick (`paint_cic_grad_tiled`,
+  `csrc/paint_tiled.cu`, K5's C-channel fixed-point tile) or atomic
+  (`csrc/paint_hess.cu`).
 * K7 `read_cic_hess`: the read of the window's gradient and Hessian,
-  g_p = sum_c M[c] grad W(x_p - c) and h_p = sum_c M[c] H_W(x_p - c) b_p;
-  CUDA (`csrc/paint_hess.cu`), one thread per particle.
+  g_p = sum_c M[c] grad W(x_p - c) and h_p = sum_c M[c] H_W(x_p - c) b_p,
+  its corner sums factored per (i, j); CUDA, one thread per particle
+  (`csrc/paint_hess.cu`) or lattice-brick (`read_cic_hess_tiled`,
+  `csrc/read_tiled.cu`, every shift's box staged).
 
 The double backward (Hessian-vector products): K1's backward is an
 `_PaintCICAdjoint` (K2) and K4's a `_ReadCICAdjoint` (K5), whose own
@@ -47,15 +51,16 @@ windows have no double backward yet (`_KB_HESSIAN`).
 
 The route is fixed by the kernel, the geometry and the order (`_tiled`,
 `TILED_FROM`): on a clamped (lattice) geometry K1 and K5 take the
-lattice-brick design from CIC up and K4 from TSC up; NGP (order 1:
+lattice-brick design from CIC up, K4 and K6 from TSC up, K7 never; NGP (order 1:
 B-spline order 1 and the clamped Kaiser-Bessel support 1, the one-hot NGP)
 and every unclamped call take the per-particle designs (PERF.md, Findings,
 has the timings).  Each wrapper launches its kernel for a CUDA tensor (or
 raises), and runs the kernel's plain PyTorch version, kept in this module,
 for a CPU tensor.  `LAUNCHES` counts kernel launches per (kernel, window,
-order), the window "bspline" or "kb", the two designs of K1, K4 and K5
-under two names each (`paint_cic` and `paint_cic_tiled`, and so on); K3's
-order is that of its deconvolution, 0 for none.
+order), the window "bspline" or "kb", the two designs of K1, K4-K7 under
+two names each (`paint_cic` and `paint_cic_tiled`, and so on); K3's order
+is that of its deconvolution, 0 for none (`ops/_kernels.py` keeps the
+count, which K8 in `ops/background.py` shares).
 
 Parity: `montecosmo_tpu/ops/paint.py:35-240` (the windows, paint, read,
 read_multi, read_sites, interlace, nufft) and
@@ -67,7 +72,6 @@ sides); the port, like the JAX scatter path, on the P cells around
 round(x).
 """
 import ctypes
-from collections import Counter
 from dataclasses import dataclass
 from functools import lru_cache
 from itertools import product
@@ -81,9 +85,9 @@ from montecosmo_tpu_torch.ops.fourier import (
     bspline, bspline_hat, dbspline, dkaiser_bessel, kaiser_bessel, kaiser_bessel_hat,
     kaiser_bessel_norm, optim_kcut, rfftk, rfftn,
 )
+from montecosmo_tpu_torch.ops._kernels import LAUNCHES
 from montecosmo_tpu_torch.ops.hermitian import chreshape, r2chshape, scale_shape
 
-LAUNCHES = Counter()
 ORDERS = (1, 2, 3, 4)
 
 
@@ -556,9 +560,13 @@ def paint_cic_adjoint_kernel(pos, weights, grads, geom: CICGeometry):
 # designs (PERF.md, Findings): below it, and without a lattice, the
 # per-particle design runs.  K1 and K5 from CIC (at NGP one atomic add a
 # particle is cheaper than a brick's set-up); K4 from TSC (at NGP and CIC
-# the per-particle gather is faster than staging the brick's box).  K2 has
-# the per-particle design only.
-TILED_FROM = {"paint_cic": 2, "read_cic_adjoint": 2, "read_cic": 3}
+# the per-particle gather is faster than staging the brick's box); K6 from
+# TSC, on the render's case (2 shifts, one channel: at CIC its atomics
+# measured faster than the tile).  K7's per-particle gather (its corner
+# sums factored per (i, j)) measured faster than its staged boxes at every
+# order of the render's case, so it has no entry; K2 has the per-particle
+# design only.
+TILED_FROM = {"paint_cic": 2, "read_cic_adjoint": 2, "read_cic": 3, "paint_cic_grad": 3}
 
 
 def _tiled(kernel, geom):
@@ -964,6 +972,16 @@ def paint_cic_grad_kernel(pos, alpha, beta, geom: CICGeometry):
     """K6 on the card, the per-particle atomic design: (S, X, Y, Z, C)
     float32 meshes for alpha (P, C) (or None) and beta (P, C, 3), one launch
     per 4 channels."""
+    return _paint_cic_grad(pos, alpha, beta, geom, tiled=False)
+
+
+def paint_cic_grad_tiled_kernel(pos, alpha, beta, geom: CICGeometry, outliers=None):
+    """K6 on the card, the lattice-brick design (a lattice geometry), as
+    `paint_cic_grad_kernel`; `outliers` as in `_counter`."""
+    return _paint_cic_grad(pos, alpha, beta, geom, tiled=True, outliers=outliers)
+
+
+def _paint_cic_grad(pos, alpha, beta, geom, tiled, outliers=None):
     from montecosmo_tpu_torch.ops import _kernels
 
     _check_hess_inputs(pos, beta, geom)
@@ -972,17 +990,25 @@ def paint_cic_grad_kernel(pos, alpha, beta, geom: CICGeometry):
                                and alpha.is_contiguous() and alpha.device == pos.device),
              f"alpha {tuple(beta.shape[:2])} float32, contiguous, expected")
     if C > MAX_CHANNELS:
-        return torch.cat([paint_cic_grad_kernel(
+        return torch.cat([_paint_cic_grad(
             pos, None if alpha is None else alpha[:, c:c + MAX_CHANNELS].contiguous(),
-            beta[:, c:c + MAX_CHANNELS].contiguous(), geom) for c in range(0, C, MAX_CHANNELS)], -1)
+            beta[:, c:c + MAX_CHANNELS].contiguous(), geom, tiled, outliers)
+            for c in range(0, C, MAX_CHANNELS)], -1)
     lib = _kernels.cuda_library()
     out = torch.zeros((geom.n_shift,) + geom.shape + (C,), dtype=torch.float32, device=pos.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(pos.device).cuda_stream)
-    code = lib.paint_cic_grad(_ptr(pos), ctypes.c_void_p(None) if alpha is None else _ptr(alpha),
-                              _ptr(beta), ctypes.c_longlong(pos.shape[0]), ctypes.c_int(C),
-                              *_geom_args(geom), _ptr(out), stream)
-    LAUNCHES["paint_cic_grad", geom.window, geom.order] += 1
-    _launch_status(code, "paint_cic_grad")
+    al = ctypes.c_void_p(None) if alpha is None else _ptr(alpha)
+    if tiled:
+        name = "paint_cic_grad_tiled"
+        code = lib.paint_cic_grad_tiled(_ptr(pos), al, _ptr(beta), ctypes.c_int(C),
+                                        *_geom_args(geom), *_tile_args(tile_plan(geom, C)),
+                                        _ptr(out), _counter(outliers, pos.device), stream)
+    else:
+        name = "paint_cic_grad"
+        code = lib.paint_cic_grad(_ptr(pos), al, _ptr(beta), ctypes.c_longlong(pos.shape[0]),
+                                  ctypes.c_int(C), *_geom_args(geom), _ptr(out), stream)
+    LAUNCHES[name, geom.window, geom.order] += 1
+    _launch_status(code, name)
     return out
 
 
@@ -990,6 +1016,17 @@ def read_cic_hess_kernel(pos, mesh, b, geom: CICGeometry):
     """K7 on the card, one thread per particle: (g, h), each (P, C, 3)
     float32, for the (S, X, Y, Z, C) meshes and b (P, 3), one launch per 4
     channels."""
+    return _read_cic_hess(pos, mesh, b, geom, tiled=False)
+
+
+def read_cic_hess_tiled_kernel(pos, mesh, b, geom: CICGeometry, outliers=None):
+    """K7 on the card, the lattice-brick design (a lattice geometry), as
+    `read_cic_hess_kernel`; its read tile holds the S shifts' C channels;
+    `outliers` as in `_counter`."""
+    return _read_cic_hess(pos, mesh, b, geom, tiled=True, outliers=outliers)
+
+
+def _read_cic_hess(pos, mesh, b, geom, tiled, outliers=None):
     from montecosmo_tpu_torch.ops import _kernels
 
     _check_hess_inputs(pos, b, geom)
@@ -999,30 +1036,45 @@ def read_cic_hess_kernel(pos, mesh, b, geom: CICGeometry):
              f"{tuple(mesh.shape)}")
     C = mesh.shape[-1]
     if C > MAX_CHANNELS:
-        parts = [read_cic_hess_kernel(pos, m, b, geom) for (m,) in _channel_chunks(mesh)]
+        parts = [_read_cic_hess(pos, m, b, geom, tiled, outliers)
+                 for (m,) in _channel_chunks(mesh)]
         return tuple(torch.cat(t, 1) for t in zip(*parts))
     lib = _kernels.cuda_library()
     g = torch.empty((pos.shape[0], C, 3), dtype=torch.float32, device=pos.device)
     h = torch.empty_like(g)
     stream = ctypes.c_void_p(torch.cuda.current_stream(pos.device).cuda_stream)
-    code = lib.read_cic_hess(_ptr(pos), _ptr(mesh), _ptr(b), ctypes.c_longlong(pos.shape[0]),
-                             ctypes.c_int(C), *_geom_args(geom), _ptr(g), _ptr(h), stream)
-    LAUNCHES["read_cic_hess", geom.window, geom.order] += 1
-    _launch_status(code, "read_cic_hess")
+    if tiled:
+        name = "read_cic_hess_tiled"
+        plan = tile_plan(geom, geom.n_shift * C, "read")
+        code = lib.read_cic_hess_tiled(_ptr(pos), _ptr(mesh), _ptr(b), ctypes.c_int(C),
+                                       *_geom_args(geom), *_tile_args(plan), _ptr(g), _ptr(h),
+                                       _counter(outliers, pos.device), stream)
+    else:
+        name = "read_cic_hess"
+        code = lib.read_cic_hess(_ptr(pos), _ptr(mesh), _ptr(b), ctypes.c_longlong(pos.shape[0]),
+                                 ctypes.c_int(C), *_geom_args(geom), _ptr(g), _ptr(h), stream)
+    LAUNCHES[name, geom.window, geom.order] += 1
+    _launch_status(code, name)
     return g, h
 
 
 def _paint_grad(pos, alpha, beta, geom):
-    """K6 on the card, its plain version on the CPU."""
+    """K6 in the design `_tiled` picks on the card, its plain version on the
+    CPU."""
     if pos.is_cuda:
-        return paint_cic_grad_kernel(pos, alpha, beta.contiguous(), geom)
+        kernel = (paint_cic_grad_tiled_kernel if _tiled("paint_cic_grad", geom)
+                  else paint_cic_grad_kernel)
+        return kernel(pos, alpha, beta.contiguous(), geom)
     return paint_cic_grad_plain(pos, alpha, beta, geom)
 
 
 def _read_hess(pos, mesh, b, geom):
-    """K7 on the card, its plain version on the CPU."""
+    """K7 in the design `_tiled` picks on the card, its plain version on the
+    CPU."""
     if pos.is_cuda:
-        return read_cic_hess_kernel(pos, mesh.contiguous(), b.contiguous(), geom)
+        kernel = (read_cic_hess_tiled_kernel if _tiled("read_cic_hess", geom)
+                  else read_cic_hess_kernel)
+        return kernel(pos, mesh.contiguous(), b.contiguous(), geom)
     return read_cic_hess_plain(pos, mesh, b, geom)
 
 

@@ -272,3 +272,92 @@ def test_double_backward_kernels_match_plain_on_card():
                 if y is not None:
                     torch.testing.assert_close(x, y, rtol=1e-4,
                                                atol=1e-4 * float(y.abs().max()) + 1e-30)
+
+
+@pytest.mark.cuda
+def test_tiled_double_backward_kernels_match_plain_on_card():
+    """The lattice-brick K6 and K7 (`paint_cic_grad_tiled`,
+    `read_cic_hess_tiled`) against their plain versions and against the
+    per-particle designs on the card, at B-spline orders 1-4, clamped, with
+    ties and outliers past the clamp bound, for the render's case (2
+    shifts, C = 1, K6 with alpha), the force read's (C = 3) and C = 6 (two
+    launches); some particles take the device-memory path (max_disp 5
+    against the plans' smaller margins).  Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K6/K7 are CUDA")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    pos, _ = _lattice_particles((16, 16, 16), (2, 2, 2), 5, 21)
+    pos = torch.tensor(_with_ties(pos, (16, 16, 16), (2, 2, 2), np.random.default_rng(22)),
+                       device=dev)
+    n = pos.shape[0]
+    close = lambda a, b: torch.testing.assert_close(a, b, rtol=1e-5,
+                                                    atol=1e-5 * float(b.abs().max()) + 1e-30)
+    outliers = 0
+    for order in (1, 2, 3, 4):
+        for S, C in ((2, 1), (1, 3), (1, 6)):
+            geom = tpa.cic_geometry((32, 32, 32), S, (16, 16, 16), 5, True, order)
+            alpha = torch.randn((n, C), generator=gen, device=dev) if S == 2 else None
+            beta = torch.randn((n, C, 3), generator=gen, device=dev)
+            mesh = torch.randn((S, 32, 32, 32, C), generator=gen, device=dev)
+            b = torch.randn((n, 3), generator=gen, device=dev)
+            n_out = torch.zeros(1, dtype=torch.int64, device=dev)
+            ref = tpa.paint_cic_grad_plain(pos, alpha, beta, geom)
+            close(tpa.paint_cic_grad_tiled_kernel(pos, alpha, beta, geom, n_out), ref)
+            close(tpa.paint_cic_grad_kernel(pos, alpha, beta, geom), ref)
+            ref = tpa.read_cic_hess_plain(pos, mesh, b, geom)
+            for got in (tpa.read_cic_hess_tiled_kernel(pos, mesh, b, geom, n_out),
+                        tpa.read_cic_hess_kernel(pos, mesh, b, geom)):
+                for x, y in zip(got, ref):
+                    close(x, y)
+            outliers += int(n_out.item())
+            tpa.reset_launches()
+            tpa._paint_grad(pos, alpha, beta, geom)
+            tpa._read_hess(pos, mesh, b, geom)
+            want = {name + "_tiled" * tpa._tiled(name, geom): -(-C // 4)
+                    for name in ("paint_cic_grad", "read_cic_hess")}
+            assert tpa.launches_at(order) == want
+    assert outliers > 0
+
+
+@pytest.mark.cuda
+def test_background_kernel_matches_plain_on_card():
+    """K8 (`background_tables`) against its plain version on the card: the
+    raw tables and their first and second Omega_m derivatives for a
+    float32 and a float64 Omega_m, flat LCDM and w0waCDM with curvature, at
+    1e-6 of each output's largest entry in float32 (the kernel's float64
+    results rounded once; the plain version's too) and 1e-12 in float64;
+    one launch per `Background.create`, whose tables match the CPU's.
+    Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K8 is CUDA")
+    from montecosmo_tpu_torch.ops import background as tbg
+
+    dev = torch.device("cuda")
+    for consts in ((0.0, -1.0, 0.0), (0.02, -0.9, 0.1)):
+        for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-12)):
+            om = torch.tensor(0.31, dtype=dtype, device=dev)
+            got = tbg.background_tables_kernel(om, *consts, dtype)
+            ref = tbg.background_tables_plain(om.cpu(), *consts, "cpu", dtype)
+            for x, y in zip(got, ref):
+                assert x.dtype == dtype
+                torch.testing.assert_close(x.cpu(), y, rtol=tol, atol=tol * float(y.abs().max()))
+    tpa.reset_launches()
+    om = torch.tensor(0.31, device=dev, requires_grad=True)
+    cosmo = tbg.get_cosmology(Omega_m=om, sigma8=torch.tensor(0.8, device=dev))
+    bg = tbg.Background.create(cosmo)
+    assert dict(tpa.LAUNCHES) == {("background_tables", "background", 0): 1}
+    bc = tbg.Background.create(tbg.get_cosmology(Omega_m=om.detach().cpu(),
+                                                 sigma8=torch.tensor(0.8)))
+    for name in ("g_tab", "g2_tab", "f_tab", "f2_tab", "chi_tab", "a_chi_tab"):
+        x, y = getattr(bg, name).detach().cpu(), getattr(bc, name)
+        torch.testing.assert_close(x, y, rtol=1e-6, atol=1e-6 * float(y.abs().max()))
+    (g,) = torch.autograd.grad(bg.g_tab.sum() + bg.chi_tab.sum() * 1e-3, om, create_graph=True)
+    (h,) = torch.autograd.grad(g, om)
+    omc = om.detach().cpu().requires_grad_(True)
+    bc = tbg.Background.create(tbg.get_cosmology(Omega_m=omc, sigma8=torch.tensor(0.8)))
+    (gc,) = torch.autograd.grad(bc.g_tab.sum() + bc.chi_tab.sum() * 1e-3, omc,
+                                create_graph=True)
+    (hc,) = torch.autograd.grad(gc, omc)
+    torch.testing.assert_close(g.detach().cpu(), gc.detach(), rtol=1e-5, atol=0)
+    torch.testing.assert_close(h.cpu(), hc, rtol=1e-5, atol=0)

@@ -107,11 +107,11 @@ def test_growth_lookups_and_kick_coefficients_match_jax():
                 jpm.alpha_fastpm(bg, g0 + dg, dg) if isinstance(bg, jbg.Background)
                 else tpm.alpha_fastpm(bg, g0 + dg, dg)]
 
-    def jfun(om, s8):
+    def jfun(om, s8, dtype=jnp.float32):
         bg = jbg.Background.create(jbg.get_cosmology(Omega_m=om, sigma8=s8))
-        g0 = bg.a2g(jnp.float32(0.0))
-        dg = (bg.a2g(jnp.float32(0.5)) - g0) / 10
-        gs = jnp.stack([g0, g0 + dg / 2, jnp.float32(0.3), jnp.float32(0.75)])
+        g0 = bg.a2g(jnp.asarray(0.0, dtype))
+        dg = (bg.a2g(jnp.asarray(0.5, dtype)) - g0) / 10
+        gs = jnp.stack([g0, g0 + dg / 2, jnp.asarray(0.3, dtype), jnp.asarray(0.75, dtype)])
         return outs(bg, g0, dg, gs)
 
     def tfun(om, s8):
@@ -123,12 +123,16 @@ def test_growth_lookups_and_kick_coefficients_match_jax():
 
     om, s8 = np.float32(0.31), np.float32(0.81)
     vj = jax.jit(jfun)(om, s8)
-    jac = jax.jit(jax.jacobian(lambda o: jfun(o, s8)))(om)
+    # the port integrates the tables in float64 (K8): its derivatives are
+    # held against JAX's in float64, whose float32 RK4 steps err by up to
+    # 5.7e-4 in d(g2g2)/dOmega_m at the table's lower edge
+    with jax.enable_x64(True):
+        jac = jax.jit(jax.jacobian(lambda o: jfun(o, float(s8), jnp.float64)))(float(om))
     omt = T(om, True)
     vt = tfun(omt, T(s8))
     for t, j, dj in zip(vt, vj, jac):
         close(t, j, 1e-5, 1e-6)
-        # d/dOmega_m through the f32 RK4 tables: ~1e-4, as for a2g
+        # d/dOmega_m through the tables, float32 lookups: ~1e-4, as for a2g
         (gt,) = torch.autograd.grad(t.sum(), omt, retain_graph=True)
         close(gt, np.asarray(dj).sum(), 1e-4, 1e-6)
     assert float(vt[3][0].detach()) != 0.0  # g2dg2dg at a2g(0): the ratio, not safe_div's 0

@@ -90,8 +90,17 @@ def _tiled_scatter(cells, w, vals, geom, brick, R):
     """Emulation of the tiled kernels' scatter of vals (P, C) through the
     windows (cells, w): returns the (X, Y, Z, C) mesh and the number of
     particles sent to the mesh."""
+    return _tiled_scatter_corners(
+        cells, lambda a, b, c, ids: (w[a, ids, 0] * w[b, ids, 1] * w[c, ids, 2])[:, None]
+        * vals[ids], vals, geom, brick, R)
+
+
+def _tiled_scatter_corners(cells, corner, bound, geom, brick, R):
+    """The same for any corner values: corner(a, b, c, ids) gives the (n, C)
+    values of particles `ids` at corner (a, b, c); `bound` (P, C) bounds
+    their magnitudes and sets each brick's fixed-point scale."""
     order, shape = geom.order, np.array(geom.shape)
-    C = vals.shape[1]
+    C = bound.shape[1]
     mesh = np.zeros(geom.shape + (C,))
     corners = list(product(range(order), repeat=3))
     lat = np.arange(int(np.prod(geom.lattice))).reshape(geom.lattice)
@@ -103,10 +112,10 @@ def _tiled_scatter(cells, w, vals, geom, brick, R):
         lo = cells[0, ids] - origin                     # first window cell, tile coords
         inside = np.all((lo >= 0) & (lo + order <= np.array(tile_shape)), axis=1)
         tile = np.zeros(tile_shape + (C,), np.int64)
-        scale = _fixed_point_scale(vals[ids])
+        scale = _fixed_point_scale(bound[ids])
         for a, b, c in corners:
             cell = np.stack([cells[a, ids, 0], cells[b, ids, 1], cells[c, ids, 2]], -1)
-            prod_ = (w[a, ids, 0] * w[b, ids, 1] * w[c, ids, 2])[:, None] * vals[ids]
+            prod_ = corner(a, b, c, ids)
             t = (cell - origin)[inside]
             q = np.rint(prod_[inside] * scale).astype(np.int64)
             np.add.at(tile, (t[:, 0], t[:, 1], t[:, 2]), q)
@@ -225,9 +234,19 @@ def _tiled_gather(cells, w, mesh, geom, brick, R):
     """Emulation of the tiled K4's gather of mesh (X, Y, Z, C) through the
     windows (cells, w): returns the (P, C) values and the number of
     particles read from the mesh."""
+    corners, n_out = _staged_corners(cells, mesh, geom, brick, R)
+    vals = sum((w[a, :, 0] * w[b, :, 1] * w[c, :, 2])[:, None] * val
+               for (a, b, c), val in corners.items())
+    return vals, n_out
+
+
+def _staged_corners(cells, mesh, geom, brick, R):
+    """What each particle reads at each corner (a, b, c) of its window in
+    the tiled gather: {corner: (P, C) values}, from the brick's staged box
+    or from the mesh, and the number of particles read from the mesh."""
     order, shape = geom.order, np.array(geom.shape)
     n_p = int(np.prod(geom.lattice))
-    vals = np.zeros((n_p, mesh.shape[-1]))
+    out = {k: np.zeros((n_p, mesh.shape[-1])) for k in product(range(order), repeat=3)}
     lat = np.arange(n_p).reshape(geom.lattice)
     tile = np.array([(b - 1) * s + 2 * R + order for b, s in zip(brick, geom.stride)])
     n_out = 0
@@ -249,8 +268,8 @@ def _tiled_gather(cells, w, mesh, geom, brick, R):
             val = mesh[tuple(np.remainder(cell, shape).T)]
             rel = cell[in_box] - origin - box_lo
             val[in_box] = staged[tuple(rel.T)]
-            vals[ids] += (w[a, ids, 0] * w[b, ids, 1] * w[c, ids, 2])[:, None] * val
-    return vals, n_out
+            out[a, b, c][ids] = val
+    return out, n_out
 
 
 def _check_tiled_read(case, kernel, order, channels, seed):
@@ -308,3 +327,116 @@ def test_route_by_order(kernel, order):
     for name, tiled in want.items():
         assert tpa._tiled(name, clamped) == tiled, name
         assert not tpa._tiled(name, free)
+
+
+# ------------------------------------------------- K6 and K7 (double backward)
+def _windows_grad(pos, geom):
+    """Per shift: the unwrapped window cells, weights and derivatives
+    (order, P, 3) of each particle, the derivatives zeroed along clamped
+    axes (as K6 and K7 take them), the shifted positions and sites."""
+    out = []
+    for v, x, sites in tpa._shifted(pos, geom):
+        cells, w, dw = tpa._axis_windows(x, geom, tpa._tie_base(sites, geom))
+        mask = tpa._clamp_mask(v, sites, geom)
+        out.append((cells.numpy(), w.double().numpy(), (dw * mask).double().numpy(), x, sites,
+                    mask))
+    return out
+
+
+@pytest.mark.parametrize("shape, lattice, H", [((224,) * 3, (224,) * 3, 9),
+                                               ((32,) * 3, (16,) * 3, 5)],
+                         ids=["224^3 stride 1", "32^3 stride 2"])
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_double_backward_tile_plans_fit(shape, lattice, H, order):
+    """The tiled K6's plans (a paint tile of beta's C channels, 8 bytes a
+    value) and the tiled K7's (a read tile of the S shifts' C channels, 4
+    bytes a value, each shift's region rounded up to 16 bytes as
+    `read_cic_hess_tiled` lays it out) fit the budget and a block's shared
+    memory, R within the clamp bound, the brick within the lattice and
+    kMaxSites."""
+    for S, C in product((1, 2), (1, 3, 4)):
+        geom = tpa.cic_geometry(shape, S, lattice, H, True, order)
+        p6, p7 = tpa.tile_plan(geom, C), tpa.tile_plan(geom, S * C, "read")
+        assert p6.nbytes == 8 * C * np.prod(p6.tile) <= tpa.TILE_BYTES
+        assert p7.nbytes == 4 * S * C * np.prod(p7.tile) <= tpa.TILE_BYTES
+        room = -(-C * int(np.prod(p7.tile)) // 4) * 4
+        assert p7.nbytes <= 4 * S * room <= min(p7.nbytes + 16 * S, SMEM_PER_BLOCK)
+        for plan in (p6, p7):
+            assert 0 <= plan.R <= H and np.prod(plan.brick) <= 1024
+            assert all(1 <= b <= l for b, l in zip(plan.brick, lattice))
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_tiled_paint_grad_emulation_matches_plain(case, order):
+    """K6's decomposition (the C-channel fixed-point tile per shift, corner
+    values alpha W + beta . grad W with clamped axes' derivatives zeroed,
+    each brick's scale from its largest |alpha| + |beta|_1) against
+    paint_cic_grad_plain: the render's case (2 shifts, C = 1, alpha) and
+    the force read's (1 shift, C = 3, no alpha), at the plan's margin and
+    below it."""
+    pos, _ = _inputs(case, 66)
+    rng = np.random.default_rng(67)
+    for S, C in ((2, 1), (1, 3)):
+        geom = _geometry(case, S, "rectangular", order)
+        n = pos.shape[0]
+        alpha = rng.standard_normal((n, C)) if S == 2 else np.zeros((n, C))
+        beta = rng.standard_normal((n, C, 3))
+        ref = tpa.paint_cic_grad_plain(
+            pos, torch.tensor(alpha, dtype=torch.float32) if S == 2 else None,
+            torch.tensor(beta, dtype=torch.float32), geom).double().numpy()
+        bound = np.abs(alpha) + np.abs(beta).sum(-1)
+        plan = tpa.tile_plan(geom, C)
+        for R in _margins(plan):
+            out, n_out = [], 0
+            for cells, w, dw, *_ in _windows_grad(pos, geom):
+                def corner(a, b, c, ids):
+                    wt = w[a, ids, 0] * w[b, ids, 1] * w[c, ids, 2]
+                    grad = np.stack([dw[a, ids, 0] * w[b, ids, 1] * w[c, ids, 2],
+                                     w[a, ids, 0] * dw[b, ids, 1] * w[c, ids, 2],
+                                     w[a, ids, 0] * w[b, ids, 1] * dw[c, ids, 2]], -1)
+                    return alpha[ids] * wt[:, None] + (beta[ids] * grad[:, None]).sum(-1)
+
+                mesh, n = _tiled_scatter_corners(cells, corner, bound, geom, plan.brick, R)
+                out.append(mesh)
+                n_out += n
+            # NGP without alpha paints zeros (its window has no gradient)
+            err = np.abs(np.stack(out) - ref).max() / max(np.abs(ref).max(), 1e-30)
+            assert err <= 1e-6, (S, C, R, err)
+            assert R > 0 or n_out > 0
+
+
+@pytest.mark.parametrize("case", list(CASES))
+@pytest.mark.parametrize("order", [1, 2, 3, 4])
+def test_tiled_read_hess_emulation_matches_plain(case, order):
+    """K7's decomposition (each shift's reached box of its mesh staged, a
+    window read from it when it lies in it and from the mesh otherwise,
+    the plan a read tile of S C channels) against read_cic_hess_plain: g
+    and h for the render's case (2 shifts, C = 1) and the force read's (1
+    shift, C = 3), at the plan's margin and below it."""
+    pos, _ = _inputs(case, 68)
+    rng = np.random.default_rng(69)
+    b = rng.standard_normal((pos.shape[0], 3))
+    for S, C in ((2, 1), (1, 3)):
+        geom = _geometry(case, S, "rectangular", order)
+        mesh = rng.standard_normal((S,) + geom.shape + (C,)).astype(np.float32)
+        ref = tpa.read_cic_hess_plain(pos, torch.tensor(mesh), torch.tensor(b, dtype=torch.float32),
+                                      geom)
+        plan = tpa.tile_plan(geom, S * C, "read")
+        for R in _margins(plan):
+            g, h, n_out = 0.0, 0.0, 0
+            for s, (cells, *_, x, sites, mask) in enumerate(_windows_grad(pos, geom)):
+                corners, n = _staged_corners(cells, mesh[s].astype(np.float64), geom,
+                                             plan.brick, R)
+                n_out += n
+                terms = tpa._corner_terms(x, geom, True, tpa._tie_base(sites, geom), mask,
+                                          hess=True)
+                for ((a, bb, c), val), (_, _, dwc, hwc) in zip(corners.items(), terms):
+                    dwc, hwc = dwc.double().numpy(), hwc.double().numpy()
+                    g = g + val[:, :, None] * dwc[:, None]
+                    h = h + val[:, :, None] * np.einsum("pij,pj->pi", hwc, b)[:, None]
+            for got, want in zip((g, h), ref):
+                want = want.double().numpy()
+                err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
+                assert err <= 1e-6, (S, C, R, err)
+            assert R > 0 or n_out > 0
