@@ -13,8 +13,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      float64 Omega_m) within K8_TOL, timed, its bound the growth's 127
      dependent steps times one step's FP64 chain counted from its SASS
      times a dependent FP64 FMA's latency timed on the card; a
-     Background.create and its gradient, K8 against the parent's loop
-     (`parent_tables`) on the card and the host; then
+     Background.create and its gradient on the card and the host; then
      hold K1 (paint), K2 (paint adjoint) and K3 (NUFFT epilogue) against
      their plain PyTorch versions at 32^3 (stride-2 lattice; the tiled
      kernels' margins of 0-2 cells send many particles to device memory,
@@ -26,7 +25,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      the atomic one, each held, timed in turns (other, tiled, tiled,
      other), with the share of corner products that took the tiled
      design's outlier path (device memory) and the design the route
-     (ops/paint.py::TILED_FROM) takes; K2 in its one design; at B-spline order
+     (ops/paint.py::TILED_FROM) takes, two launches of each design equal
+     bit for bit, and the routed design's fixed-point mesh sum timed in
+     turns against the float atomics it replaced; K2 in its one design
+     (also bit for bit twice); at B-spline order
      2 (CIC) clamped to the lattice sites, then at orders 1, 3 and 4 (NGP,
      TSC, PCS), then with the Kaiser-Bessel window of support 1-4 (at the
      flagship render's cutoff optim_kcut(192/224)), clamped and unclamped,
@@ -41,6 +43,14 @@ Phases, in order; any failure raises and the script exits non-zero:
      nearest at order 1, on a wrap-padded mesh: the unclamped read) and its
      backward are the B-spline library yardsticks; then K4/K5 on C = 6
      channels (two launches each, both designs);
+  3d. K9 (segment_sum, csrc/segment_sum.cu) at each of its call sites'
+     shapes (the light cone's chi2a and growth lookups, the P(k) lookup of
+     white2lin, the radial counts, the power spectrum's auto and cross
+     binning), with the site's own ids and with uniform ids, against its
+     plain version in float64 (K9_TOL), two launches equal bit for bit, a
+     float64 call; timed in turns against index_add_ and
+     index_put_(accumulate=True), with its plain version's time and its
+     bound;
   4. the golden 32^3 2LPT forward (tests/golden/golden_32.npz) on the card;
   4b. the golden 32^3 BullFrog N-body forward on the card;
   4c. the 32^3 BullFrog light cone (a_obs=None) on the golden white mesh at
@@ -76,11 +86,27 @@ Phases, in order; any failure raises and the script exits non-zero:
      (paint_order=3): K1-K5 must each launch at order 3 (K1, K4 and K5
      tiled); then K5's and K4's inputs at the last step, as 5b; then the
      backward of every table gather of one more value+grad, by call site
-     with its device ms (`table_backwards`);
+     with its device ms (`table_backwards`: K9 for every take_rows, no
+     index_add_ left), K9 against its plain version in float64 on those
+     backwards' own cotangents, column by column (`k9_on_cotangents`), and
+     ROADMAP Queue C 1's witness (`gradient_witness`: two value+grads from
+     the same inputs, whose Omega_m and sigma8 gradients must be equal bit
+     for bit);
   5d. the 2LPT flagship on the curved sky and the light cone (curved_sky=True,
      a_obs=None) with the Kaiser-Bessel window of support 4: K1 (tiled), K2
      and K3 must each launch at Kaiser-Bessel support 4; then its table
-     backwards, as 5c;
+     backwards and the witness, as 5c;
+  5h. the Kaiser flagship (bench.py's configuration with evolution='kaiser')
+     in its three regimes, flat sky at a_obs 0.5, the flat-sky light cone
+     and the curved-sky light cone: each first at 32^3 on the golden white
+     mesh, card against CPU at phase 4's tolerances, then timed as 5, with
+     all 5 values, peak memory and K8/K9 launches;
+  5i. lik_type poisson, fourier_gauss, two_quad_gauss and shash, then
+     observable='powspec' (poles 0, 2, 4), at the Kaiser flat-sky flagship:
+     a predict draw, the model conditioned on it, 1 warm-up and 3 timed
+     value+grads, finite; powspec launches K9's forward;
+  5j. the 2LPT flagship with bias_type='eulerian': K1, K2 and K3 must
+     launch in the designs the route takes; timed as 5;
   3c. (after 3b) K6 `paint_cic_grad` and K7 `read_cic_hess` (the double
      backward) against their plain versions at 32^3 and 224^3, B-spline
      orders 1-4, clamped and unclamped, the render's case (2 shifts, C =
@@ -100,7 +126,7 @@ Phases, in order; any failure raises and the script exits non-zero:
      warmup and run (SAMPLER_STEPS), each McLachlan step timed; finite
      chains, n_evals as the JAX package counts them, and K1, K2, K3 launched
      phase 5's count per value+grad times the value+grads made; the same 2
-     steps twice from one seed, their difference printed;
+     steps twice from one seed, equal bit for bit;
   5f. the NUTS path of run/infer.py --sampler nuts at the same flagship:
      the blocked full warmup (bracketed step sizes, window adaptation; no
      Laplace seed: rest_ has 97 > 64 dimensions), NUTS-within-Gibbs sweeps
@@ -113,9 +139,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      covariance given white_mesh_, and one
      HVP column of the N-body flagship in Omega_m_ (K6/K7 on both, K4/K5's
      double backward on the N-body one);
-  5g. one 2LPT flagship value+grad with K8 and with the parent's loop in
-     its place: device kernels launched and device busy (profiled), and
-     each timed in turns;
+  5g. one 2LPT flagship value+grad profiled: device kernels launched and
+     device busy; 3 more timed;
   6. last lines: the kernels JSON (one row per kernel, window and order;
      launches from phase 5b at CIC, 5c at TSC, 4c at NGP and PCS, 5d at
      Kaiser-Bessel 4, 4d at Kaiser-Bessel 1-3; K4/K5 run on no
@@ -127,7 +152,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      flagship measurements of 5/5b and at TSC those of 5c; K6 and K7 per
      order, both designs' times and the route's, launches and HVP times
      from 5f at CIC with the flagship-input times; K8 with its launches in
-     phase 5's 2LPT run and 5g's counts), then
+     phase 5's 2LPT run and 5g's counts; K9 with its launches in phase 5's
+     2LPT run and per value+grad in every flagship, its times at the chi2a
+     site, index_add_ as its library time and index_put_(accumulate) beside
+     it, every site's row, and 5i's times), then
      {"ok": true, "device": {...}}.
 """
 import json
@@ -144,7 +172,7 @@ import torch
 ROOT = Path(__file__).resolve().parent
 QUICK = "--quick" in sys.argv
 TOL = 1e-5  # max |kernel - plain| / max |plain|: float32 sums in another order
-# (K1's and K5's atomics add in a run-dependent order; the same bound holds)
+# (K1's and K5's in fixed point, rounded once; the same bound holds)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, published, at 700 W
 ORDERS = (2, 1, 3, 4)      # window orders: CIC (the earlier rows) first
 FP32_FLOP_PER_S = 67e12    # H100 SXM float32 outside the tensor cores
@@ -210,12 +238,35 @@ def err_of(out, ref):
     return rel_err(out, ref)
 
 
+# the particle kernels whose every design must give the same output bit for
+# bit from launch to launch (K1 and K5 sum in fixed point; K2 and K4 gather)
+BIT_FOR_BIT = ("paint_cic", "paint_cic_adjoint", "read_cic", "read_cic_adjoint")
+
+
+# K1's and K5's inner launchers, whose `fixed=False` adds floats with
+# atomics in a run-dependent order
+FIXED_POINT = {"paint_cic": "_paint_cic", "read_cic_adjoint": "_read_cic_adjoint"}
+
+
+def same_twice(fn):
+    """Whether two calls of `fn` return outputs equal bit for bit."""
+    a, b = fn(), fn()
+    a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
 def each_design(P, name, args, geom, ref, reps, tag, share_of):
     """The designs of `name` on the same inputs: each held against the
     plain version's `ref` at TOL, both timed in turns; the tiled design's
-    outlier share (its count over `share_of` corner products).  Returns the
-    JSON row's design keys."""
+    outlier share (its count over `share_of` corner products); for the
+    BIT_FOR_BIT kernels, two launches of each design equal bit for bit.
+    Returns the JSON row's design keys."""
     tiled, other, _ = designs(P)[name]
+    if name in BIT_FOR_BIT:
+        same = {d: same_twice(lambda f=f: f(*args, geom))
+                for d, f in (("tiled", tiled), (OTHER[name], other)) if f is not None}
+        log(f"# {tag} {name}: two launches equal bit for bit {same}")
+        assert all(same.values()), f"{name} ({tag}): two launches differ {same}"
     if tiled is None:  # one design
         e_o = err_of(other(*args, geom), ref)
         t_o = cuda_ms(lambda: other(*args, geom), reps)
@@ -232,8 +283,18 @@ def each_design(P, name, args, geom, ref, reps, tag, share_of):
         f"share {share:.4e} of the corner products, max_rel_err {e_t[1]:.3e}, {t_t:.3f} ms; "
         f"{OTHER[name]} max_rel_err {e_o[1]:.3e}, {t_o:.3f} ms; route: {design}")
     assert max(e_t[1], e_o[1]) <= TOL, f"{name} ({tag}) disagrees with its plain version"
-    return {"design": design, "tiled_ms": t_t, f"{OTHER[name]}_ms": t_o, "outlier_share": share,
-            "_err": e_t if design == "tiled" else e_o, "_ms": t_t if design == "tiled" else t_o}
+    row = {"design": design, "tiled_ms": t_t, f"{OTHER[name]}_ms": t_o, "outlier_share": share,
+           "_err": e_t if design == "tiled" else e_o, "_ms": t_t if design == "tiled" else t_o}
+    if name in FIXED_POINT:
+        # the cost of the fixed-point mesh sum: the routed design with its
+        # accumulator and with float atomics, in turns
+        inner = getattr(P, FIXED_POINT[name])
+        t_float, t_fixed = turns(lambda: inner(*args, geom, design == "tiled", fixed=False),
+                                 lambda: inner(*args, geom, design == "tiled"), reps)
+        log(f"# {tag} {name} {design}: fixed-point mesh sum {t_fixed:.3f} ms, float atomics "
+            f"{t_float:.3f} ms (in turns)")
+        row |= {"fixed_point_ms": t_fixed, "float_atomics_ms": t_float}
+    return row
 
 
 def plan_of(P, name, geom, args):
@@ -682,8 +743,8 @@ def check_wide_read():
 
 # ---------------------------------------------------------------- phase 3c
 HVP_TOL = 1e-4  # max |chain - plain| / max |plain| of one Hessian-vector
-# product: three kernels' float32 sums (K1's and K6's atomics in a
-# run-dependent order) against autograd twice through the plain versions
+# product: three kernels' float32 sums (K6's atomics in a run-dependent
+# order) against autograd twice through the plain versions
 
 
 def check_hess_kernels(lattice, stride, H, tag, reps, order):
@@ -868,52 +929,6 @@ def growth_chain_depth():
     return longest
 
 
-def parent_tables(cosmo, device):
-    """The parent's Background.create: the same tables by fixed-step RK4 as
-    a Python loop of float32 scalar tensor operations (127 + 255 steps, four
-    evaluations each, every operation a launch and an autograd node).  Kept
-    here only to count and time what K8 replaced (3, 5g)."""
-    from montecosmo_tpu_torch.ops import background as B
-
-    def rk4(f, y0, ts):
-        ys, y = [y0], y0
-        for n in range(ts.shape[0] - 1):
-            t0, t1 = ts[n], ts[n + 1]
-            h = t1 - t0
-            k1 = f(y, t0)
-            k2 = f(tuple(yi + h / 2 * ki for yi, ki in zip(y, k1)), t0 + h / 2)
-            k3 = f(tuple(yi + h / 2 * ki for yi, ki in zip(y, k2)), t0 + h / 2)
-            k4 = f(tuple(yi + h * ki for yi, ki in zip(y, k3)), t1)
-            y = tuple(yi + h / 6 * (a + 2 * b + 2 * c + d)
-                      for yi, a, b, c, d in zip(y, k1, k2, k3, k4))
-            ys.append(y)
-        return tuple(torch.stack([st[i] for st in ys]) for i in range(len(y0)))
-
-    def derivs(y, a):
-        esqr = B.Esqr(cosmo, a)
-        om_a = cosmo.Omega_m * a**-3 / esqr
-        ode_a = cosmo.Omega_de * B.f_de(cosmo, a) / esqr
-        w = cosmo.w0 + cosmo.wa * (1.0 - a)
-        q = (2.0 - (om_a + (1.0 + 3.0 * w) * ode_a) / 2.0) / a
-        r = 1.5 * om_a / a**2
-        g1, g2, d1, d2 = y
-        return (d1, d2, -q * d1 + r * g1, -q * d2 + r * g2 - r * g1**2)
-
-    device = B._device_of(cosmo, device)
-    atab, adist, lna = B._nodes(torch.device(device))
-    a0 = atab[0]
-    y1, y2, d1, d2 = rk4(derivs, (a0, -3.0 / 7 * a0**2, torch.ones_like(a0), -6.0 / 7 * a0), atab)
-    gtab, g2tab = y1 / y1[-1], y2 / y2[-1]
-    ftab, f2tab = d1 / y1[-1] * atab / gtab, d2 / y2[-1] * atab / g2tab
-    (chitab,) = rk4(lambda y, x: (B.RH / (torch.exp(x) * torch.sqrt(B.Esqr(cosmo, torch.exp(x)))),),
-                    (torch.zeros((), device=device),), lna)
-    chitab = chitab[-1] - chitab
-    chi_grid = torch.linspace(0.0, B.CHI_GRID_MAX, B.CHI_STEPS, device=device)
-    a_chi_tab = B.interp(chi_grid, chitab.flip(0), adist.flip(0))
-    return B.Background(cosmo, atab, torch.stack([gtab, g2tab, ftab, f2tab], -1), adist, chitab,
-                        a_chi_tab)
-
-
 def check_background(reps):
     """Phase 3 (K8): `background_tables` against its plain version on the
     card (the tables and both Omega_m derivatives, float32 and float64
@@ -922,8 +937,8 @@ def check_background(reps):
     dependent steps times the FP64 operations on one step's longest path
     (`growth_chain_depth`) times the latency of a dependent FP64 FMA, timed
     here (`fp64_chain`).  Then a `Background.create` with its Omega_m
-    gradient on the card and on the host, against the parent's loop
-    (`parent_tables`) on both.  Returns the row of the kernels JSON."""
+    gradient on the card and on the host.  Returns the row of the kernels
+    JSON."""
     import ctypes
     from montecosmo_tpu_torch.ops import _kernels, background as B
 
@@ -964,17 +979,16 @@ def check_background(reps):
 
     walls = {}
     for device, n_rep in (("cuda", 10), ("cpu", 3)):
-        for what, create in (("K8", B.Background.create), ("parent loop", parent_tables)):
-            create_and_grad(create, device)
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            for _ in range(n_rep):
-                g = create_and_grad(create, device)
-            torch.cuda.synchronize()
-            walls[device, what] = (1e3 * (time.perf_counter() - t) / n_rep, float(g))
+        create_and_grad(B.Background.create, device)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(n_rep):
+            g = create_and_grad(B.Background.create, device)
+        torch.cuda.synchronize()
+        walls[device, "K8"] = (1e3 * (time.perf_counter() - t) / n_rep, float(g))
     log(f"# K8 Background.create + its Omega_m gradient, wall ms (d/dOmega_m of the tables' "
         f"sum): {[(d, w, round(ms, 3), f'{g:.6e}') for (d, w), (ms, g) in walls.items()]} "
-        f"(the parent loop in float32 steps; on the host CPU K8's plain version runs)")
+        f"(on the host CPU K8's plain version runs)")
     return {"background_tables": {"max_abs_err": ea, "ms": t_k, "plain_ms": t_p, "bound_ms": bm,
                                   "bound_by": "operations", "library_ms": None,
                                   "chain_fp64_ops": depth, "fp64_fma_latency_ns": lat * 1e6,
@@ -982,11 +996,140 @@ def check_background(reps):
                                       f"{w} ({d})": ms for (d, w), (ms, _) in walls.items()}}}
 
 
+# ----------------------------------------------------------- phase 3d (K9)
+# max |K9 - plain| / max |plain|: the plain version in float64 on the same
+# float32 inputs; K9 sums each run in float64, adds it once in fixed point
+# (quantum 2^-62 N max|src|) and rounds each sum to float32 once
+K9_TOL = {torch.float32: 1e-6, torch.float64: 1e-12}
+INDEX_BYTES = 8  # the model's ids are int64
+K9_CTAS = 4 * 132  # K9's grid at most: 4 CTAs on each of the H100's 132 SMs
+
+
+def _k9_ids(where, kind, n, rows, gen):
+    """The ids of K9's call site `where`, in the order the model makes them
+    ("runs": lattice or rfft order, the light cone's runs of equal rows) or
+    drawn uniformly in [0, rows)."""
+    from montecosmo_tpu_torch.metrics import spectrum_plan
+    from montecosmo_tpu_torch.ops import background as B
+
+    if kind == "uniform":
+        return torch.randint(0, rows, (n,), generator=gen, device="cuda")
+    if where in ("chi2a", "growth"):
+        # the flagship's light cone: each particle of the 224^3 lattice at
+        # its distance along the line of sight, 1000-2000 Mpc/h
+        z = 1000.0 + torch.arange(224, device="cuda", dtype=torch.float32) * (1000.0 / 224)
+        chi = z.repeat(224 * 224)
+        if where == "chi2a":
+            return torch.floor(chi / (B.CHI_GRID_MAX / (B.CHI_STEPS - 1))).long()
+        bg = B.Background.create(B.get_cosmology(Omega_m=0.3111, sigma8=0.8102), "cuda")
+        a = bg.chi2a(chi)
+        x0, dx = np.log(10.0 ** B.GROWTH_LOG10_AMIN), -np.log(10.0 ** B.GROWTH_LOG10_AMIN) / (
+            B.GROWTH_STEPS - 1)
+        return torch.clamp(torch.floor((torch.log(a) - x0) / dx).long(), 0, rows - 1)
+    if where == "P(k)":
+        from montecosmo_tpu_torch.ops.fourier import rfftk
+
+        kvec = rfftk((192,) * 3, (1000.0,) * 3, "cuda")
+        k = (sum(ki**2 for ki in kvec) ** 0.5).reshape(-1)
+        t = (torch.log(torch.clamp(k, min=1e-30)) - np.log(1e-4)) / (np.log(1e5) / 255)
+        return torch.clamp(torch.floor(t).long(), 0, rows - 1)
+    if where == "radial counts":
+        r = (1000.0 + (torch.arange(128, device="cuda") + 0.5) * (1000.0 / 128)).repeat(128 * 128)
+        edges = torch.linspace(1000.0, 2000.0, rows + 1, device="cuda")
+        return torch.clamp(torch.searchsorted(edges, r) - 1, 0, rows - 1)
+    plan = spectrum_plan((128,) * 3, (1000.0,) * 3, None, (0, 2, 4), False, (0.0, 0.0, 1.0))
+    return torch.as_tensor(plan["seg"], device="cuda").long()
+
+
+# K9's call sites on the model paths: (N queries, R rows, C columns)
+K9_SHAPES = {"chi2a": (11_239_424, 2047, 2), "growth": (11_239_424, 127, 8),
+             "P(k)": (3_575_808, 255, 2), "radial counts": (2_097_152, 73, 1),
+             "spectrum": (1_064_960, 36, 3), "cross spectrum": (1_064_960, 36, 6)}
+
+
+def check_segment_sum(quick=False):
+    """Phase 3d: K9 (`segment_sum`, csrc/segment_sum.cu) at each call site's
+    shape (K9_SHAPES), with the site's own ids (runs) and uniform ids:
+    against its plain version in float64 on the same inputs (K9_TOL), two
+    launches equal bit for bit, a float64 call at the chi2a shape; then,
+    unless `quick`, K9, `index_add_` (the port's lookup backward before
+    K9) and `index_put_(accumulate=True)` (the sort-based sum) timed in
+    turns on the same float32 inputs, the plain version's time, and the
+    bound: the bytes of the inputs read once (N C float32 values and N
+    int64 ids) and the output written once, over the memory rate (K9 also
+    reads src again for its scale and adds each CTA's touched entries into
+    an accumulator; those are printed beside it).  Returns the JSON row
+    (its times at the chi2a site with runs) and the per-site extras."""
+    from montecosmo_tpu_torch.ops import segment as S
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    sites, worst = {}, (0.0, 0.0)
+    for where, (n, rows, cols) in K9_SHAPES.items():
+        for kind in ("runs", "uniform"):
+            idx = _k9_ids(where, kind, n, rows, gen)
+            assert idx.shape == (n,) and int(idx.min()) >= 0 and int(idx.max()) < rows
+            src = torch.randn(n, cols, generator=gen, device="cuda")
+            a = S.segment_sum_kernel(src, idx, rows)
+            b = S.segment_sum_kernel(src, idx, rows)
+            ref = S.segment_sum_plain(src.double(), idx, rows)
+            torch.cuda.synchronize()
+            same = torch.equal(a, b)
+            ea, er = rel_err(a.double(), ref)
+            worst = max(worst, (ea, er), key=lambda e: e[1])
+            row = {"max_abs_err": ea, "max_rel_err": er, "bit_for_bit": same,
+                   "run_length": n / max(1, int((idx[1:] != idx[:-1]).sum()) + 1)}
+            assert same, f"K9 ({where}, {kind}): two launches differ"
+            assert er <= K9_TOL[torch.float32], f"K9 ({where}, {kind}) disagrees: {er:.3e}"
+            if where == "chi2a" and kind == "runs":
+                a64 = S.segment_sum_kernel(src.double(), idx, rows)
+                e64 = rel_err(a64, ref)[1]
+                row["float64_max_rel_err"] = e64
+                assert e64 <= K9_TOL[torch.float64], f"K9 float64 disagrees: {e64:.3e}"
+                assert torch.equal(a64, S.segment_sum_kernel(src.double(), idx, rows))
+            if not quick:
+                k9 = lambda: S.segment_sum_kernel(src, idx, rows)
+                add = lambda: torch.zeros(rows, cols, device="cuda").index_add_(0, idx, src)
+                put = lambda: torch.zeros(rows, cols, device="cuda").index_put_(
+                    (idx,), src, accumulate=True)
+                t = [cuda_ms(f, r, 1) for f, r in ((k9, 10), (add, 10), (put, 2), (put, 2),
+                                                    (add, 10), (k9, 10))]
+                row |= {"ms": (t[0] + t[5]) / 2, "index_add_ms": (t[1] + t[4]) / 2,
+                        "index_put_accumulate_ms": (t[2] + t[3]) / 2,
+                        "plain_ms": cuda_ms(lambda: S.segment_sum_plain(src, idx, rows), 10, 1)}
+                n_bytes = n * (4 * cols + INDEX_BYTES) + 4 * rows * cols
+                row["bound_ms"], row["bound_by"] = bound(n_bytes, 0)
+                # besides: src read again (the scale), the accumulator zeroed
+                # and read back, each CTA's touched entries added once
+                row["bytes_with_partials"] = (n_bytes + 4 * n * cols + 16 * rows * cols
+                                              + 8 * K9_CTAS * rows * cols)
+            sites[f"{where} ({kind})"] = row
+            log(f"# 3d K9 segment_sum {where} ({kind} ids, mean run {row['run_length']:.2f}): "
+                f"N {n} R {rows} C {cols}: max_rel_err {er:.3e} (limit "
+                f"{K9_TOL[torch.float32]:.0e}), bit for bit {same}"
+                + (f", float64 {row['float64_max_rel_err']:.3e}" if "float64_max_rel_err" in row
+                   else "")
+                + ("" if quick else
+                   f"; K9 {row['ms']:.4f} ms, index_add_ {row['index_add_ms']:.4f} ms, "
+                   f"index_put_(accumulate) {row['index_put_accumulate_ms']:.4f} ms, plain "
+                   f"{row['plain_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms (bytes; with K9's "
+                   f"own partials at most {row['bytes_with_partials'] / HBM_BYTES_PER_S * 1e3:.4f}"
+                   f" ms)"))
+            del src, idx, a, b, ref
+    head = sites["chi2a (runs)"]
+    res = {"max_abs_err": worst[0], "max_rel_err": worst[1], "sites": sites}
+    if not quick:
+        res |= {k: head[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+        res |= {"library_ms": head["index_add_ms"],
+                "index_put_accumulate_ms": head["index_put_accumulate_ms"]}
+    return res
+
+
 WINDOWS = [(k, o) for k in ("rectangular", KB) for o in ORDERS]
 
 
 def phase_kernels():
     res = check_background(50)
+    res["segment_sum"] = check_segment_sum(QUICK)
     for kernel, order in WINDOWS:  # max_disp 5: odd NGP window bases (9 at 224^3)
         check_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order, kernel)
         check_read_kernels((16, 16, 16), (2, 2, 2), 5, "32^3", 20, order, kernel)
@@ -1363,17 +1506,28 @@ def flagship(evolution="lpt", **updates):
     return m, leaves, obs, value_and_grad
 
 
-# K8's launches in each flagship's 7 timed value+grads (phase 5), by tag
-K8_LAUNCHES = {}
+# K8's and K9's launches in each flagship's 7 timed value+grads (phase 5),
+# by tag (K9's by caller: "take_rows", a lookup's backward; "segment_sum",
+# the power spectrum's binning)
+K8_LAUNCHES, K9_LAUNCHES = {}, {}
+
+
+def k9_launches():
+    """K9's launches since the last reset, by caller."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    return {w: n for (k, w, o), n in P.LAUNCHES.items() if k == "segment_sum"}
 
 
 def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **updates):
     """The flagship value+grad with `evolution` and the config `updates`;
     every kernel in `kernels` must launch at the model's paint order and
-    window.  Returns the launch counts of the 7 evaluations there; with
-    `capture` ("paint" or "read"), also what `flagship_inputs` measures.
-    With `lookups` (the light cones), also the table gathers' backwards of
-    one more value+grad by call site (`table_backwards`)."""
+    window, K8 and K9 (every lookup's backward) at every evaluation.
+    Returns the launch counts of the 7 evaluations there; with `capture`
+    ("paint" or "read"), also what `flagship_inputs` measures.  With
+    `lookups` (the light cones), also the table gathers' backwards of one
+    more value+grad by call site (`table_backwards`) and the determinism
+    witness (`gradient_witness`)."""
     from montecosmo_tpu_torch.ops import paint as P
 
     t0 = time.perf_counter()
@@ -1405,19 +1559,22 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
     grads_ok = all(bool(torch.isfinite(v.grad).all()) for v in leaves.values())
     log(f"# bench ({tag}) value+grad: ms/eval {[round(1e3 * t, 3) for t in times]} "
         f"mean {1e3 * np.mean(times):.3f} median {1e3 * np.median(times):.3f}; "
-        f"evals/s {1 / np.median(times):.4f} (median); logpdf {values[-1]:.6e}; "
+        f"evals/s {1 / np.median(times):.4f} (median); logpdf of the 5 {values}; "
         f"peak memory {peak / 2**30:.3f} GiB; launches in 7 evals {launches}")
     assert np.all(np.isfinite(values)) and grads_ok, "non-finite logpdf or gradient"
     k8 = P.LAUNCHES["background_tables", "background", 0]
-    K8_LAUNCHES[tag] = k8
+    K8_LAUNCHES[tag], K9_LAUNCHES[tag] = k8, k9_launches()
     log(f"# ({tag}) launches per value+grad at {window} order {m.paint_order}: "
-        f"{ {k: v / 7 for k, v in launches.items()} }; K8 background_tables {k8 / 7}")
+        f"{ {k: v / 7 for k, v in launches.items()} }; K8 background_tables {k8 / 7}; "
+        f"K9 segment_sum { {w: n / 7 for w, n in K9_LAUNCHES[tag].items()} }")
     assert k8 >= 7, f"K8 never ran on the {tag} path ({k8} launches in 7 value+grads)"
+    assert K9_LAUNCHES[tag].get("take_rows", 0) >= 7, f"K9 never ran on the {tag} path"
     missing = [k for k in kernels if not launches.get(k)]
     assert not missing, f"kernels of the {tag} path never ran: {missing} ({launches})"
     captured = flagship_inputs(tag, value_and_grad, capture) if capture else None
     if lookups:
         table_backwards(m, leaves, obs, tag)
+        gradient_witness(leaves, value_and_grad, tag)
 
     # share of the background RK4 tables: the same evaluations with the
     # tables built once, outside the timed loop
@@ -1446,7 +1603,9 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
 
 
 # ------------------------------------------------------------ table lookups
-GATHER_BACKWARDS = ("IndexBackward0", "IndexSelectBackward0")
+# the gather backwards: K9's (`take_rows`), advanced indexing's (the sort-based
+# `index_put_`) and `index_select`'s (`index_add_`, none left on the paths)
+GATHER_BACKWARDS = ("_TakeRowsBackward", "IndexBackward0", "IndexSelectBackward0")
 
 
 def gather_nodes(root):
@@ -1459,7 +1618,8 @@ def gather_nodes(root):
             continue
         seen.add(f)
         if type(f).__name__ in GATHER_BACKWARDS:
-            idx = getattr(f, "_saved_indices", None) or [getattr(f, "_saved_index", None)]
+            idx = (f.saved_tensors if type(f).__name__ == "_TakeRowsBackward" else
+                   getattr(f, "_saved_indices", None) or [getattr(f, "_saved_index", None)])
             found.append((f, tuple(getattr(f, "_saved_self_sym_sizes", ())),
                           sum(t.numel() for t in idx if t is not None)))
         stack.extend(nf for nf, _ in f.next_functions)
@@ -1483,28 +1643,199 @@ def table_backwards(m, leaves, obs, tag):
     gather timed on the card: the graph is built in anomaly mode (which
     keeps each node's forward stack), walked for its gather-backward nodes,
     and each is bracketed by CUDA events recorded by a pre-hook and a hook.
-    Prints them by call site; returns (count, device ms) over all of them."""
+    Prints them by call site (K9 for `take_rows`); asserts that none is
+    `index_add_` (IndexSelectBackward0); returns (count, device ms) over
+    all of them."""
     for v in leaves.values():
         v.grad = None
     with torch.autograd.detect_anomaly(check_nan=False):
         lp = m.logpdf({**leaves, **obs})
     nodes = gather_nodes(lp.grad_fn)
-    timed = []
+    timed, cotangents = [], []
     for node, src, n_idx in nodes:
         t0, t1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if type(node).__name__ == "_TakeRowsBackward":
+            # registered first: the copy is made before t0 is recorded
+            node.register_prehook(lambda grads, n=node: cotangents.append(
+                (call_site(n), grads[0].detach().clone(), n.saved_tensors[0], n.rows)))
         node.register_prehook(lambda grads, e=t0: e.record())
         node.register_hook(lambda grads_in, grads_out, e=t1: e.record())
         timed.append((call_site(node), type(node).__name__, src, n_idx, t0, t1))
     lp.backward()
     torch.cuda.synchronize()
     total = 0.0
+    names = {"_TakeRowsBackward": "K9 segment_sum", "IndexBackward0": "index_put_ (sorted)",
+             "IndexSelectBackward0": "index_add_"}
     for site, kind, src, n_idx, t0, t1 in sorted(timed, key=lambda r: r[0]):
         ms = t0.elapsed_time(t1)
         total += ms
-        log(f"# ({tag}) table backward {kind} table {src} queries {n_idx}: {ms:.3f} ms at {site}")
+        log(f"# ({tag}) table backward {names[kind]} table {src} queries {n_idx}: {ms:.3f} ms "
+            f"at {site}")
     log(f"# ({tag}) table backwards of one value+grad: {len(timed)} nodes, {total:.3f} ms "
         f"of device time (events around each node)")
+    assert not any(kind == "IndexSelectBackward0" for _, kind, *_ in timed), \
+        f"({tag}) a table backward still runs index_add_"
+    k9_on_cotangents(cotangents, tag)
     return len(timed), total
+
+
+# K9 on each light cone's own lookup cotangents, by tag: the largest error
+# per column over the column's own largest |sum| (`k9_on_cotangents`), held
+# at the level of the sort-based sum (advanced indexing's backward)
+K9_PATH, K9_PATH_TOL = {}, 5.1e-6
+
+
+def k9_on_cotangents(cotangents, tag):
+    """K9 against its plain version in float64 on the cotangents and ids
+    that the path's table gathers received (captured by `table_backwards`):
+    per column (a table channel), max |K9 - plain| over that column's own
+    largest |sum|, so that a column whose sums are much smaller than the
+    others' is held in its own terms; columns that sum to 0 are skipped."""
+    from montecosmo_tpu_torch.ops import segment as S
+
+    worst = {}
+    for site, g, idx, rows in cotangents:
+        src = g.reshape(g.shape[0], -1)
+        k9 = S.segment_sum_kernel(src, idx, rows).double()
+        ref = S.segment_sum_plain(src.double(), idx, rows)
+        scale = ref.abs().amax(0)
+        live = scale > 0
+        err = ((k9 - ref).abs().amax(0)[live] / scale[live]).tolist()
+        worst[site] = max(err, default=0.0)
+        log(f"# ({tag}) K9 on the path's cotangent at {site}: N {src.shape[0]} R {rows} C "
+            f"{src.shape[1]} ({src.dtype}); per-column max_rel_err "
+            f"{[f'{e:.3e}' for e in err]} (columns summing to 0: {int((~live).sum())})")
+        assert worst[site] <= K9_PATH_TOL, f"({tag}) K9 disagrees at {site}"
+    K9_PATH[tag] = worst
+    log(f"# ({tag}) K9 on the path's cotangents: largest per-column error "
+        f"{max(worst.values(), default=0.0):.3e} over {len(worst)} lookups")
+
+
+def gradient_witness(leaves, value_and_grad, tag, keys=("Omega_m_", "sigma8_")):
+    """ROADMAP Queue C 1's witness: one value+grad made twice from the same
+    inputs, every kernel run anew (K1's and K5's meshes and K9's table
+    gradients sum in fixed point): the Omega_m and sigma8 gradients must be
+    equal bit for bit (every latent's is printed).  Returns the largest
+    difference of each."""
+    def grads():
+        value_and_grad()
+        torch.cuda.synchronize()
+        return {k: v.grad.detach().clone() for k, v in leaves.items()}
+
+    runs = [grads(), grads()]
+    same = {k: torch.equal(runs[0][k], runs[1][k]) for k in runs[0]}
+    diff = {k: float((runs[0][k] - runs[1][k]).abs().max()) for k in keys}
+    log(f"# ({tag}) witness, two value+grads: {keys} gradients "
+        f"{[runs[0][k].item() for k in keys]} / {[runs[1][k].item() for k in keys]}, largest "
+        f"difference {diff}; equal bit for bit {[k for k, v in same.items() if v]}, different "
+        f"{[k for k, v in same.items() if not v]}")
+    assert all(same[k] for k in keys), f"({tag}) the {keys} gradients are not reproducible"
+    return diff
+
+
+# ---------------------------------------------------------- phases 5h-5j
+# the Kaiser flagship's three regimes (5h): bench.py's configuration with
+# evolution='kaiser'
+KAISER_REGIMES = {"flat sky, a_obs 0.5": dict(a_obs=0.5, curved_sky=False),
+                  "flat-sky light cone": dict(a_obs=None, curved_sky=False),
+                  "curved-sky light cone": dict(a_obs=None, curved_sky=True)}
+
+
+def kaiser_32(name, regime):
+    """The 32^3 Kaiser evolution in one regime on the golden white mesh,
+    card against CPU at phase 4's tolerances: the galaxy mesh (transfer,
+    coherence) and the logpdf on the card's counts (1e-4 relative); both
+    gradients finite."""
+    preds, lps = {}, {}
+    for dev in ("cuda", "cpu"):
+        m, p, preds[dev] = golden_predict(dev, "kaiser", **regime)
+        obs = preds["cuda"]["count_mesh"].to(dev)
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+        lp = m.logpdf({**leaves, "count_mesh": obs})
+        lp.backward()
+        lps[dev] = (lp.item(), leaves["Omega_m_"].grad.item(), leaves["sigma8_"].grad.item())
+        assert all(bool(torch.isfinite(v.grad).all()) for v in leaves.values()), (name, dev)
+    check_transfer(preds["cuda"]["gxy_mesh"].cpu().numpy(), preds["cpu"]["gxy_mesh"].numpy(),
+                   f"5h 32^3 Kaiser, {name}, card vs CPU")
+    rel = abs(lps["cuda"][0] - lps["cpu"][0]) / abs(lps["cpu"][0])
+    log(f"# 5h 32^3 Kaiser, {name}: (logpdf, d/dOmega_m_, d/dsigma8_) card {lps['cuda']}, CPU "
+        f"{lps['cpu']}; logpdf relative difference {rel:.3e} (limit 1e-4)")
+    assert rel <= 1e-4, f"5h: the 32^3 Kaiser {name} logpdf disagrees between card and CPU"
+
+
+def phase_kaiser():
+    """5h: the Kaiser flagship (bench.py's configuration, evolution='kaiser':
+    128^3 final, init 192^3, evol 224^3) in its three regimes, each first
+    held at 32^3 against the CPU (`kaiser_32`), then timed as phase 5 (2
+    warm-ups, 5 value+grads, the tables fixed beside); K8 and K9 must
+    launch.  Returns K9's launches of each regime's 7 evaluations."""
+    for name, regime in KAISER_REGIMES.items():
+        kaiser_32(name, regime)
+    for name, regime in KAISER_REGIMES.items():
+        phase_bench("kaiser", (), f"Kaiser, {name}", **regime)
+    return {name: K9_LAUNCHES[f"Kaiser, {name}"] for name in KAISER_REGIMES}
+
+
+LIKELIHOODS = ("poisson", "fourier_gauss", "two_quad_gauss", "shash", "powspec")
+
+
+def phase_likelihoods():
+    """5i: the other likelihoods at the Kaiser flat-sky flagship: lik_type
+    poisson, fourier_gauss, two_quad_gauss and shash, then
+    observable='powspec' with poles (0, 2, 4); each a `predict` draw, the
+    model conditioned on it, 1 warm-up and 3 timed value+grads, finite,
+    with the peak memory and K8/K9 launches; powspec must launch K9's
+    forward (the spectrum's binning).  Returns {likelihood: median ms}."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    out = {}
+    for lik in LIKELIHOODS:
+        upd = dict(observable="powspec", poles=(0, 2, 4)) if lik == "powspec" else dict(
+            lik_type=lik)
+        t0 = time.perf_counter()
+        m = bench_model(evolution="kaiser", **upd)
+        site = "powspec" if lik == "powspec" else "count_mesh"
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        params = m.reparam({k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True)
+        params["white_mesh_"] = torch.randn(m.init_shape, generator=gen, device="cuda")
+        obs = m.predict(seed=gen, samples=params, hide_samp=False)[site]
+        assert bool(torch.isfinite(obs).all()), f"5i {lik}: non-finite draw"
+        m.substitute({site: obs})
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+        set_up = time.perf_counter() - t0
+
+        def value_and_grad():
+            for v in leaves.values():
+                v.grad = None
+            lp = m.logpdf(leaves)
+            lp.backward()
+            return lp
+
+        P.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        value_and_grad()
+        times, values = [], []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            values.append(value_and_grad().item())
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        k8, k9 = P.LAUNCHES["background_tables", "background", 0], k9_launches()
+        ok = np.all(np.isfinite(values)) and all(bool(torch.isfinite(v.grad).all())
+                                                 for v in leaves.values())
+        log(f"# 5i Kaiser flat-sky flagship, {lik} ({site} {tuple(obs.shape)}, set-up "
+            f"{set_up:.2f} s): ms/eval {[round(t, 3) for t in times]} median "
+            f"{np.median(times):.3f}; logpdf {values}; peak "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB; launches in 4 evals: K8 {k8}, "
+            f"K9 {k9}")
+        assert ok, f"5i {lik}: non-finite logpdf or gradient"
+        assert k8 == 4 and k9.get("take_rows", 0) >= 4, f"5i {lik}: K8/K9 launches {k8} {k9}"
+        if lik == "powspec":
+            assert k9.get("segment_sum", 0) >= 4, "5i powspec: K9's forward never launched"
+        out[lik] = float(np.median(times))
+        del m, leaves, obs
+    return out
 
 
 # ---------------------------------------------------------------- phase 5e
@@ -1637,9 +1968,12 @@ def phase_sampler(per_eval):
         ends.append(state)
     diff = max(float((ends[0].position[k] - ends[1].position[k]).abs().max())
                for k in state_w.position)
+    same = all(torch.equal(ends[0].position[k], ends[1].position[k]) for k in state_w.position)
     log(f"# 5e the same 2 McLachlan steps twice from one state and seed: largest position "
         f"difference {diff:.3e}, logdensities {ends[0].logdensity.item():.6e} / "
-        f"{ends[1].logdensity.item():.6e} (not asserted: the table gradients' atomics)")
+        f"{ends[1].logdensity.item():.6e}; every position equal bit for bit {same}")
+    assert same and torch.equal(ends[0].logdensity, ends[1].logdensity), \
+        "5e: two chains from one state and seed differ"
     return m, state_f
 
 
@@ -1871,46 +2205,31 @@ def hvp_column(logpdf, p, key):
 
 # ---------------------------------------------------------------- phase 5g
 def phase_tables_launches():
-    """5g: one value+grad of the 2LPT flagship profiled (torch.profiler)
-    with K8 and with the parent's loop (`parent_tables`) in its place: the
-    device kernels launched and the device-busy ms of each; then each timed
-    in turns (K8, loop, loop, K8), 3 value+grads a turn after a warm-up.
-    Returns {what: (launches, busy ms, median wall ms)}."""
+    """5g: one value+grad of the 2LPT flagship profiled (torch.profiler):
+    the device kernels launched and the device-busy ms; then 3 value+grads
+    timed after a warm-up.  Returns {"K8": (launches, busy ms, median wall
+    ms)}."""
     from torch.profiler import ProfilerActivity, profile
-    from montecosmo_tpu_torch.ops.background import Background
 
-    m, _, _, value_and_grad = flagship("lpt")
-    create = Background.__dict__["create"]
-    loop = classmethod(lambda cls, cosmo, device="cpu": parent_tables(cosmo, device))
-    walls, counts = {"K8": [], "parent loop": []}, {}
-    try:
-        for what, c in (("K8", create), ("parent loop", loop), ("parent loop", loop),
-                        ("K8", create)):
-            Background.create = c
-            value_and_grad()
-            for _ in range(3):
-                torch.cuda.synchronize()
-                t = time.perf_counter()
-                value_and_grad()
-                torch.cuda.synchronize()
-                walls[what].append(1e3 * (time.perf_counter() - t))
-        for what, c in (("K8", create), ("parent loop", loop)):
-            Background.create = c
-            torch.cuda.synchronize()
-            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-                value_and_grad()
-                torch.cuda.synchronize()
-            kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-            counts[what] = (sum(e.count for e in kernels),
-                            sum(e.self_device_time_total for e in kernels) / 1e3,
-                            float(np.median(walls[what])))
-    finally:
-        Background.create = create
-    for what, (n, busy, wall) in counts.items():
-        log(f"# 5g 2LPT flagship value+grad with {what}: {n} device kernels launched, device "
-            f"busy {busy:.3f} ms (profiled); wall ms {[round(t, 3) for t in walls[what]]} "
-            f"median {wall:.3f}")
-    assert counts["K8"][0] < counts["parent loop"][0]
+    _, _, _, value_and_grad = flagship("lpt")
+    value_and_grad()
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        value_and_grad()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t))
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        value_and_grad()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    counts = {"K8": (sum(e.count for e in kernels),
+                     sum(e.self_device_time_total for e in kernels) / 1e3,
+                     float(np.median(walls)))}
+    n, busy, wall = counts["K8"]
+    log(f"# 5g 2LPT flagship value+grad: {n} device kernels launched, device busy {busy:.3f} ms "
+        f"(profiled); wall ms {[round(t, 3) for t in walls]} median {wall:.3f}")
     return counts
 
 
@@ -2032,7 +2351,7 @@ def profile_eval(fn, eval_s, table=True):
     for tag in ("paint_cic_tiled_kernel", "paint_cic_forward_kernel", "paint_cic_adjoint_kernel",
                 "read_cic_forward_kernel", "read_cic_tiled_kernel", "read_cic_adjoint_tiled_kernel",
                 "read_cic_adjoint_kernel", "nufft_epilogue", "background_tables_kernel",
-                "indexing_backward", "indexFunc"):
+                "segment_sum_kernel", "indexing_backward", "indexFunc"):
         ms = sum(e.self_device_time_total for e in kernels if tag in e.key) / 1e3
         log(f"# profiler: kernels named *{tag}* {ms:.3f} ms = "
             f"{100 * ms / max(busy_ms, 1e-9):.2f}% of device time")
@@ -2148,6 +2467,12 @@ def main():
                                   lookups=True, a_obs=None, curved_sky=True, kernel_type=KB,
                                   paint_order=4)
     done("5d")
+    phase_kaiser()
+    done("5h")
+    lik_ms = phase_likelihoods()
+    done("5i")
+    eulerian = phase_bench("lpt", path_kernels(2), "2LPT, Eulerian bias", bias_type="eulerian")
+    done("5j")
     assert all(v % 7 == 0 for v in lpt_launches.values()), lpt_launches
     per_eval = {k: v // 7 for k, v in lpt_launches.items()}
     m, state_f = phase_sampler(per_eval)
@@ -2185,6 +2510,18 @@ def main():
                             "replaces": rep, "window": "bspline", "order": order,
                             "launches": hvp_launches[n] if order == 2 else 0,
                             **res[n + sfx], **(hvp_extras[n] if order == 2 else {})})
+    k9_rows = {tag: {w: n / 7 for w, n in k9.items()} for tag, k9 in K9_LAUNCHES.items()}
+    kernels.append({"name": "segment_sum", "route": "cuda", "source": CSRC + "segment_sum.cu",
+                    "replaces": "montecosmo_tpu/metrics.py:104",
+                    "also_replaces": "montecosmo_tpu/ops/interp.py:20 (the VJP of jnp.take)",
+                    "design": "runs summed in float64 registers, added once as fixed point "
+                              "with integer atomics (shared, then device memory)",
+                    "launches": sum(K9_LAUNCHES["lpt"].values()),
+                    "launches_per_value_and_grad": k9_rows,
+                    "likelihood_value_and_grad_ms": lik_ms,
+                    "eulerian_launches": eulerian,
+                    "path_cotangents_max_rel_err_per_column": K9_PATH,
+                    **res["segment_sum"]})
     kernels.append({"name": "background_tables", "route": "cuda",
                     "source": CSRC + "background_rk4.cu",
                     "replaces": "montecosmo_tpu/ops/background.py:115",

@@ -15,9 +15,10 @@
 // ops/paint_window_pallas.py::_paint_group_kernel / _paint_group_bwd_kernel
 // with the windows _bspline_T / _dbspline_T, orders 1-4).
 //
-// What bounds it on an H100: K1 here is P^3 n float atomics per particle
+// What bounds it on an H100: K1 here is P^3 n atomics per particle
 // (11.24M particles x 2 shifts: 22M at NGP, 180M at CIC, 607M at TSC,
-// 1.44G at PCS) into a 45 MB mesh per shift, i.e. the L2 atomic throughput.
+// 1.44G at PCS) into a 90 MB fixed-point mesh per shift, i.e. the L2
+// atomic throughput.
 // The TPU kernels built per-group one-hot windows for the MXU because
 // scatters are slow there; on Hopper the atomic scatter is the natural
 // form.  Design: one thread per particle, particles in lattice order so a
@@ -48,27 +49,32 @@
 // is C contiguous floats; no atomics.
 //
 // K5 is K4's VJP in one particle pass: the C-channel paint of the cotangent
-// into dmesh (P^3 C float atomics per particle: 270M at 224^3 with C = 3 at
+// into dmesh (P^3 C atomics per particle: 270M at 224^3 with C = 3 at
 // CIC, 910M at TSC, so it is bound by the L2 atomic rate as K1 is) and the
 // position gradient from the derivative window, zeroed on clamped axes
-// (K2's rule).  The lattice-brick K5 of paint_tiled.cu folds its tile
-// with sm_90's vector atomicAdd on float2/float4 where C allows.
+// (K2's rule).
+//
+// K1's and K5's atomics are 64-bit integer adds of fixed point into an
+// accumulator (mesh_fixed.cuh), turned into floats by a last pass, so their
+// meshes are the same bit for bit from launch to launch.
 //
 // Plain C interface, loaded with ctypes; each entry point returns
 // cudaGetLastError() of its launch (cudaErrorInvalidValue for an order
 // outside 1-4, or for K4/K5 a channel count outside 1-4).  The window is
 // chosen at run time among the 8 instantiations of each kernel.
-#include "paint_window.cuh"
+#include "mesh_fixed.cuh"
 
 namespace {
 
 template <class W>
 __global__ void paint_cic_forward_kernel(const float* __restrict__ pos,
                                          const float* __restrict__ w, int64_t n_p, Geom g,
-                                         float* __restrict__ out) {
+                                         float* __restrict__ out, unsigned long long* acc,
+                                         const unsigned* vmax) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_p) return;
   constexpr int P = W::P;
+  const MeshSum ms = mesh_sum(acc, vmax, n_p);
   const float px = pos[3 * p], py = pos[3 * p + 1], pz = pos[3 * p + 2];
   const float wp = w[p];
   const Site q = site<P>(p, g);
@@ -84,15 +90,14 @@ __global__ void paint_cic_forward_kernel(const float* __restrict__ pos,
     W::eval(x, g.X, q.bx, g, wx);
     W::eval(y, g.Y, q.by, g, wy);
     W::eval(z, g.Z, q.bz, g, wz);
-    float* o = out + (int64_t)s * N;
 #pragma unroll
     for (int a = 0; a < P; ++a)
 #pragma unroll
       for (int b = 0; b < P; ++b) {
-        const int64_t row = ((int64_t)wx.i[a] * g.Y + wy.i[b]) * g.Z;
+        const int64_t row = (int64_t)s * N + ((int64_t)wx.i[a] * g.Y + wy.i[b]) * g.Z;
         const float wab = wp * (wx.w[a] * wy.w[b]);
 #pragma unroll
-        for (int c = 0; c < P; ++c) atomicAdd(o + row + wz.i[c], wab * wz.w[c]);
+        for (int c = 0; c < P; ++c) ms.add(out, row + wz.i[c], wab * wz.w[c]);
       }
   }
 }
@@ -201,10 +206,12 @@ __global__ void read_cic_adjoint_kernel(const float* __restrict__ pos,
                                         const float* __restrict__ mesh,
                                         const float* __restrict__ ct, int64_t n_p, int C,
                                         Geom g, float* __restrict__ dmesh,
-                                        float* __restrict__ dpos) {
+                                        float* __restrict__ dpos, unsigned long long* acc,
+                                        const unsigned* vmax) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_p) return;
   constexpr int P = W::P;
+  const MeshSum ms = mesh_sum(acc, vmax, n_p);
   const Site q = site<P>(p, g);
   float x, y, z;
   const bool ax = place(pos[3 * p], q.qx, g.Hx, g.clamp, x);
@@ -233,7 +240,7 @@ __global__ void read_cic_adjoint_kernel(const float* __restrict__ pos,
 #pragma unroll
         for (int ch = 0; ch < kMaxC; ++ch)
           if (ch < C) {
-            atomicAdd(dmesh + cell + ch, wt * t[ch]);
+            ms.add(dmesh, cell + ch, wt * t[ch]);
             const float v = t[ch] * __ldg(mesh + cell + ch);
             sx += v * gx;
             sy += v * gy;
@@ -252,11 +259,18 @@ unsigned blocks_for(long long n_p) { return (unsigned)((n_p + kThreads - 1) / kT
 
 }  // namespace
 
+// acc: the fixed-point accumulator (mesh_fixed.cuh), n_shift X Y Z + 1
+// int64 words; null: float atomics, in a run-dependent order.
 extern "C" int paint_cic_forward(const float* pos, const float* w, long long n_p, GEOM_PARAMS,
-                                 float* out, void* stream) {
+                                 float* out, unsigned long long* acc, void* stream) {
   const Geom g = make_geom(GEOM_ARGS);
-  DISPATCH_WINDOW(order, kb, paint_cic_forward_kernel<W><<<blocks_for(n_p), kThreads, 0,
-                                                     (cudaStream_t)stream>>>(pos, w, n_p, g, out));
+  const long long cells = (long long)n_shift * X * Y * Z;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (acc != nullptr && n_p > 0) mesh_sum_begin(acc, cells, w, n_p, s);
+  const unsigned* vmax = acc ? (const unsigned*)(acc + cells) : nullptr;
+  DISPATCH_WINDOW(order, kb, paint_cic_forward_kernel<W><<<blocks_for(n_p), kThreads, 0, s>>>(
+                                 pos, w, n_p, g, out, acc, vmax));
+  if (acc != nullptr && n_p > 0) mesh_sum_end(acc, cells, n_p, out, s);
   return (int)cudaGetLastError();
 }
 
@@ -280,13 +294,19 @@ extern "C" int read_cic_forward(const float* pos, const float* mesh, long long n
   return (int)cudaGetLastError();
 }
 
+// acc: the fixed-point accumulator (mesh_fixed.cuh), X Y Z C + 1 int64
+// words; null: float atomics, in a run-dependent order.
 extern "C" int read_cic_adjoint(const float* pos, const float* mesh, const float* ct,
                                 long long n_p, int C, GEOM_PARAMS, float* dmesh, float* dpos,
-                                void* stream) {
+                                unsigned long long* acc, void* stream) {
   if (C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
   const Geom g = make_geom(GEOM_ARGS);
-  DISPATCH_WINDOW(order, kb, read_cic_adjoint_kernel<W><<<blocks_for(n_p), kThreads, 0,
-                                                     (cudaStream_t)stream>>>(pos, mesh, ct, n_p,
-                                                                             C, g, dmesh, dpos));
+  const long long cells = (long long)X * Y * Z * C;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (acc != nullptr && n_p > 0) mesh_sum_begin(acc, cells, ct, n_p * C, s);
+  const unsigned* vmax = acc ? (const unsigned*)(acc + cells) : nullptr;
+  DISPATCH_WINDOW(order, kb, read_cic_adjoint_kernel<W><<<blocks_for(n_p), kThreads, 0, s>>>(
+                                 pos, mesh, ct, n_p, C, g, dmesh, dpos, acc, vmax));
+  if (acc != nullptr && n_p > 0) mesh_sum_end(acc, cells, n_p, dmesh, s);
   return (int)cudaGetLastError();
 }

@@ -28,7 +28,10 @@
 // displacements.  After a barrier the tile is folded into the mesh: the
 // box of cells the in-tile particles reached, one reduction (RED) per
 // touched cell at its wrapped mesh cell.  Neighbouring tiles overlap, so
-// the caller zeroes the output.
+// the caller zeroes the output.  K1 and K5 reduce into a 64-bit fixed-point
+// accumulator (mesh_fixed.cuh), the device-memory corners too, and a last
+// pass turns it into floats: their meshes are the same bit for bit from
+// launch to launch.
 //
 // On sm_90a a float atomicAdd to shared memory is a compare-and-swap loop
 // (ATOMS.CAST.SPIN), which measured only ~2x the rate of the L2 atomics;
@@ -36,12 +39,12 @@
 // point: each CTA scales its values by 2^k from their largest magnitude
 // and adds each rounded product as two 32-bit words.  The sum is exact in
 // that fixed point (its quantum is ~2^-40 of the largest value) and is
-// rounded to float once, at the fold.
+// rounded once, at the fold: to the mesh's fixed point (K1, K5) or to
+// float (K6).
 //
 // K1 is the C = 1 case of the tile, once per interlace shift (the tile is
 // painted and folded per shift); K5 the C-channel case (the cotangent's
-// channel-last paint into dmesh; its fold adds C = 2 and 4 channels as one
-// vector RED, sm_90's float2/float4 atomicAdd), and K5's position gradient
+// channel-last paint into dmesh), and K5's position gradient
 // keeps K5's gather of `mesh` at the corners (K4's access pattern).
 //
 // Plain C interface, loaded with ctypes, as paint_cic.cu; each entry point
@@ -52,6 +55,7 @@
 // optional counter gets the number of corner products (not channels) that
 // took the device-memory path.
 #include "lattice_brick.cuh"
+#include "mesh_fixed.cuh"
 
 namespace {
 
@@ -140,11 +144,11 @@ __device__ __forceinline__ void tile_paint(Fixed* tile, const Tiles& t, int tx, 
 }
 
 // ...or into the mesh at the wrapped cells (device-memory atomics, the
-// atomic kernels' path).
+// atomic kernels' path), mesh cell 0 at `base`.
 template <int C, int P>
-__device__ __forceinline__ void mesh_paint(float* out, const Geom& g, const Win<P>& wx,
-                                           const Win<P>& wy, const Win<P>& wz,
-                                           const float (&val)[C]) {
+__device__ __forceinline__ void mesh_paint(const MeshSum& ms, float* out, int64_t base,
+                                           const Geom& g, const Win<P>& wx, const Win<P>& wy,
+                                           const Win<P>& wz, const float (&val)[C]) {
 #pragma unroll
   for (int a = 0; a < P; ++a)
 #pragma unroll
@@ -154,44 +158,61 @@ __device__ __forceinline__ void mesh_paint(float* out, const Geom& g, const Win<
 #pragma unroll
       for (int c = 0; c < P; ++c) {
         const float wt = wab * wz.w[c];
-        float* cell = out + (row + wz.i[c]) * C;
+        const int64_t cell = base + (row + wz.i[c]) * C;
 #pragma unroll
-        for (int ch = 0; ch < C; ++ch) atomicAdd(cell + ch, wt * val[ch]);
+        for (int ch = 0; ch < C; ++ch) ms.add(out, cell + ch, wt * val[ch]);
       }
     }
 }
 
 // The fold: the box's cells of the tile (C values per cell) added into the
-// (X, Y, Z, C) mesh as floats, z fastest so that a warp's reductions (RED)
-// fall in few 128-byte lines, and zeroed in the tile.  Each cell is wrapped
-// periodically (a tile wider than the mesh adds its aliased cells in turn);
-// cells that no particle reached are skipped.  K5's C = 2 and 4 channels
-// go as one vector reduction (sm_90's float2/float4 atomicAdd).
+// (X, Y, Z, C) mesh, its cell 0 at `base`, z fastest so that a warp's
+// reductions (RED) fall in few 128-byte lines, and zeroed in the tile.
+// Each cell is wrapped periodically (a tile wider than the mesh adds its
+// aliased cells in turn); cells that no particle reached are skipped.
+// K1 and K5 add each exact tile sum, rescaled from the brick's 2^-k to
+// the mesh's fixed point and rounded once, into its accumulator
+// (mesh_fixed.cuh); K6 (float atomics, `ms` without an accumulator) adds
+// floats, K5-style C = 2 and 4 channels as one vector reduction (sm_90's
+// float2/float4 atomicAdd).
 template <int C>
 __device__ __forceinline__ void fold(Fixed* tile, const Box& box, const Brick& k,
                                      const Tiles& t, const Geom& g, double to_float,
-                                     float* out) {
+                                     const MeshSum& ms, float* out, int64_t base) {
   const int n0 = box.hi[0] - box.lo[0], n1 = box.hi[1] - box.lo[1], n2 = box.hi[2] - box.lo[2];
   const int n = n0 > 0 && n1 > 0 && n2 > 0 ? n0 * n1 * n2 : 0;
+  const double to_mesh = to_float * ms.to_fixed;  // a power of two: exact
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     const int az = box.lo[2] + e % n2, r = e / n2;
     const int ay = box.lo[1] + r % n1, ax = box.lo[0] + r / n1;
     Fixed* cell = tile + ((ax * t.T[1] + ay) * t.T[2] + az) * C;
-    float v[C];
+    long long q[C];
     bool hit = false;
 #pragma unroll
     for (int ch = 0; ch < C; ++ch) {
       const Fixed f = cell[ch];
-      v[ch] = 0.f;
+      q[ch] = 0;
       if (f.lo | f.hi) {
         hit = true;
         cell[ch] = Fixed{0u, 0};
-        v[ch] = (float)((double)((long long)f.hi * (1LL << kLoBits) + f.lo) * to_float);
+        q[ch] = (long long)f.hi * (1LL << kLoBits) + f.lo;
       }
     }
     if (!hit) continue;
-    float* dst = out + (((int64_t)wrap(k.o[0] + ax, g.X) * g.Y + wrap(k.o[1] + ay, g.Y)) * g.Z
-                        + wrap(k.o[2] + az, g.Z)) * C;
+    const int64_t at = base + (((int64_t)wrap(k.o[0] + ax, g.X) * g.Y + wrap(k.o[1] + ay, g.Y)) *
+                               g.Z + wrap(k.o[2] + az, g.Z)) * C;
+    if (ms.acc != nullptr) {
+#pragma unroll
+      for (int ch = 0; ch < C; ++ch) {
+        const long long qm = __double2ll_rn((double)q[ch] * to_mesh);
+        if (qm != 0) atomicAdd(ms.acc + at + ch, (unsigned long long)qm);
+      }
+      continue;
+    }
+    float v[C];
+#pragma unroll
+    for (int ch = 0; ch < C; ++ch) v[ch] = (float)((double)q[ch] * to_float);
+    float* dst = out + at;
     if constexpr (C == 4) {
       atomicAdd(reinterpret_cast<float4*>(dst), make_float4(v[0], v[1], v[2], v[3]));
     } else if constexpr (C == 2) {
@@ -207,7 +228,8 @@ __device__ __forceinline__ void fold(Fixed* tile, const Box& box, const Brick& k
 template <class W>
 __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
     paint_cic_tiled_kernel(const float* __restrict__ pos, const float* __restrict__ w, Geom g,
-                           Tiles t, float* __restrict__ out, unsigned long long* n_out) {
+                           Tiles t, float* __restrict__ out, unsigned long long* n_out,
+                           unsigned long long* acc, const unsigned* acc_vmax) {
   extern __shared__ float4 smem[];
   Fixed* tile = reinterpret_cast<Fixed*>(smem);
   __shared__ unsigned n_glob, vmax;
@@ -216,6 +238,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
   const Brick k = brick_of<P>(blockIdx.x, g, t);
   const int n_site = k.n[0] * k.n[1] * k.n[2];
   const int64_t N = (int64_t)g.X * g.Y * g.Z;
+  const MeshSum ms = mesh_sum(acc, acc_vmax, (long long)g.Lx * g.Ly * g.Lz);
   if (threadIdx.x == 0) n_glob = vmax = 0;
   zero_tile(tile, t.T[0] * t.T[1] * t.T[2]);  // each fold leaves it zeroed
   unsigned mine = 0;
@@ -242,13 +265,13 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
                       sc.to_fixed);
         widen<P>(reached, st.t0);
       } else {
-        mesh_paint<1>(out + s * N, g, st.w[0], st.w[1], st.w[2], val);
+        mesh_paint<1>(ms, out, s * N, g, st.w[0], st.w[1], st.w[2], val);
         mine += P * P * P;
       }
     }
     reach(reached, box);
     __syncthreads();
-    fold<1>(tile, box, k, t, g, sc.to_float, out + s * N);
+    fold<1>(tile, box, k, t, g, sc.to_float, ms, out, s * N);
     __syncthreads();
   }
   count_outliers(mine, n_glob, n_out);
@@ -261,7 +284,8 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
     read_cic_adjoint_tiled_kernel(const float* __restrict__ pos, const float* __restrict__ mesh,
                                   const float* __restrict__ ct, Geom g, Tiles t,
                                   float* __restrict__ dmesh, float* __restrict__ dpos,
-                                  unsigned long long* n_out) {
+                                  unsigned long long* n_out, unsigned long long* acc,
+                                  const unsigned* acc_vmax) {
   extern __shared__ float4 smem[];
   Fixed* tile = reinterpret_cast<Fixed*>(smem);
   __shared__ unsigned n_glob, vmax;
@@ -269,6 +293,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
   constexpr int P = W::P;
   const Brick k = brick_of<P>(blockIdx.x, g, t);
   const int n_site = k.n[0] * k.n[1] * k.n[2];
+  const MeshSum ms = mesh_sum(acc, acc_vmax, (long long)g.Lx * g.Ly * g.Lz);
   if (threadIdx.x == 0) {
     n_glob = vmax = 0;
     open_box(box);
@@ -299,7 +324,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
       tile_paint<C>(tile, t, st.t0[0], st.t0[1], st.t0[2], wx, wy, wz, val, sc.to_fixed);
       widen<P>(reached, st.t0);
     } else {
-      mesh_paint<C>(dmesh, g, wx, wy, wz, val);
+      mesh_paint<C>(ms, dmesh, 0, g, wx, wy, wz, val);
       mine += P * P * P;
     }
     float sx = 0.f, sy = 0.f, sz = 0.f;
@@ -329,7 +354,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
   }
   reach(reached, box);
   __syncthreads();
-  fold<C>(tile, box, k, t, g, sc.to_float, dmesh);
+  fold<C>(tile, box, k, t, g, sc.to_float, ms, dmesh, 0);
   count_outliers(mine, n_glob, n_out);
 }
 
@@ -430,7 +455,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
     }
     reach(reached, box);
     __syncthreads();
-    fold<C>(tile, box, k, t, g, sc.to_float, o);
+    fold<C>(tile, box, k, t, g, sc.to_float, MeshSum{nullptr, 1.0, 1.0}, out, s * NC);
     __syncthreads();
   }
   count_outliers(mine, n_glob, n_out);
@@ -438,46 +463,68 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
 
 }  // namespace
 
+// acc: the fixed-point accumulator (mesh_fixed.cuh), n_shift X Y Z + 1
+// int64 words; null: float atomics, in a run-dependent order.
 extern "C" int paint_cic_tiled_forward(const float* pos, const float* w, GEOM_PARAMS,
                                        TILE_PARAMS, float* out, unsigned long long* n_out,
-                                       void* stream) {
+                                       unsigned long long* acc, void* stream) {
   const Geom g = make_geom(GEOM_ARGS);
   const Tiles t{{bx, by, bz}, R, {Tx, Ty, Tz}};
   if (!plan_ok(g, t, 1, smem, 8)) return (int)cudaErrorInvalidValue;
   const long long n_p = (long long)Lx * Ly * Lz;
+  const long long cells = (long long)n_shift * X * Y * Z;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (acc != nullptr && n_p > 0) mesh_sum_begin(acc, cells, w, n_p, s);
+  const unsigned* vmax = acc ? (const unsigned*)(acc + cells) : nullptr;
   int code = (int)cudaSuccess;
   DISPATCH_WINDOW(order, kb, code = launch_tiled(paint_cic_tiled_kernel<W>, g, t, smem, stream,
-                                                 pos, w, g, t, out, n_out));
+                                                 pos, w, g, t, out, n_out, acc, vmax));
+  if (code == (int)cudaSuccess && acc != nullptr && n_p > 0) {
+    mesh_sum_end(acc, cells, n_p, out, s);
+    code = (int)cudaGetLastError();
+  }
   return code;
 }
 
 template <class W>
 int read_adjoint_tiled(int C, const Geom& g, const Tiles& t, int smem, void* stream,
                        const float* pos, const float* mesh, const float* ct, float* dmesh,
-                       float* dpos, unsigned long long* n_out) {
+                       float* dpos, unsigned long long* n_out, unsigned long long* acc,
+                       const unsigned* vmax) {
   switch (C) {
     case 1: return launch_tiled(read_cic_adjoint_tiled_kernel<W, 1>, g, t, smem, stream, pos,
-                                mesh, ct, g, t, dmesh, dpos, n_out);
+                                mesh, ct, g, t, dmesh, dpos, n_out, acc, vmax);
     case 2: return launch_tiled(read_cic_adjoint_tiled_kernel<W, 2>, g, t, smem, stream, pos,
-                                mesh, ct, g, t, dmesh, dpos, n_out);
+                                mesh, ct, g, t, dmesh, dpos, n_out, acc, vmax);
     case 3: return launch_tiled(read_cic_adjoint_tiled_kernel<W, 3>, g, t, smem, stream, pos,
-                                mesh, ct, g, t, dmesh, dpos, n_out);
+                                mesh, ct, g, t, dmesh, dpos, n_out, acc, vmax);
     case 4: return launch_tiled(read_cic_adjoint_tiled_kernel<W, 4>, g, t, smem, stream, pos,
-                                mesh, ct, g, t, dmesh, dpos, n_out);
+                                mesh, ct, g, t, dmesh, dpos, n_out, acc, vmax);
   }
   return (int)cudaErrorInvalidValue;
 }
 
+// acc: the fixed-point accumulator (mesh_fixed.cuh), X Y Z C + 1 int64
+// words; null: float atomics, in a run-dependent order.
 extern "C" int read_cic_adjoint_tiled(const float* pos, const float* mesh, const float* ct,
                                       int C, GEOM_PARAMS, TILE_PARAMS, float* dmesh, float* dpos,
-                                      unsigned long long* n_out, void* stream) {
+                                      unsigned long long* n_out, unsigned long long* acc,
+                                      void* stream) {
   const Geom g = make_geom(GEOM_ARGS);
   const Tiles t{{bx, by, bz}, R, {Tx, Ty, Tz}};
   if (!plan_ok(g, t, C, smem, 8)) return (int)cudaErrorInvalidValue;
   const long long n_p = (long long)Lx * Ly * Lz;
+  const long long cells = (long long)X * Y * Z * C;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (acc != nullptr && n_p > 0) mesh_sum_begin(acc, cells, ct, n_p * C, s);
+  const unsigned* vmax = acc ? (const unsigned*)(acc + cells) : nullptr;
   int code = (int)cudaSuccess;
   DISPATCH_WINDOW(order, kb, code = read_adjoint_tiled<W>(C, g, t, smem, stream, pos, mesh, ct,
-                                                          dmesh, dpos, n_out));
+                                                          dmesh, dpos, n_out, acc, vmax));
+  if (code == (int)cudaSuccess && acc != nullptr && n_p > 0) {
+    mesh_sum_end(acc, cells, n_p, dmesh, s);
+    code = (int)cudaGetLastError();
+  }
   return code;
 }
 

@@ -1,6 +1,7 @@
-"""Physics bricks of the main path: reparametrizations, the linear field,
-Kaiser boost, Lagrangian bias, box geometry (flat or curved sky, at a fixed
-scale factor or on the light cone), RSD and the radial count selection.
+"""Physics bricks of the model paths: reparametrizations, the linear field,
+the Kaiser boost and the Kaiser (linear) galaxy field, Lagrangian and
+Eulerian bias, box geometry (flat or curved sky, at a fixed scale factor or
+on the light cone), RSD and the radial count selection.
 
 Parity: `montecosmo_tpu/models/bricks.py` (cited per function).  Rotations
 are 3x3 matrices (`Rotation`), in place of jax.scipy's Rotation objects.
@@ -8,6 +9,7 @@ are 3x3 matrices (`Rotation`), in place of jax.scipy's Rotation objects.
 import numpy as np
 import torch
 
+from montecosmo_tpu_torch.metrics import optim_mu2_delta
 from montecosmo_tpu_torch.models.truncnorm import std2trunc, trunc2std
 from montecosmo_tpu_torch.ops.background import Background, Cosmology
 from montecosmo_tpu_torch.ops.fourier import gradient_hat, invlaplace_hat, irfftn, rfftk, rfftn
@@ -73,6 +75,46 @@ def kaiser_boost(cosmo: Cosmology, a, mesh_shape, box_size, b1E, los=(0.0, 0.0, 
     mumesh = safe_div(sum(ki * float(li) for ki, li in zip(kvec, los)), kmesh)
     g, _, f, _ = bg._growth(a)
     return g * (b1E + f * mumesh**2)
+
+
+def _png_refused(png_type):
+    if png_type is not None:
+        raise NotImplementedError(
+            f"png_type={png_type!r}: the PNG term is not ported yet (ROADMAP Queue A item 4 (PNG))")
+
+
+def kaiser_model(cosmo: Cosmology, a, lin_mesh, box_size, b1E, png_type=None,
+                 los=(0.0, 0.0, 0.0), bg=None):
+    """Linear (Kaiser) galaxy field 1 + delta_g in real space: growth,
+    Eulerian bias b1E and RSD, in one of three regimes by the shapes of `a`
+    and `los`:
+    * flat sky at one scale factor (los (3,), `a` a number): diagonal in
+      Fourier, irfftn(lin_mesh g (b1E + f mu^2));
+    * flat-sky light cone (los (3,), `a` a per-cell mesh): two irffts,
+      g(a) (b1E irfftn(lin_mesh) + f(a) irfftn(mu^2 lin_mesh));
+    * curved sky (`los` a per-cell unit field (X, Y, Z, 3)): the mu^2 field
+      through the Y_2m decomposition (`metrics.optim_mu2_delta`).
+    g and f come from one lookup of the stacked growth table
+    (`Background._growth`).  The PNG term raises (png_type None only).
+
+    Parity: bricks.py:125-167."""
+    _png_refused(png_type)
+    if bg is None:
+        bg = Background.create(cosmo, lin_mesh.device)
+    mesh_shape = ch2rshape(lin_mesh.shape)
+    flat = not torch.is_tensor(los) or los.ndim == 1
+    if flat and not torch.is_tensor(a):  # flat sky, one scale factor
+        boost = kaiser_boost(cosmo, a, mesh_shape, box_size, b1E, los=los, bg=bg)
+        return 1 + irfftn(lin_mesh * boost)
+    g, _, f, _ = bg._growth(a)
+    if flat:  # flat-sky light cone
+        kvec = rfftk(mesh_shape, box_size, lin_mesh.device)
+        kmesh = sum(ki**2 for ki in kvec) ** 0.5
+        mumesh = safe_div(sum(ki * float(li) for ki, li in zip(kvec, los)), kmesh)
+        delta = b1E * irfftn(lin_mesh) + f * irfftn(mumesh**2 * lin_mesh)
+        return 1 + g * delta
+    delta, mu2_delta = optim_mu2_delta(lin_mesh, los)  # curved sky
+    return 1 + g * (b1E * delta + f * mu2_delta)
 
 
 def kaiser_posterior(delta_obs, cosmo: Cosmology, a, box_size, var_noise, b1E,
@@ -148,6 +190,16 @@ def samp2base_mesh(init: dict, precond, transfer, inv=False, temp=1.0) -> dict:
 
 
 # ======================================================================= bias
+def shear_comp(mesh, kvec, i, j):
+    """Component (i, j) of the traceless tidal tensor of the rfft mesh
+    `mesh`, in real space: irfftn((k_i k_j / k^2 - delta_ij / 3) mesh)."""
+    pot = mesh * invlaplace_hat(kvec)
+    nabi = gradient_hat(kvec, i)
+    if i == j:
+        return irfftn(nabi**2 * pot - mesh / 3)
+    return irfftn(nabi * gradient_hat(kvec, j) * pot)
+
+
 def lagrangian_bias(cosmo: Cosmology, pos, a, box_size, lin_mesh, bias, bg,
                     sites_shape):
     """Lagrangian bias weights up to 3rd order plus the Laplacian operator,
@@ -172,19 +224,12 @@ def lagrangian_bias(cosmo: Cosmology, pos, a, box_size, lin_mesh, bias, bg,
     kvec = rfftk(mesh_shape, box_size, lin_mesh.device)
     g = growths.squeeze()
 
-    def shear_comp(lk, i, j):
-        pot = lk * invlaplace_hat(kvec)
-        nabi = gradient_hat(kvec, i)
-        if i == j:
-            return irfftn(nabi**2 * pot - lk / 3)
-        return irfftn(nabi * gradient_hat(kvec, j) * pot)
-
-    sa = shear_comp(lin_mesh, 0, 0)
-    sb = shear_comp(lin_mesh, 1, 1)
+    sa = shear_comp(lin_mesh, kvec, 0, 0)
+    sb = shear_comp(lin_mesh, kvec, 1, 1)
     sc = -(sa + sb)
-    sd = shear_comp(lin_mesh, 0, 1)
-    se = shear_comp(lin_mesh, 0, 2)
-    sf = shear_comp(lin_mesh, 1, 2)
+    sd = shear_comp(lin_mesh, kvec, 0, 1)
+    se = shear_comp(lin_mesh, kvec, 0, 2)
+    sf = shear_comp(lin_mesh, kvec, 1, 2)
     shear2 = sa**2 + sb**2 + sc**2 + 2 * (sd**2 + se**2 + sf**2)
     shear3 = 3 * (sa * (sb * sc - sf**2) - sd * (sd * sc - se * sf)
                   + se * (sd * sf - sb * se))
@@ -221,8 +266,75 @@ def lagrangian_bias(cosmo: Cosmology, pos, a, box_size, lin_mesh, bias, bg,
     return weights, dvel, 0.0
 
 
+def velocity_bias(pos, a, box_size, lin_mesh, bnpar, bg, sites_shape):
+    """The Lagrangian velocity-bias displacement bnpar grad(dL) D at the
+    undisplaced particles: the part of `lagrangian_bias` that the Eulerian
+    path takes (its RSD), the same values (the three gradient fields read
+    at the sites, or at `pos` at order 1)."""
+    kvec = rfftk(ch2rshape(lin_mesh.shape), box_size, lin_mesh.device)
+    fields = [irfftn(gradient_hat(kvec, i) * lin_mesh) for i in range(3)]
+    if sites_shape is not None:
+        vals = read_sites(fields, sites_shape)
+    else:
+        vals = read_multi(pos, fields, 1)
+    return bnpar * vals * bg.a2g(a)
+
+
 def b1_L2E(b1):
     return 1 + b1
+
+
+def b1_E2L(b1):
+    return b1 - 1
+
+
+def b2_L2E(b2, b1L):
+    return b2 + 8 / 21 * b1L
+
+
+def b2_E2L(b2, b1L):
+    return b2 - 8 / 21 * b1L
+
+
+def bpd_L2E(bpd, bp):
+    return bpd + bp / 2
+
+
+def bpd_E2L(bpd, bp):
+    return bpd - bp / 2
+
+
+def eulerian_bias(matter_mesh, box_size, bias):
+    """Renormalized Eulerian bias operators applied to the advected matter
+    mesh (an rfft mesh):
+
+        w = 1 + b1E d + b2E/2 (d^2 - s2) + bs2 (s^2 - 2/3 s2) + bn2 lap(d)
+
+    with b1E, b2E the Eulerian biases of the Lagrangian b1, b2
+    (arXiv:1611.09787 eqs. 3.38, 7.10, 7.11).  Returns w in real space.
+    No PNG operators (png_type None): the advected phi mesh they read is not
+    needed.
+
+    Parity: bricks.py:469-513."""
+    b1, b2, bs2, bn2 = bias["b1"], bias["b2"], bias["bs2"], bias["bn2"]
+    b1, b2 = b1_L2E(b1), b2_L2E(b2, b1)
+    matter_mesh = matter_mesh.clone()
+    matter_mesh[0, 0, 0] = 0.0  # zero mean
+    delta = irfftn(matter_mesh)
+    kvec = rfftk(delta.shape, box_size, delta.device)
+    kmesh = sum(ki**2 for ki in kvec) ** 0.5
+
+    weights = 1.0 + b1 * delta
+    delta2 = delta**2
+    sigma2 = delta2.mean()
+    weights = weights + b2 * (delta2 - sigma2) / 2
+
+    shear2 = 0.0
+    for i in range(3):
+        for j in range(i, 3):
+            shear2 = shear2 + (1 if i == j else 2) * shear_comp(matter_mesh, kvec, i, j) ** 2
+    weights = weights + bs2 * (shear2 - 2 / 3 * sigma2)
+    return weights + bn2 * irfftn(-(kmesh**2) * matter_mesh)
 
 
 # ======================================================================= geometry

@@ -1,20 +1,23 @@
-"""Field-level cosmological model on the main path: prior -> 2LPT or BullFrog
-N-body evolve -> quad-Gaussian field likelihood, with the handler algebra of
+"""Field-level cosmological model: prior -> Kaiser, 2LPT or BullFrog N-body
+evolve -> field or power-spectrum likelihood, with the handler algebra of
 `Model`.
 
 Parity: `montecosmo_tpu/models/model.py` (default_config:56-154,
-Model:157-403 but `value_and_grad_staged`, `logdf_mesh` and save/load,
-FieldLevelModel:420-962, 1084-1130, 1283-1327 and 1486-1509).  The port covers
-evolution='lpt' and 'nbody' (BullFrog, at one scale factor `a_obs` or on
-the light cone with a_obs=None), B-spline paint orders 1-4 and Kaiser-Bessel
-windows of support 1-4, bias_type='lagrangian', flat or curved sky without
-AP or PNG,
-observable='field' with lik_type='quad_gauss', and precond 'kaiser', 'real'
-or 'fourier'; any other value raises NotImplementedError naming its ROADMAP
-item.  `reparam` works on plain dicts (no `Chains`).  `kaiser_post`, the
-samplers' start, is the flat-sky Kaiser posterior at the fiducial.
+Model:157-403 but `value_and_grad_staged` and save/load,
+FieldLevelModel:420-1130, 1283-1327 and 1486-1509).  The port covers
+evolution='kaiser' (its three regimes: flat sky at `a_obs`, the flat-sky
+light cone, the curved sky), 'lpt' and 'nbody' (BullFrog, at one scale
+factor `a_obs` or on the light cone with a_obs=None), B-spline paint orders
+1-4 and Kaiser-Bessel windows of support 1-4, bias_type 'lagrangian' or
+'eulerian', flat or curved sky without AP or PNG, observable 'field' with
+every lik_type (poisson, fourier_gauss, quad_gauss, two_quad_gauss, shash)
+or 'powspec', and precond 'kaiser', 'real' or 'fourier'; any other value
+raises NotImplementedError naming its ROADMAP item.  `reparam` works on
+plain dicts (no `Chains`).  `kaiser_post`, the samplers' start, is the
+flat-sky Kaiser posterior at the fiducial.
 """
 import functools
+import warnings
 from dataclasses import dataclass
 from pathlib import Path
 
@@ -22,14 +25,17 @@ import numpy as np
 import torch
 
 from montecosmo_tpu_torch.convert import params_from_numpy
+from montecosmo_tpu_torch.metrics import _plan, _spectrum, kbin_edges, legendre
 from montecosmo_tpu_torch.models import ppl
 from montecosmo_tpu_torch.models.bricks import (
-    Rotation, b1_L2E, cell2phys_pos, count2delta, kaiser_boost, kaiser_posterior,
-    lagrangian_bias, lin2white, los_scalefactor_mesh, los_scalefactor_pos, phys2cell_pos,
-    radius_mesh, regular_pos, rsd, samp2base, samp2base_mesh, set_radial_count, white2lin,
+    Rotation, b1_L2E, cell2phys_pos, count2delta, eulerian_bias, kaiser_boost, kaiser_model,
+    kaiser_posterior, lagrangian_bias, lin2white, los_scalefactor_mesh, los_scalefactor_pos,
+    phys2cell_pos, radius_mesh, regular_pos, rsd, samp2base, samp2base_mesh, set_radial_count,
+    velocity_bias, white2lin,
 )
 from montecosmo_tpu_torch.models.distributions import (
-    DetruncTruncNorm, DetruncUnif, Normal, QuadGaussian,
+    BlockMultivariateNormal, DetruncTruncNorm, DetruncUnif, Normal, Poisson, QuadGaussian,
+    SinhArcsinh, TwoQuadGaussian,
 )
 from montecosmo_tpu_torch.ops.background import Background, get_cosmology
 from montecosmo_tpu_torch.ops.fourier import irfftn, rfftk, rfftn, top_hat
@@ -38,7 +44,7 @@ from montecosmo_tpu_torch.ops.hermitian import (
 )
 from montecosmo_tpu_torch.ops.paint import nufft
 from montecosmo_tpu_torch.ops.pm import lpt, nbody_bf, nbody_bf_lightcone
-from montecosmo_tpu_torch.ops.power import lin_power_mesh
+from montecosmo_tpu_torch.ops.power import lin_power, lin_power_mesh
 from montecosmo_tpu_torch.utils import to_tensor
 from montecosmo_tpu_torch.utils.safe import safe_div
 
@@ -145,17 +151,14 @@ default_config = {
 
 
 _ROADMAP = {
-    "evolution": "ROADMAP Queue A item 4 (Kaiser evolution)",
-    "lik_type": "ROADMAP Queue A item 4 (likelihoods and observables)",
-    "bias_type": "ROADMAP Queue A item 4 (Eulerian bias)",
     "png_type": "ROADMAP Queue A item 4 (PNG)",
     "ap_auto": "ROADMAP Queue A item 4 (AP)",
-    "observable": "ROADMAP Queue A item 4 (likelihoods and observables)",
     "register": "ROADMAP Queue A item 6 (register files)",
 }
-_SUPPORTED = {"evolution": ("lpt", "nbody"), "lik_type": ("quad_gauss",),
-              "bias_type": ("lagrangian",), "png_type": (None,), "ap_auto": (None,),
-              "observable": ("field",), "register": (None,)}
+_SUPPORTED = {"png_type": (None,), "ap_auto": (None,), "register": (None,)}
+_CHOICES = {"evolution": ("kaiser", "lpt", "nbody"),
+            "lik_type": ("poisson", "fourier_gauss", "quad_gauss", "two_quad_gauss", "shash"),
+            "bias_type": ("lagrangian", "eulerian"), "observable": ("field", "powspec")}
 
 
 @dataclass
@@ -259,6 +262,15 @@ class Model:
         self._lp_zero = {k: float(v.mean()) for k, v in lps.items()}
         return self._lp_zero
 
+    def logdf_mesh(self, params={}, site="count_mesh"):
+        """Per-voxel (log-pdf, log-cdf) of `site` at the latents and
+        observables `params`."""
+        lps, tr = ppl.compute_log_probs(self.model, (), {}, params_from_numpy(params, self.device),
+                                        sum_log_prob=False)
+        d, value = tr[site]["fn"], tr[site]["value"]
+        logcdf = d.log_cdf(value) if hasattr(d, "log_cdf") else torch.log(d.cdf(value))
+        return lps[site], logcdf
+
     def potential(self, params={}):
         return -self.logpdf(params)
 
@@ -335,9 +347,9 @@ def _stacked(outs, shape):
 
 @dataclass
 class FieldLevelModel(Model):
-    """Field-level model on the main path: 2LPT or BullFrog N-body (at
-    `a_obs`, or on the light cone), Lagrangian bias, flat- or curved-sky
-    RSD, quad-Gaussian field likelihood.  Takes
+    """Field-level model: Kaiser, 2LPT or BullFrog N-body (at `a_obs`, or
+    on the light cone), Lagrangian or Eulerian bias, flat- or curved-sky
+    RSD, a field likelihood or the multipoles' (powspec).  Takes
     every key of `default_config` plus `device`, the card ("cuda") unless
     the caller names another."""
 
@@ -392,6 +404,9 @@ class FieldLevelModel(Model):
             if getattr(self, key) not in allowed:
                 raise NotImplementedError(
                     f"{key}={getattr(self, key)!r} is not ported yet ({_ROADMAP[key]})")
+        for key, allowed in _CHOICES.items():
+            if getattr(self, key) not in allowed:
+                raise ValueError(f"Unknown {key}: {getattr(self, key)!r} (one of {allowed})")
         if self.evolution == "nbody" and self.a_obs is None and self.nbody_snapshots is not None:
             raise ValueError("nbody_snapshots and the N-body light cone (a_obs=None) are "
                              "exclusive")
@@ -484,6 +499,11 @@ class FieldLevelModel(Model):
         self.selec_fid = float(np.mean(np.asarray(self.selec_mesh)**2)**0.5
                                / np.mean(np.asarray(self.selec_mesh)))
         self._precond_cache = None
+        # the powspec observable's binning and covariance: host numpy, once
+        self._powspec_cache = None
+        self.powspec_data = None
+        if self.observable == "powspec":
+            self._powspec_static()
 
     # ------------------------------------------------------------------ program
     def _model(self, temp_prior=1.0, temp_lik=1.0):
@@ -515,23 +535,33 @@ class FieldLevelModel(Model):
         return cosmology, bias, png, stoch, ap, syst, init
 
     def evolve(self, params: tuple):
-        """Linear field -> 2LPT or BullFrog N-body -> Lagrangian bias -> RSD
-        -> painted galaxy mesh (1 + delta_obs) on the paint mesh.  The
-        render's paint window is `kernel_type`'s; the N-body force paints and
-        reads are B-splines of `paint_order` whatever it is, as in the JAX
-        package."""
+        """Linear field -> Kaiser, or 2LPT or BullFrog N-body -> Lagrangian
+        or Eulerian bias -> RSD -> the galaxy mesh (1 + delta_obs), on the
+        paint mesh (the evol mesh, resampled to the final one, for Kaiser).
+        The render's paint window is `kernel_type`'s; the N-body force
+        paints and reads are B-splines of `paint_order` whatever it is, as
+        in the JAX package."""
         cosmology, bias, png, stoch, ap, syst, init = params
         bg = Background.create(cosmology, self.device)
 
         init_mesh = white2lin(cosmology, init["white_mesh"], self.init_shape,
                               self.box_size, self.lin_kpow)
         init_mesh = chreshape(init_mesh, r2chshape(self.evol_shape))
+        if self.evolution == "kaiser":
+            return self._evolve_kaiser(cosmology, bias, stoch, syst, init_mesh, bg)
 
         pos = regular_pos(self.evol_shape, self.ptcl_shape, self.device)
         _, a = los_scalefactor_pos(pos, self.box_center, self.box_rot, self.box_size,
                                    self.evol_shape, bg, self.a_obs, self.curved_sky)
-        lbe_weights, dvel, phi = lagrangian_bias(cosmology, pos, a, self.box_size,
-                                                 init_mesh, bias, bg, self.evol_sites)
+        if self.bias_type == "lagrangian":
+            lbe_weights, dvel, phi = lagrangian_bias(cosmology, pos, a, self.box_size,
+                                                     init_mesh, bias, bg, self.evol_sites)
+        else:
+            # the Eulerian path takes only the velocity bias of the
+            # Lagrangian operators (the JAX package evaluates them all)
+            phi = 0.0
+            dvel = velocity_bias(pos, a, self.box_size, init_mesh, bias["bnpar"], bg,
+                                 self.evol_sites)
         if self.evolution == "lpt":
             dpos, vel = lpt(bg, init_mesh, pos=pos, a=a, lpt_order=self.lpt_order,
                             read_order=1, sites_shape=self.evol_sites)
@@ -568,33 +598,173 @@ class FieldLevelModel(Model):
         pos = phys2cell_pos(pos, self.box_center, self.box_rot, self.box_size,
                             self.init_shape)
 
-        gxy = nufft(pos, self.init_shape, tuple(self.paint_shape), weights=lbe_weights,
-                    paint_order=self.paint_order, interlace_order=self.interlace_order,
-                    kernel_type=self.kernel_type, paint_deconv=self.paint_deconv,
-                    lattice_shape=self.paint_lattice, max_disp=self.max_disp, clip=True)
-        gxy = gxy * float(np.prod(np.divide(self.init_shape, self.ptcl_shape)))
-        gxy_mesh = irfftn(chreshape(gxy, r2chshape(self.paint_shape)))
+        def advect(weights, units):
+            mesh = nufft(pos, self.init_shape, tuple(self.paint_shape), weights=weights,
+                         paint_order=self.paint_order, interlace_order=self.interlace_order,
+                         kernel_type=self.kernel_type, paint_deconv=self.paint_deconv,
+                         lattice_shape=self.paint_lattice, max_disp=self.max_disp, clip=True)
+            mesh = mesh * float(np.prod(np.divide(units, self.ptcl_shape)))
+            return chreshape(mesh, r2chshape(self.paint_shape))
+
+        if self.bias_type == "lagrangian":
+            gxy_mesh = irfftn(advect(lbe_weights, self.init_shape))
+        else:
+            # the advected matter mesh, in paint-mesh units (the JAX
+            # package's advect: paint_shape / ptcl_shape, not the Lagrangian
+            # render's init_shape / ptcl_shape)
+            gxy_mesh = eulerian_bias(advect(1.0, self.paint_shape), self.box_size, bias)
         gxy_mesh = ppl.deterministic("gxy_mesh", gxy_mesh)
         return gxy_mesh, phi, stoch, syst
 
-    def likelihood(self, params: tuple, temp=1.0):
-        """Observe the galaxy count mesh under the quad-Gaussian noise."""
-        gxy_mesh, phi, stoch, syst = params
-        rcounts = syst["ngbars"] * self.cell_length**3
+    def _evolve_kaiser(self, cosmology, bias, stoch, syst, init_mesh, bg):
+        """The Kaiser evolution (`kaiser_model`) on the evol mesh, each cell
+        at its scale factor on the light cone (a_obs None) and along its
+        own line of sight on the curved sky, resampled to the final mesh."""
+        los, a = los_scalefactor_mesh(self.box_center, self.box_rot, self.box_size,
+                                      self.evol_shape, bg, self.a_obs, self.curved_sky)
+        if not torch.is_tensor(los):  # flat sky: the box frame's line of sight
+            los = self.box_rot.apply(np.asarray(los, float), inverse=True)
+        gxy_mesh = kaiser_model(cosmology, a, init_mesh, self.box_size, b1_L2E(bias["b1"]),
+                                png_type=self.png_type, los=los, bg=bg)
+        if tuple(gxy_mesh.shape) != tuple(self.final_shape):
+            gxy_mesh = irfftn(chreshape(rfftn(gxy_mesh), r2chshape(self.final_shape)))
+        gxy_mesh = ppl.deterministic("gxy_mesh", gxy_mesh)
+        return gxy_mesh, 0.0, stoch, syst
+
+    def _count_mesh(self, gxy_mesh, rcounts):
+        """The galaxy mesh on the final mesh, times each radial bin's count."""
         count_mesh = irfftn(chreshape(rfftn(gxy_mesh * float(self.selec_mesh)),
                                       r2chshape(self.final_shape)))
-        count_mesh = set_radial_count(count_mesh, self._rmesh, self.redges, rcounts)
+        return set_radial_count(count_mesh, self._rmesh, self.redges, rcounts)
+
+    def likelihood(self, params: tuple, temp=1.0):
+        """Observe the galaxy count mesh under the `lik_type` noise, or its
+        multipole spectra (observable='powspec')."""
+        gxy_mesh, phi, stoch, syst = params
+        if self.observable == "powspec":
+            return self._likelihood_powspec(gxy_mesh, stoch, syst, temp)
+        rcounts = syst["ngbars"] * self.cell_length**3
+        count_mesh = self._count_mesh(gxy_mesh, rcounts)
         selec_mesh = rcounts.mean()
+
+        if self.lik_type == "poisson":
+            return ppl.sample("count_mesh", Poisson(count_mesh.abs() ** (1 / temp)))
+        if self.lik_type == "fourier_gauss":
+            kvec = rfftk(self.final_shape, self.box_size, self.device)
+            kmesh = sum(ki**2 for ki in kvec) ** 0.5
+            mumesh = safe_div(sum(ki * float(li) for ki, li in zip(kvec, self.los_fid)), kmesh)
+            scale = (stoch["s_e"] + stoch["s_k2e"] * kmesh**2
+                     + stoch["s_kmu2e"] * (kmesh * mumesh) ** 2).abs()
+            scale = cgh2rg(scale * selec_mesh**0.5 * temp**0.5, norm="amp")
+            return ppl.sample("count_mesh", Normal(cgh2rg(rfftn(count_mesh)), scale))
 
         delta = count_mesh / selec_mesh - 1
         scale1 = (stoch["s_e"] + stoch["s_ed"] * delta + stoch["s_ep"] * phi).abs() + 1e-9
         scale1 = scale1 * selec_mesh**0.5 * temp**0.5
         scale2 = stoch["s_e2"] * selec_mesh**0.5
-        return ppl.sample("count_mesh", QuadGaussian(count_mesh, scale1, scale2))
+        if self.lik_type == "quad_gauss":
+            return ppl.sample("count_mesh", QuadGaussian(count_mesh, scale1, scale2))
+        if self.lik_type == "two_quad_gauss":
+            return ppl.sample("count_mesh", TwoQuadGaussian(count_mesh, scale1, scale2))
+        # shash: the moment-matched SinhArcsinh of the quad-Gaussian (mean
+        # and std exact, skewness and tails to first order in scale2/scale1)
+        ratio = scale2 / scale1
+        return ppl.sample("count_mesh", SinhArcsinh(
+            count_mesh, (scale1**2 + 2 * scale2**2) ** 0.5, 3.540 * ratio, 1 + 5.884 * ratio**2))
+
+    # ------------------------------------------------------------------ powspec observable
+    def _powspec_estimate(self, delta):
+        """Stacked multipole spectra (n_ell, n_k) of a density-contrast cube:
+        the cached plan's weights, one segment sum (K9)."""
+        _, _, pows = _spectrum(delta, box_size=self.box_size, ells=tuple(self.poles),
+                               kedges=self._powspec_static()["kedges"], include_corners=False,
+                               los=self.los_fid)
+        return torch.stack([pows[int(ell)] for ell in self.poles])
+
+    def _powspec_static(self):
+        """The powspec observable's static artefacts, host numpy, once per
+        model: the k binning (`kedges`, `kmean`) and `tril`, the (n_k, n_ell,
+        n_ell) Cholesky factors of the Gaussian multipole covariance
+        evaluated on the discrete rfft mode grid,
+            C_l1l2(bin) = (2 l1 + 1)(2 l2 + 1) / N_k^2
+                          sum_modes 2 w L_l1(mu) L_l2(mu) (P_fid(k, mu) + shot)^2,
+        P_fid the fiducial Kaiser spectrum from the port's own `lin_power`,
+        shot = s_e^2 / nbar (tril on the model's device)."""
+        if self._powspec_cache is not None:
+            return self._powspec_cache
+        if float(np.linalg.norm(self.los_fid)) == 0 and any(int(ell) > 0 for ell in self.poles):
+            warnings.warn("observable='powspec' with ell>0 needs a fixed line of sight "
+                          "(off-center box): los_fid is zero, higher multipoles are estimated "
+                          "with mu=0.")
+        # the plan `_powspec_estimate`'s spectra take (the same cache key)
+        kedges = kbin_edges(tuple(self.final_shape), np.asarray(self.box_size, float),
+                            self.powspec_kedges, include_corners=False)
+        plan, *_, (kmesh, mumesh, mult) = _plan(self.final_shape, self.box_size, kedges,
+                                                tuple(int(ell) for ell in self.poles), False,
+                                                self.los_fid, self.device)
+        kmean, nk, seg, B = plan["kmean"], plan["nmodes"], plan["seg"], plan["nb"]
+        nk = np.maximum(nk, 1.0)
+
+        with torch.no_grad():
+            ks, pows = lin_power(self.cosmo_fid, a=self.a_fid, kpow=self.lin_kpow,
+                                 bg=self.bg_fid, device=self.device)
+            f_fid = float(self.bg_fid.a2f(self.a_fid))
+        pk = np.interp(kmesh, ks.cpu().numpy(), pows.cpu().numpy(), left=0.0, right=0.0)
+        b1E = float(b1_L2E(np.mean(self.fiduc["b1"])))
+        nbar = float(np.mean(self.fiduc["ngbars"]))
+        shot = float(np.mean(self.fiduc["s_e"])) ** 2 / nbar
+        ptot = (b1E + f_fid * mumesh**2) ** 2 * pk + shot
+
+        poles = [int(ell) for ell in self.poles]
+        legs = [legendre(ell)(mumesh).reshape(-1) for ell in poles]
+        var = 2.0 * mult.reshape(-1) * ptot.reshape(-1) ** 2
+        inbin = seg < B
+        D = len(poles)
+        cov = np.empty((B, D, D))
+        for i, li in enumerate(poles):
+            for j, lj in enumerate(poles[: i + 1]):
+                cij = np.zeros(B)
+                np.add.at(cij, seg[inbin], (legs[i] * legs[j] * var)[inbin])
+                cij *= (2 * li + 1) * (2 * lj + 1) / nk**2
+                cov[:, i, j] = cov[:, j, i] = cij
+        # ridge-regularize near-singular low-k blocks
+        tr = np.trace(cov, axis1=-2, axis2=-1) / D
+        cov += (1e-6 * tr[:, None, None] + 1e-30) * np.eye(D)
+        tril = torch.as_tensor(np.linalg.cholesky(cov), dtype=torch.float32, device=self.device)
+        self._powspec_cache = {"kedges": np.asarray(kedges), "kmean": np.asarray(kmean),
+                               "tril": tril}
+        return self._powspec_cache
+
+    def _likelihood_powspec(self, gxy_mesh, stoch, syst, temp=1.0):
+        """Gaussian multipole-spectrum likelihood with the per-k-bin
+        multipole covariance of `_powspec_static`."""
+        rcounts = syst["ngbars"] * self.cell_length**3
+        nbar_cell = rcounts.mean()
+        delta = self._count_mesh(gxy_mesh, rcounts) / nbar_cell - 1.0
+        pred = self._powspec_estimate(delta)
+        # stochasticity enters as the (scaled) shot-noise monopole
+        shot = stoch["s_e"] ** 2 / (nbar_cell / self.cell_length**3)
+        e0 = torch.tensor([float(int(ell) == 0) for ell in self.poles], device=self.device)
+        mean = pred + shot * e0[:, None]
+        tril = self._powspec_static()["tril"] * temp**0.5
+        return ppl.sample("powspec", BlockMultivariateNormal(mean, tril))
+
+    def powspec_obs(self, count_mesh=None):
+        """The multipoles (n_ell, n_k) of a count mesh (the registered one by
+        default), by the likelihood's own estimator."""
+        count_mesh = to_tensor(self.count_mesh if count_mesh is None else count_mesh,
+                               self.device)
+        nbar_cell = float(np.mean(self.fiduc["ngbars"])) * self.cell_length**3
+        with torch.no_grad():
+            return self._powspec_estimate(count_mesh / nbar_cell - 1.0)
 
     def obs_data(self):
-        """{site: value} to condition the model on its registered data (the
-        count mesh: observable='field' is the one ported)."""
+        """{site: value} to condition the model on its data: the count mesh,
+        or for observable='powspec' its multipoles (an assigned
+        `powspec_data`, e.g. a predicted draw, first)."""
+        if self.observable == "powspec":
+            data = self.powspec_data
+            return {"powspec": data if data is not None else self.powspec_obs()}
         return {"count_mesh": self.count_mesh}
 
     # ------------------------------------------------------------------ reparam
@@ -744,8 +914,13 @@ class FieldLevelModel(Model):
 
     # ------------------------------------------------------------------ data helpers
     def count2delta(self, mesh):
-        """Counts -> overdensity under the global integral constraint."""
-        mesh = masked2mesh(to_tensor(mesh, self.device), self.mask_mesh)
+        """Counts -> overdensity under the global integral constraint (the
+        fourier_gauss likelihood's counts are the real packing of their
+        rfft)."""
+        if self.lik_type == "fourier_gauss":
+            mesh = irfftn(rg2cgh(to_tensor(mesh, self.device)))
+        else:
+            mesh = masked2mesh(to_tensor(mesh, self.device), self.mask_mesh)
         selec = self.selec_mesh
         if np.ndim(selec) == 3 and tuple(np.shape(selec)) != tuple(mesh.shape):
             selec = irfftn(chreshape(rfftn(to_tensor(selec, self.device)),

@@ -24,7 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 BUILD_INFO = {"seconds": None, "log": ""}
 # kernel launches per (kernel, window, order): each wrapper adds one where it
-# launches (ops/paint.py, ops/background.py)
+# launches (ops/paint.py, ops/background.py, ops/segment.py)
 LAUNCHES = Counter()
 _LIB = None
 
@@ -87,17 +87,18 @@ def cuda_library(rebuild=False):
             raise RuntimeError(f"nvcc failed ({codes}):\n{BUILD_INFO['log']}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
-    lib.paint_cic_forward.argtypes = [_P, _P, _L, *_GEOM, _P, _P]
+    lib.paint_cic_forward.argtypes = [_P, _P, _L, *_GEOM, _P, _P, _P]
     lib.paint_cic_forward.restype = _I
     lib.paint_cic_adjoint.argtypes = [_P, _P, _P, _L, *_GEOM, _P, _P, _P]
     lib.paint_cic_adjoint.restype = _I
     lib.read_cic_forward.argtypes = [_P, _P, _L, _I, *_GEOM, _P, _P]
     lib.read_cic_forward.restype = _I
-    lib.read_cic_adjoint.argtypes = [_P, _P, _P, _L, _I, *_GEOM, _P, _P, _P]
+    lib.read_cic_adjoint.argtypes = [_P, _P, _P, _L, _I, *_GEOM, _P, _P, _P, _P]
     lib.read_cic_adjoint.restype = _I
-    lib.paint_cic_tiled_forward.argtypes = [_P, _P, *_GEOM, *_TILE, _P, _P, _P]
+    lib.paint_cic_tiled_forward.argtypes = [_P, _P, *_GEOM, *_TILE, _P, _P, _P, _P]
     lib.paint_cic_tiled_forward.restype = _I
-    lib.read_cic_adjoint_tiled.argtypes = [_P, _P, _P, _I, *_GEOM, *_TILE, _P, _P, _P, _P]
+    lib.read_cic_adjoint_tiled.argtypes = [_P, _P, _P, _I, *_GEOM, *_TILE, _P, _P, _P, _P,
+                                              _P]
     lib.read_cic_adjoint_tiled.restype = _I
     lib.read_cic_tiled.argtypes = [_P, _P, _I, *_GEOM, *_TILE, _P, _P, _P]
     lib.read_cic_tiled.restype = _I
@@ -116,6 +117,8 @@ def cuda_library(rebuild=False):
     lib.background_tables.restype = _I
     lib.fp64_chain.argtypes = [_L, _D, _P, _P]
     lib.fp64_chain.restype = _I
+    lib.segment_sum.argtypes = [_P, _P, _L, _I, _L, _I, _I, _P, _P, _P, _P]
+    lib.segment_sum.restype = _I
     _LIB = lib
     return lib
 

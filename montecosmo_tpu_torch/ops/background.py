@@ -243,26 +243,49 @@ def _tables(om, consts, device, dtype):
     return background_tables_plain(om, *consts, device, dtype)
 
 
+# K8 carries the tables' first and second Omega_m derivatives, not the third
+_THIRD = ("a third derivative through the background tables is not carried: K8 gives the "
+          "tables' first and second Omega_m derivatives (ROADMAP Queue C item 2)")
+
+
+class _SecondDerivative(torch.autograd.Function):
+    """d2Y as a function of Omega_m whose own derivative raises: the d2Y
+    term of `_BackgroundTables.backward`, differentiated again (a third
+    derivative), would need d3Y."""
+
+    @staticmethod
+    def forward(ctx, om, d2y):
+        return d2y.clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        raise NotImplementedError(_THIRD)
+
+
 class _BackgroundTables(torch.autograd.Function):
     """Omega_m -> (raw tables Y, dY = dY/dOmega_m), K8 or its plain
     version.  dY is an output, so the backward (gY, gdY) -> sum gY dY +
     sum gdY d2Y, differentiated once more under `create_graph`, gives the
     exact second derivative (the Hessian-vector products of `lapprox` and
-    `script._laplace_seed` are reverse over reverse).  d2Y is held fixed:
-    third derivatives are not carried."""
+    `script._laplace_seed` are reverse over reverse).  A third derivative
+    raises NotImplementedError: d2Y enters through `_SecondDerivative`."""
 
     @staticmethod
     def forward(ctx, om, consts, dtype):
         y, dy, d2y = _tables(om, consts, om.device, dtype)
         ctx.set_materialize_grads(False)
-        ctx.save_for_backward(dy)
+        ctx.save_for_backward(om, dy)
         ctx.d2y, ctx.shape = d2y, om.shape
         return y, dy
 
     @staticmethod
     def backward(ctx, gy, gdy):
-        (dy,) = ctx.saved_tensors
-        terms = [(g * t).sum() for g, t in ((gy, dy), (gdy, ctx.d2y)) if g is not None]
+        om, dy = ctx.saved_tensors
+        terms = []
+        if gy is not None:
+            terms.append((gy * dy).sum())
+        if gdy is not None:
+            terms.append((gdy * _SecondDerivative.apply(om, ctx.d2y)).sum())
         return (sum(terms).reshape(ctx.shape) if terms else None), None, None
 
 

@@ -8,6 +8,8 @@ query, the nodes and the values).
 import numpy as np
 import torch
 
+from montecosmo_tpu_torch.ops.segment import take_rows
+
 _TINY = float(np.finfo(np.float32).tiny)
 _EPS = float(np.spacing(np.finfo(np.float32).eps))
 _PAIRS = {}
@@ -21,20 +23,6 @@ def _node_pairs(xtab, device):
     if key not in _PAIRS:
         _PAIRS[key] = torch.as_tensor(np.stack([xt[:-1], 1.0 / np.diff(xt)], 1), device=device)
     return _PAIRS[key]
-
-
-def take_rows(tab, i):
-    """tab[i] for an integer index tensor `i` of any shape: i.shape +
-    tab.shape[1:].  Through `index_select` on the flattened index, whose
-    backward is `index_add_`: advanced indexing's backward is a sort-based
-    `index_put_` that walks each run of equal indices in one warp, and a
-    light cone's 11M queries fall in a few rows of a growth table (its
-    backward took ~30x longer on an H100, PERF.md).  `index_add_` sums with
-    float atomics on the card, so the table's gradient depends on the order
-    they land in: not reproducible bit for bit from run to run, and within
-    2.4e-5 of float64 where the sort-based sum was within 5.1e-6 (an H100,
-    11.24M light-cone queries, PERF.md)."""
-    return tab.index_select(0, i.reshape(-1)).reshape(i.shape + tab.shape[1:])
 
 
 def uniform_interp(x, x0, dx, ytab, left=None, right=None, logx=False,
@@ -51,7 +39,8 @@ def uniform_interp(x, x0, dx, ytab, left=None, right=None, logx=False,
     left, right : values outside the grid (None clamps to the end values).
 
     One gather of the stacked (n-1, 2, ...) pairs (y_i, y_{i+1}) per call,
-    as the JAX function takes them, so its backward is one scatter-add.
+    as the JAX function takes them, so its backward is one segment sum
+    (`take_rows`: K9 on the card).
     """
     n = ytab.shape[0]
     trail = (1,) * (ytab.ndim - 1)

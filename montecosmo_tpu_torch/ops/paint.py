@@ -503,6 +503,18 @@ def _counter(outliers, device):
     return _ptr(outliers)
 
 
+def _accumulator(mesh, fixed=True):
+    """The pointer to K1's and K5's fixed-point accumulator for the float32
+    `mesh` they add into (csrc/mesh_fixed.cuh): one int64 a cell and one
+    for the values' largest magnitude, zeroed by the kernel's launch.  With
+    `fixed` False a null pointer: the kernels then add floats with
+    atomics, in a run-dependent order (kept to time the fixed point's cost
+    against)."""
+    if not fixed:
+        return ctypes.c_void_p(None)
+    return _ptr(torch.empty(mesh.numel() + 1, dtype=torch.int64, device=mesh.device))
+
+
 def paint_cic_kernel(pos, weights, geom: CICGeometry):
     """K1 on the card, the atomic design: (S, X, Y, Z) float32 meshes."""
     return _paint_cic(pos, weights, geom, tiled=False)
@@ -514,7 +526,7 @@ def paint_cic_tiled_kernel(pos, weights, geom: CICGeometry, outliers=None):
     return _paint_cic(pos, weights, geom, tiled=True, outliers=outliers)
 
 
-def _paint_cic(pos, weights, geom, tiled, outliers=None):
+def _paint_cic(pos, weights, geom, tiled, outliers=None, fixed=True):
     from montecosmo_tpu_torch.ops import _kernels
 
     _check_cuda_inputs(pos, weights, geom)
@@ -525,11 +537,13 @@ def _paint_cic(pos, weights, geom, tiled, outliers=None):
         name = "paint_cic_tiled"
         code = lib.paint_cic_tiled_forward(_ptr(pos), _ptr(weights), *_geom_args(geom),
                                            *_tile_args(tile_plan(geom)), _ptr(out),
-                                           _counter(outliers, pos.device), stream)
+                                           _counter(outliers, pos.device),
+                                           _accumulator(out, fixed), stream)
     else:
         name = "paint_cic"
         code = lib.paint_cic_forward(_ptr(pos), _ptr(weights), ctypes.c_longlong(pos.shape[0]),
-                                     *_geom_args(geom), _ptr(out), stream)
+                                     *_geom_args(geom), _ptr(out), _accumulator(out, fixed),
+                                     stream)
     LAUNCHES[name, geom.window, geom.order] += 1
     _launch_status(code, name)
     return out
@@ -775,7 +789,7 @@ def read_cic_adjoint_tiled_kernel(pos, mesh, ct, geom: CICGeometry, outliers=Non
     return _read_cic_adjoint(pos, mesh, ct, geom, tiled=True, outliers=outliers)
 
 
-def _read_cic_adjoint(pos, mesh, ct, geom, tiled, outliers=None):
+def _read_cic_adjoint(pos, mesh, ct, geom, tiled, outliers=None, fixed=True):
     from montecosmo_tpu_torch.ops import _kernels
 
     _check_read_inputs(pos, mesh, geom)
@@ -783,7 +797,7 @@ def _read_cic_adjoint(pos, mesh, ct, geom, tiled, outliers=None):
     _require(ct.dtype == torch.float32 and ct.shape == (pos.shape[0], mesh.shape[-1]),
              f"cotangent {(pos.shape[0], mesh.shape[-1])} float32 expected")
     if mesh.shape[-1] > MAX_CHANNELS:
-        parts = [_read_cic_adjoint(pos, m, c, geom, tiled, outliers)
+        parts = [_read_cic_adjoint(pos, m, c, geom, tiled, outliers, fixed)
                  for m, c in _channel_chunks(mesh, ct)]
         return sum(d for d, _ in parts), torch.cat([m for _, m in parts], -1)
     lib = _kernels.cuda_library()
@@ -796,12 +810,14 @@ def _read_cic_adjoint(pos, mesh, ct, geom, tiled, outliers=None):
         code = lib.read_cic_adjoint_tiled(_ptr(pos), _ptr(mesh), _ptr(ct), ctypes.c_int(C),
                                           *_geom_args(geom), *_tile_args(tile_plan(geom, C)),
                                           _ptr(dmesh), _ptr(dpos),
-                                          _counter(outliers, pos.device), stream)
+                                          _counter(outliers, pos.device),
+                                          _accumulator(dmesh, fixed), stream)
     else:
         name = "read_cic_adjoint"
         code = lib.read_cic_adjoint(_ptr(pos), _ptr(mesh), _ptr(ct),
                                     ctypes.c_longlong(pos.shape[0]), ctypes.c_int(C),
-                                    *_geom_args(geom), _ptr(dmesh), _ptr(dpos), stream)
+                                    *_geom_args(geom), _ptr(dmesh), _ptr(dpos),
+                                    _accumulator(dmesh, fixed), stream)
     LAUNCHES[name, geom.window, geom.order] += 1
     _launch_status(code, name)
     return dpos, dmesh

@@ -165,3 +165,22 @@ def test_gradient_in_another_field_raises(field):
         tbg.Background.create(cosmo)
     # without a gradient the field is a constant
     tbg.Background.create(cosmo._replace(**{field: getattr(cosmo, field).detach()}))
+
+
+def test_third_derivative_through_the_tables_raises():
+    """Through `_BackgroundTables` (float64 Omega_m) the first and second
+    Omega_m derivatives of a weighted sum of the raw tables are K8's plain
+    dY and d2Y, projected on the weights, bit for bit; a third
+    `torch.autograd.grad` raises NotImplementedError naming ROADMAP Queue C
+    (d3Y is not carried), and never returns a gradient without the d3Y
+    term."""
+    om = torch.tensor(0.31, dtype=torch.float64, requires_grad=True)
+    consts = (0.0, -1.0, 0.0)
+    y, _ = tbg._BackgroundTables.apply(om, consts, torch.float64)
+    w = torch.tensor(np.random.default_rng(1).standard_normal(y.shape[0]))
+    (g,) = torch.autograd.grad((w * y).sum(), om, create_graph=True)
+    (h,) = torch.autograd.grad(g, om, create_graph=True)
+    _, dy, d2y = tbg.background_tables_plain(om, *consts, "cpu", torch.float64)
+    assert g.item() == (w * dy).sum().item() and h.item() == (w * d2y).sum().item()
+    with pytest.raises(NotImplementedError, match="Queue C"):
+        torch.autograd.grad(h, om)

@@ -91,7 +91,7 @@ def test_read_kernels_match_plain_on_card():
     B-spline and Kaiser-Bessel windows, clamped and unclamped, with ties as
     above, for C = 3 and for C = 6 (two launches of at most 4 channels)
     (skips without one).  K5's mesh gradient
-    sums with atomics in run-dependent order, hence the 1e-5 relative
+    sums in another order than the plain version, hence the 1e-5 relative
     tolerance on it as on the values."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: K4/K5 are CUDA")
@@ -123,8 +123,9 @@ def test_tiled_kernels_match_plain_and_atomic_on_card():
     the B-spline and Kaiser-Bessel windows, K5 at C = 3 and C = 6 (two
     launches of at most 4 channels); the routing of a clamped paint and read
     VJP to them from CIC up and to the atomic kernels at NGP
-    (ops/paint.py::TILED_FROM; skips without a card).  Both designs sum with
-    atomics in run-dependent order, hence the 1e-5 relative tolerance."""
+    (ops/paint.py::TILED_FROM; skips without a card).  Both designs sum in
+    another order than the plain version, hence the 1e-5 relative
+    tolerance."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the tiled K1/K5 are CUDA")
     dev = torch.device("cuda")
@@ -165,6 +166,51 @@ def test_tiled_kernels_match_plain_and_atomic_on_card():
         k5 = "read_cic_adjoint_tiled" if order > 1 else "read_cic_adjoint"
         assert tpa.launches_at(order, geom.window) == {k4: 2, k5: 2}
     assert wider
+
+
+@pytest.mark.cuda
+def test_paint_kernels_repeat_bit_for_bit_on_card():
+    """K1 and K5 in both designs (lattice-brick and atomic, clamped, and the
+    atomic one unclamped) give the same mesh bit for bit from launch to
+    launch: their atomics add fixed point (csrc/mesh_fixed.cuh).  At the
+    B-spline and Kaiser-Bessel orders 1-4, with outliers, and with weights
+    and cotangents spanning 12 decades; a non-finite weight makes the
+    paint non-finite where it lands (skips without a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K1/K5 are CUDA")
+    dev = torch.device("cuda")
+    pos, w = _lattice_particles((16, 16, 16), (2, 2, 2), 2, 21, n_out=400)
+    rng = np.random.default_rng(22)
+    pos, w = torch.tensor(pos, device=dev), torch.tensor(w, device=dev)
+    wide = w * torch.tensor(10.0 ** rng.uniform(-6, 6, w.shape[0]), dtype=torch.float32,
+                            device=dev)
+
+    def twice(f, *args):
+        a, b = f(*args), f(*args)
+        a, b = (a, b) if isinstance(a, tuple) else ((a,), (b,))
+        return all(torch.equal(x, y) for x, y in zip(a, b))
+
+    for kernel, order in [(k, o) for k in ("rectangular", "kaiser_bessel") for o in (1, 2, 3, 4)]:
+        gc = tpa.cic_geometry((32, 32, 32), 2, (16, 16, 16), 2, True, order, kernel, 192 / 224)
+        gu = tpa.cic_geometry((32, 32, 32), 2, order=order, kernel_type=kernel,
+                              oversamp=192 / 224)
+        g1 = tpa.cic_geometry((32, 32, 32), 1, (16, 16, 16), 2, True, order, kernel, 1.5)
+        mesh = torch.randn((32, 32, 32, 3), device=dev)
+        ct = torch.randn((pos.shape[0], 3), device=dev) * wide[:, None] / w[:, None]
+        for weights in (w, wide):
+            assert twice(tpa.paint_cic_tiled_kernel, pos, weights, gc), (kernel, order)
+            assert twice(tpa.paint_cic_kernel, pos, weights, gc), (kernel, order)
+            assert twice(tpa.paint_cic_kernel, pos, weights, gu), (kernel, order)
+        assert twice(tpa.read_cic_adjoint_tiled_kernel, pos, mesh, ct, g1), (kernel, order)
+        assert twice(tpa.read_cic_adjoint_kernel, pos, mesh, ct, g1), (kernel, order)
+        ref = tpa.paint_cic_plain(pos, wide, gc)
+        out = tpa.paint_cic_tiled_kernel(pos, wide, gc)
+        torch.testing.assert_close(out, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    bad = w.clone()
+    bad[5] = float("nan")
+    for f in (tpa.paint_cic_tiled_kernel, tpa.paint_cic_kernel):
+        out = f(pos, bad, gc)
+        assert torch.isnan(out).any() and torch.isfinite(out).sum() > out.numel() // 2
 
 
 @pytest.mark.cuda
@@ -361,3 +407,46 @@ def test_background_kernel_matches_plain_on_card():
     (hc,) = torch.autograd.grad(gc, omc)
     torch.testing.assert_close(g.detach().cpu(), gc.detach(), rtol=1e-5, atol=0)
     torch.testing.assert_close(h.cpu(), hc, rtol=1e-5, atol=0)
+
+
+@pytest.mark.cuda
+def test_segment_sum_kernel_matches_plain_and_repeats_bit_for_bit_on_card():
+    """K9 (`segment_sum`) against its plain version in float64 on the card,
+    float32 and float64 values, int32 and int64 ids, ids in runs (a light
+    cone's) and uniform, some out of range; 1, 2, 8 and 10 columns (10: two
+    column chunks) and a table of 7000 x 2 rows (row chunks): within 1e-6
+    (float32) and 1e-12 (float64) of the largest sum, and two launches
+    equal bit for bit.  Then `take_rows`' backward launches K9 under
+    "take_rows" and matches the CPU's.  Skips without a card."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K9 is CUDA")
+    from montecosmo_tpu_torch.ops import segment as tsg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)
+    for n, cols, rows in ((200_000, 1, 82), (300_000, 2, 2047), (100_000, 8, 127),
+                          (50_000, 10, 111), (60_000, 2, 7000)):
+        for kind in ("runs", "uniform"):
+            ids = rng.integers(-2, rows + 2, n)
+            ids = np.sort(ids) if kind == "runs" else ids
+            src = rng.standard_normal((n, cols)) * 10.0 ** rng.uniform(-2, 2, (n, 1))
+            ref = tsg.segment_sum_plain(torch.tensor(src), torch.tensor(ids), rows)
+            for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-12)):
+                for itype in (torch.int32, torch.int64):
+                    s = torch.tensor(src, dtype=dtype, device=dev)
+                    i = torch.tensor(ids, dtype=itype, device=dev)
+                    a = tsg.segment_sum_kernel(s, i, rows)
+                    b = tsg.segment_sum_kernel(s, i, rows)
+                    torch.cuda.synchronize()
+                    assert torch.equal(a, b), (n, cols, rows, kind, dtype, itype)
+                    ref_d = tsg.segment_sum_plain(s.double().cpu(), i.cpu(), rows)
+                    torch.testing.assert_close(a.double().cpu(), ref_d, rtol=0,
+                                               atol=tol * float(ref.abs().max()))
+    tpa.reset_launches()
+    tab = torch.randn(127, 2, 4, device=dev, requires_grad=True)
+    idx = torch.tensor(np.sort(rng.integers(0, 127, 100_000)), device=dev)
+    (g,) = torch.autograd.grad((tsg.take_rows(tab, idx) ** 2).sum(), tab)
+    assert dict(tpa.LAUNCHES) == {("segment_sum", "take_rows", 0): 1}
+    tc = tab.detach().cpu().requires_grad_(True)
+    (gc,) = torch.autograd.grad((tsg.take_rows(tc, idx.cpu()) ** 2).sum(), tc)
+    torch.testing.assert_close(g.cpu(), gc, rtol=1e-5, atol=1e-5 * float(gc.abs().max()))

@@ -199,8 +199,8 @@ def test_model_defaults_to_the_card_and_refuses_unported_configs():
     """FieldLevelModel targets the card unless told otherwise.  The N-body
     light cone on the flat and on the curved sky, every B-spline order and
     the Kaiser-Bessel windows of support 1-4 build; Kaiser-Bessel windows of
-    support 5 and more, AP, Eulerian bias and PNG are refused, naming their
-    ROADMAP item; snapshots on the light cone (exclusive in the JAX package
+    support 5 and more, AP and PNG are refused, naming their ROADMAP item
+    (Eulerian bias builds); snapshots on the light cone (exclusive in the JAX package
     too), B-spline orders outside 1-4 and unknown kernel types are invalid."""
     from montecosmo_tpu_torch import FieldLevelModel, default_config
 
@@ -217,7 +217,9 @@ def test_model_defaults_to_the_card_and_refuses_unported_configs():
     with pytest.raises(NotImplementedError, match="Queue B item 8"):
         FieldLevelModel(**{**conf, "kernel_type": "kaiser_bessel", "paint_order": 5},
                         device="cpu")
-    for key, value in (("ap_auto", True), ("bias_type", "eulerian"), ("png_type", "fNL")):
+    assert FieldLevelModel(**{**conf, "bias_type": "eulerian"}, device="cpu").bias_type \
+        == "eulerian"
+    for key, value in (("ap_auto", True), ("png_type", "fNL")):
         with pytest.raises(NotImplementedError, match="Queue A item 4"):
             FieldLevelModel(**{**conf, key: value}, device="cpu")
     with pytest.raises(ValueError, match="exclusive"):
