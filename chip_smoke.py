@@ -113,7 +113,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      1) and the force read's (C = 3); clamped, both designs of each (K6
      lattice-brick in csrc/paint_tiled.cu and atomic in paint_hess.cu, K7
      lattice-brick in read_tiled.cu and per-particle in paint_hess.cu),
-     held and timed in turns, with the route's design and the bounds; then
+     held and timed in turns, with the route's design and the bounds, two
+     launches of every design (unclamped K6 too) equal bit for bit (K6
+     adds into K1's fixed-point accumulator), and the routed K6's
+     fixed-point sum timed in turns against the float atomics; then
      one Hessian-vector product of a scalar functional through
      each pair's Function chain (K1 -> K2, K4 -> K5, K3) against autograd
      twice of the plain versions (at 224^3 at CIC), HVP_TOL;
@@ -121,6 +124,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      CPU's counts: the Hessian of the logpdf in (Omega_m_, b1_, sigma8_),
      card against CPU within 1e-4 of its largest entry, finite and nonzero,
      K6 and K7 launched;
+  4g. (after 4f) the three AP/PNG configurations of 5k at 32^3 on the
+     golden white mesh, card against CPU at phase 4's tolerances, every
+     latent's gradient finite;
   5e. the sampler loop of run/infer.py at the 2LPT flagship (7.08M
      dimensions): field warmup, full warmup (diagonal mass), MCLMC run, MAMS
      warmup and run (SAMPLER_STEPS), each McLachlan step timed; finite
@@ -138,9 +144,18 @@ Phases, in order; any failure raises and the script exits non-zero:
      column, both designs held and timed on them), the Hutchinson marginal
      covariance given white_mesh_, and one
      HVP column of the N-body flagship in Omega_m_ (K6/K7 on both, K4/K5's
-     double backward on the N-body one);
+     double backward on the N-body one); the Laplace seed and the N-body
+     column each again from the same inputs, equal bit for bit;
   5g. one 2LPT flagship value+grad profiled: device kernels launched and
      device busy; 3 more timed;
+  5k. (after 5g) the AP and PNG flagships at bench.py's widths: 2LPT with
+     Lagrangian bias, ap_auto=True and png_type='fNL'; the Kaiser flat-sky
+     light cone with ap_auto=False (the Kaiser mesh read at the particle
+     lattice, remapped by the `ap` latents, re-painted through nufft);
+     2LPT with Eulerian bias and png_type='bias' (phi advected with the
+     matter): each timed as 5, every latent's gradient finite (alpha_iso_,
+     alpha_ap_, the fNL*_ ones), peak memory, one value+grad profiled
+     (device kernels, busy share), K1, K2, K3, K8 and K9 launched;
   6. last lines: the kernels JSON (one row per kernel, window and order;
      launches from phase 5b at CIC, 5c at TSC, 4c at NGP and PCS, 5d at
      Kaiser-Bessel 4, 4d at Kaiser-Bessel 1-3; K4/K5 run on no
@@ -151,8 +166,10 @@ Phases, in order; any failure raises and the script exits non-zero:
      inputs, the tiled design's `outlier_share` and source, at CIC the
      flagship measurements of 5/5b and at TSC those of 5c; K6 and K7 per
      order, both designs' times and the route's, launches and HVP times
-     from 5f at CIC with the flagship-input times; K8 with its launches in
-     phase 5's 2LPT run and 5g's counts; K9 with its launches in phase 5's
+     from 5f at CIC with the flagship-input times, and K6's fixed-point and
+     float-atomic times; the CIC rows of K1, K2 and K3 and the K8 row also
+     with their launches per value+grad in each 5k flagship; K8 with its
+     launches in phase 5's 2LPT run and 5g's counts; K9 with its launches in phase 5's
      2LPT run and per value+grad in every flagship, its times at the chi2a
      site, index_add_ as its library time and index_put_(accumulate) beside
      it, every site's row, and 5i's times), then
@@ -239,13 +256,16 @@ def err_of(out, ref):
 
 
 # the particle kernels whose every design must give the same output bit for
-# bit from launch to launch (K1 and K5 sum in fixed point; K2 and K4 gather)
-BIT_FOR_BIT = ("paint_cic", "paint_cic_adjoint", "read_cic", "read_cic_adjoint")
+# bit from launch to launch (K1, K5 and K6 sum in fixed point; K2, K4 and
+# K7 gather)
+BIT_FOR_BIT = ("paint_cic", "paint_cic_adjoint", "read_cic", "read_cic_adjoint",
+               "paint_cic_grad", "read_cic_hess")
 
 
-# K1's and K5's inner launchers, whose `fixed=False` adds floats with
+# K1's, K5's and K6's inner launchers, whose `fixed=False` adds floats with
 # atomics in a run-dependent order
-FIXED_POINT = {"paint_cic": "_paint_cic", "read_cic_adjoint": "_read_cic_adjoint"}
+FIXED_POINT = {"paint_cic": "_paint_cic", "read_cic_adjoint": "_read_cic_adjoint",
+               "paint_cic_grad": "_paint_cic_grad"}
 
 
 def same_twice(fn):
@@ -743,8 +763,8 @@ def check_wide_read():
 
 # ---------------------------------------------------------------- phase 3c
 HVP_TOL = 1e-4  # max |chain - plain| / max |plain| of one Hessian-vector
-# product: three kernels' float32 sums (K6's atomics in a run-dependent
-# order) against autograd twice through the plain versions
+# product: three kernels' float32 sums against autograd twice through the
+# plain versions
 
 
 def check_hess_kernels(lattice, stride, H, tag, reps, order):
@@ -783,8 +803,11 @@ def check_hess_kernels(lattice, stride, H, tag, reps, order):
                 else:
                     e = err_of(other(*a, geom), ref)
                     errs[name].append(e)
-                    log(f"# {case} {name} {OTHER[name]} max_rel_err {e[1]:.3e}")
+                    same = same_twice(lambda: other(*a, geom))
+                    log(f"# {case} {name} {OTHER[name]} max_rel_err {e[1]:.3e}; two launches "
+                        f"equal bit for bit {same}")
                     assert e[1] <= TOL, f"{name} ({case}) disagrees with its plain version"
+                    assert same, f"{name} ({case}): two launches differ"
                 del ref
     # bounds (render's case, S = 2, C = 1): bytes of the inputs read once and
     # outputs written once; the least arithmetic of a particle's shift (an
@@ -1169,10 +1192,14 @@ def _transfer_coherence(mesh0, mesh1, box):
     return np.sqrt(p1 / p0), p01 / np.sqrt(p0 * p1)
 
 
-def golden_predict(device, evolution, ulp=False, **updates):
+def golden_predict(device, evolution, ulp=False, off_fiducial=False, **updates):
     """The golden 32^3 configuration (tests/test_golden_bundle.py) with
     `updates`, on `device`: (model, params, gxy_mesh) on the golden white
-    mesh (with `ulp`, every value moved up by one float32 ulp)."""
+    mesh (with `ulp`, every value moved up by one float32 ulp).  With
+    `off_fiducial`, every scalar latent but s_e2_ is moved 0.3 sigma off
+    the fiducial, as the CPU model parity tests move theirs: fNL off 0, the
+    AP alphas off 1 and the cosmology off the fiducial one that ap_auto
+    maps through."""
     from montecosmo_tpu_torch import FieldLevelModel, default_config
 
     g = np.load(ROOT / "tests" / "golden" / "golden_32.npz")
@@ -1186,6 +1213,8 @@ def golden_predict(device, evolution, ulp=False, **updates):
     fid |= {"b1": 0.5, "b2": 0.3, "bs2": -0.2, "b3": 0.1, "bds2": 0.1, "bs3": -0.05,
             "bn2": 0.05, "bnpar": 0.2}
     p = m.reparam(fid, inv=True)
+    if off_fiducial:
+        p = {k: v if k == "s_e2_" else v + 0.3 for k, v in p.items()}
     p["white_mesh_"] = torch.as_tensor(g["white"], device=device)
     if ulp:
         p["white_mesh_"] = torch.nextafter(p["white_mesh_"], torch.tensor(np.inf, device=device))
@@ -1510,6 +1539,9 @@ def flagship(evolution="lpt", **updates):
 # by tag (K9's by caller: "take_rows", a lookup's backward; "segment_sum",
 # the power spectrum's binning)
 K8_LAUNCHES, K9_LAUNCHES = {}, {}
+# (device kernels, device-busy ms, median wall ms) of a profiled value+grad
+# by tag (phase_bench's `profile`)
+PROFILED = {}
 
 
 def k9_launches():
@@ -1519,7 +1551,8 @@ def k9_launches():
     return {w: n for (k, w, o), n in P.LAUNCHES.items() if k == "segment_sum"}
 
 
-def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **updates):
+def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, latents=(),
+                profile=False, **updates):
     """The flagship value+grad with `evolution` and the config `updates`;
     every kernel in `kernels` must launch at the model's paint order and
     window, K8 and K9 (every lookup's backward) at every evaluation.
@@ -1527,11 +1560,15 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
     ("paint" or "read"), also what `flagship_inputs` measures.  With
     `lookups` (the light cones), also the table gathers' backwards of one
     more value+grad by call site (`table_backwards`) and the determinism
-    witness (`gradient_witness`)."""
+    witness (`gradient_witness`).  Every name in `latents` must be a latent
+    with a finite gradient.  With `profile`, one more value+grad profiled:
+    its device kernels and device-busy ms (`PROFILED[tag]`)."""
     from montecosmo_tpu_torch.ops import paint as P
 
     t0 = time.perf_counter()
     m, leaves, obs, value_and_grad = flagship(evolution, **updates)
+    missing = [k for k in latents if k not in leaves]
+    assert not missing, f"({tag or evolution}) latents {missing} are not sampled"
     tag = tag or evolution
     log(f"# bench model ({tag}): final {m.final_shape} init {m.init_shape} "
         f"evol {m.evol_shape} paint {m.paint_shape} steps "
@@ -1592,6 +1629,11 @@ def phase_bench(evolution, kernels, tag=None, capture=None, lookups=False, **upd
     log(f"# ({tag}) with the background tables held fixed: ms/eval "
         f"{[round(1e3 * t, 3) for t in t_fixed]} median {1e3 * np.median(t_fixed):.3f}; "
         f"the RK4 tables take {100 * share:.1f}% of an evaluation (median to median)")
+    if profile:
+        n, busy = profiled_kernels(value_and_grad)
+        PROFILED[tag] = (n, busy, 1e3 * float(np.median(times)))
+        log(f"# ({tag}) one value+grad profiled: {n} device kernels, device busy {busy:.3f} ms "
+            f"= {100 * busy / (1e3 * np.median(times)):.1f}% of the median wall")
     if "--profile" in sys.argv:
         # profiled after every timed phase: a profiler session slows the
         # host's launches in the evaluations timed after it
@@ -1741,39 +1783,84 @@ KAISER_REGIMES = {"flat sky, a_obs 0.5": dict(a_obs=0.5, curved_sky=False),
                   "curved-sky light cone": dict(a_obs=None, curved_sky=True)}
 
 
-def kaiser_32(name, regime):
-    """The 32^3 Kaiser evolution in one regime on the golden white mesh,
-    card against CPU at phase 4's tolerances: the galaxy mesh (transfer,
-    coherence) and the logpdf on the card's counts (1e-4 relative); both
-    gradients finite."""
+def card_vs_cpu_32(what, evolution, off_fiducial=False, **updates):
+    """The golden 32^3 configuration with `evolution` and `updates` on the
+    golden white mesh (its latents `off_fiducial` where asked), card
+    against CPU at phase 4's tolerances: the galaxy mesh (transfer,
+    coherence) and the logpdf on the card's counts (1e-4 relative); every
+    latent's gradient finite on both."""
     preds, lps = {}, {}
     for dev in ("cuda", "cpu"):
-        m, p, preds[dev] = golden_predict(dev, "kaiser", **regime)
+        m, p, preds[dev] = golden_predict(dev, evolution, off_fiducial=off_fiducial, **updates)
+        if off_fiducial and dev == "cpu":
+            base = m.reparam({k: v for k, v in p.items() if k != "white_mesh_"})
+            log(f"# {what}: off the fiducial, " + ", ".join(
+                f"{k} {float(base[k]):.4g}" for k in ("Omega_m", "fNL", "alpha_iso", "alpha_ap",
+                                                     "fNL_bp", "fNL_bpd") if k in base))
         obs = preds["cuda"]["count_mesh"].to(dev)
         leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
         lp = m.logpdf({**leaves, "count_mesh": obs})
         lp.backward()
         lps[dev] = (lp.item(), leaves["Omega_m_"].grad.item(), leaves["sigma8_"].grad.item())
-        assert all(bool(torch.isfinite(v.grad).all()) for v in leaves.values()), (name, dev)
+        assert all(bool(torch.isfinite(v.grad).all()) for v in leaves.values()), (what, dev)
     check_transfer(preds["cuda"]["gxy_mesh"].cpu().numpy(), preds["cpu"]["gxy_mesh"].numpy(),
-                   f"5h 32^3 Kaiser, {name}, card vs CPU")
+                   f"{what}, card vs CPU")
     rel = abs(lps["cuda"][0] - lps["cpu"][0]) / abs(lps["cpu"][0])
-    log(f"# 5h 32^3 Kaiser, {name}: (logpdf, d/dOmega_m_, d/dsigma8_) card {lps['cuda']}, CPU "
+    log(f"# {what}: (logpdf, d/dOmega_m_, d/dsigma8_) card {lps['cuda']}, CPU "
         f"{lps['cpu']}; logpdf relative difference {rel:.3e} (limit 1e-4)")
-    assert rel <= 1e-4, f"5h: the 32^3 Kaiser {name} logpdf disagrees between card and CPU"
+    assert rel <= 1e-4, f"{what}: the logpdf disagrees between card and CPU"
 
 
 def phase_kaiser():
     """5h: the Kaiser flagship (bench.py's configuration, evolution='kaiser':
     128^3 final, init 192^3, evol 224^3) in its three regimes, each first
-    held at 32^3 against the CPU (`kaiser_32`), then timed as phase 5 (2
+    held at 32^3 against the CPU (`card_vs_cpu_32`), then timed as phase 5 (2
     warm-ups, 5 value+grads, the tables fixed beside); K8 and K9 must
     launch.  Returns K9's launches of each regime's 7 evaluations."""
     for name, regime in KAISER_REGIMES.items():
-        kaiser_32(name, regime)
+        card_vs_cpu_32(f"5h 32^3 Kaiser, {name}", "kaiser", **regime)
     for name, regime in KAISER_REGIMES.items():
         phase_bench("kaiser", (), f"Kaiser, {name}", **regime)
     return {name: K9_LAUNCHES[f"Kaiser, {name}"] for name in KAISER_REGIMES}
+
+
+# the AP and PNG flagships (4g at 32^3, 5k at bench.py's widths): the name,
+# the evolution and the config updates
+AP_PNG = {"2LPT, Lagrangian bias, ap_auto=True, png_type=fNL":
+          ("lpt", dict(ap_auto=True, png_type="fNL")),
+          "Kaiser flat-sky light cone, ap_auto=False":
+          ("kaiser", dict(a_obs=None, curved_sky=False, ap_auto=False)),
+          "2LPT, Eulerian bias, png_type=bias":
+          ("lpt", dict(bias_type="eulerian", png_type="bias"))}
+AP_PNG_LATENTS = ("alpha_iso_", "alpha_ap_", "fNL_", "fNL_bp_", "fNL_bpd_", "fNL_bpd2_",
+                  "fNL_bps2_", "fNL_bn2p_")
+
+
+def phase_ap_png_32():
+    """4g: the three AP/PNG configurations at 32^3 on the golden white mesh,
+    their latents off the fiducial (so that the AP remap and the PNG terms
+    are not the identity and 0), card against CPU at phase 4's tolerances
+    (`card_vs_cpu_32`)."""
+    for name, (evolution, updates) in AP_PNG.items():
+        card_vs_cpu_32(f"4g 32^3 {name}", evolution, off_fiducial=True, **updates)
+
+
+def phase_ap_png():
+    """5k: the three AP/PNG flagships at bench.py's widths (128^3 final,
+    quad-Gaussian, Kaiser preconditioning, float32): each timed as phase 5
+    (2 warm-ups, 5 value+grads, the tables fixed beside), every latent's
+    gradient finite (alpha_iso_, alpha_ap_ and the fNL*_ ones included),
+    peak memory, one value+grad profiled (device kernels, busy share); K1,
+    K2 and K3 must launch in the designs the route takes at CIC (the 2LPT
+    render and the Eulerian matter and phi paints; the Kaiser mesh's AP
+    re-paint), K8 and K9 too.  Returns each one's launches per
+    value+grad."""
+    out = {}
+    for name, (evolution, updates) in AP_PNG.items():
+        launches = phase_bench(evolution, path_kernels(2), f"5k {name}", latents=AP_PNG_LATENTS,
+                               profile=True, **updates)
+        out[name] = {k: v / 7 for k, v in launches.items()}
+    return out
 
 
 LIKELIHOODS = ("poisson", "fourier_gauss", "two_quad_gauss", "shash", "powspec")
@@ -2118,6 +2205,13 @@ def phase_nuts(m, state_f, per_eval):
         lambda: SC._laplace_seed(m.logpdf, p_block, others))
     log(f"# 5f Laplace seed: covariance {cov.tolist()}, curvatures {w.tolist()}")
     assert bool(torch.isfinite(cov).all()) and np.all(np.isfinite(w))
+    # ROADMAP Queue C 4's witness: the seed again from the same inputs, equal
+    # bit for bit (K6 adds fixed point, as K1 and K5 do)
+    cov2, w2 = SC._laplace_seed(m.logpdf, p_block, others)
+    same_seed = bool(torch.equal(cov, cov2)) and np.array_equal(np.asarray(w), np.asarray(w2))
+    log(f"# 5f Laplace seed twice: equal bit for bit {same_seed} (max |difference| "
+        f"{float((cov - cov2).abs().max()):.3e})")
+    assert same_seed, "5f: two Laplace seeds from the same inputs differ"
 
     def fixed_hessian():
         with fixed_tables(m):
@@ -2173,6 +2267,12 @@ def phase_nuts(m, state_f, per_eval):
         f"|column| max {max(float(c.abs().max()) for c in col_b):.6e}; K4/K5 double backwards "
         f"{k5_double[0]}")
     assert all(bool(torch.isfinite(c).all()) for c in col_b)
+    col_b2 = nbody_column()
+    diff = {k: float((a - b).abs().max()) for k, a, b in zip(pb, col_b, col_b2)}
+    same_col = all(torch.equal(a, b) for a, b in zip(col_b, col_b2))
+    log(f"# 5f N-body HVP column twice: equal bit for bit {same_col} (max |difference| per "
+        f"latent {diff})")
+    assert same_col, "5f: two N-body HVP columns from the same inputs differ"
     assert k5_double[0] > 0, "5f: K4/K5's double backward never ran on the N-body flagship"
     hvps = {"2LPT Laplace seed": l_seed, "2LPT Hutchinson": l_h, "N-body column": l_b}
     routed_2 = dict(zip(SECOND_ORDER, hess_names(2)))
@@ -2209,8 +2309,6 @@ def phase_tables_launches():
     the device kernels launched and the device-busy ms; then 3 value+grads
     timed after a warm-up.  Returns {"K8": (launches, busy ms, median wall
     ms)}."""
-    from torch.profiler import ProfilerActivity, profile
-
     _, _, _, value_and_grad = flagship("lpt")
     value_and_grad()
     walls = []
@@ -2220,17 +2318,23 @@ def phase_tables_launches():
         value_and_grad()
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t))
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        value_and_grad()
-        torch.cuda.synchronize()
-    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-    counts = {"K8": (sum(e.count for e in kernels),
-                     sum(e.self_device_time_total for e in kernels) / 1e3,
-                     float(np.median(walls)))}
+    counts = {"K8": (*profiled_kernels(value_and_grad), float(np.median(walls)))}
     n, busy, wall = counts["K8"]
     log(f"# 5g 2LPT flagship value+grad: {n} device kernels launched, device busy {busy:.3f} ms "
         f"(profiled); wall ms {[round(t, 3) for t in walls]} median {wall:.3f}")
     return counts
+
+
+def profiled_kernels(fn):
+    """(device kernels launched, device-busy ms) of one call of `fn`, from
+    torch.profiler's CUDA events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    return sum(e.count for e in kernels), sum(e.self_device_time_total for e in kernels) / 1e3
 
 
 # the kernels whose inputs each flagship capture records: the 2LPT render's
@@ -2450,6 +2554,8 @@ def main():
     for evolution in ("lpt", "nbody"):
         phase_hessian_32(evolution)
     done("4f")
+    phase_ap_png_32()
+    done("4g")
     # the flagships' own inputs by B-spline order: CIC from 5 and 5b, TSC from 5c
     lpt_launches, flagship = phase_bench("lpt", path_kernels(2), capture="paint")
     flagship = {2: flagship}
@@ -2482,6 +2588,8 @@ def main():
     done("5f")
     tables = phase_tables_launches()
     done("5g")
+    ap_png = phase_ap_png()
+    done("5k")
     for run in PROFILES:
         run()
     kernels = []
@@ -2502,6 +2610,9 @@ def main():
                             **res[n + sfx]})
             if kernel != KB and n in flagship.get(order, {}):
                 kernels[-1] |= flagship[order][n]
+            if kernel != KB and order == 2:
+                kernels[-1]["launches_ap_png"] = {
+                    tag: per.get(path_name(n, order), 0) for tag, per in ap_png.items()}
     for order in ORDERS:
         sfx = _suffix(order, "rectangular")
         for n, (tiled, other, rep) in HESS_SOURCES.items():
@@ -2526,6 +2637,7 @@ def main():
                     "source": CSRC + "background_rk4.cu",
                     "replaces": "montecosmo_tpu/ops/background.py:115",
                     "launches": K8_LAUNCHES["lpt"], **res["background_tables"],
+                    "launches_ap_png": {tag: K8_LAUNCHES[f"5k {tag}"] / 7 for tag in AP_PNG},
                     "launches_per_2lpt_value_and_grad": {
                         w: n for w, (n, _, _) in tables.items()},
                     "2lpt_value_and_grad_ms": {w: t for w, (_, _, t) in tables.items()}})

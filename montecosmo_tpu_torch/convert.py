@@ -9,7 +9,13 @@ of its rfft for lik_type='fourier_gauss' (`cgh2rg(rfftn(counts))`), or the
 (n_ell, n_k) multipoles `powspec` for observable='powspec'.  The N-body
 evolution (`evolution='nbody'`) adds no parameter and no state: its latents
 are the 2LPT model's, and `tests/test_torch_nbody.py` holds the gradient of
-every one of them against the JAX package.
+every one of them against the JAX package.  The `png` latents (fNL_,
+fNL_bp_, ...) and the `ap` latents (alpha_iso_, alpha_ap_) cross as every
+latent does; the AP path's other state is the fiducial cosmology
+(`bg_fid`, which ap_auto=True reads), which the port derives from the
+latents' `loc_fid` as the JAX package does: `config_from_numpy` carries a
+JAX model's config (`dataclasses.asdict(model)`, a register's fiducial
+already in its latents) into the port's keyword arguments.
 
 A sampler's state crosses as numpy: the JAX `IntegratorState` and
 `MCLMCAdaptationState` with numpy leaves (`jax.tree.map(np.asarray, state)`)
@@ -20,6 +26,7 @@ state (`HMCState`, or a dict of block name -> HMCState, the blocked warmup's)
 and a per-block NUTS config (step size and inverse mass matrix, diagonal or
 dense) cross the same way.
 """
+from dataclasses import fields
 from typing import Mapping
 
 import numpy as np
@@ -34,6 +41,32 @@ def params_from_numpy(params: Mapping[str, np.ndarray], device) -> dict:
     """Parameter dict of numpy arrays, scalars or tensors -> dict of float32
     / complex64 tensors on `device`, same keys."""
     return {k: to_tensor(v, device) for k, v in params.items()}
+
+
+def _plain(v):
+    """A numpy (or array-like) scalar -> a Python number; an array -> a
+    float64 numpy array; anything else (str, None, tuple) unchanged."""
+    if isinstance(v, (str, bool, int, float, tuple, type(None))):
+        return v
+    v = np.asarray(v)
+    return v.item() if v.ndim == 0 else v.astype(np.float64)
+
+
+def config_from_numpy(conf: Mapping, device="cuda") -> dict:
+    """A JAX `FieldLevelModel`'s config with numpy leaves (its
+    `dataclasses.asdict`, or a config dict) -> the keyword arguments of the
+    port's `FieldLevelModel` on `device`: the keys the port takes, numpy
+    scalars as Python numbers, and every latent (the `png` and `ap` groups
+    with the rest) with its fiducial `loc_fid`/`scale_fid`, which set the
+    port's fiducial cosmology (`cosmo_fid`, `bg_fid`) as they set the JAX
+    package's."""
+    from montecosmo_tpu_torch.models.model import FieldLevelModel
+
+    names = {f.name for f in fields(FieldLevelModel)}
+    out = {k: _plain(v) for k, v in conf.items() if k in names and k != "latents"}
+    out["latents"] = {name: {k: _plain(v) for k, v in latent.items()}
+                      for name, latent in conf["latents"].items()}
+    return out | {"device": device}
 
 
 def _array(x, device):

@@ -1,5 +1,6 @@
-// The deterministic mesh sum of K1 and K5 (paint_cic.cu and paint_tiled.cu,
-// both designs): every value added into the output mesh is rounded once to
+// The deterministic mesh sum of K1, K5 and K6 (paint_cic.cu, paint_hess.cu
+// and paint_tiled.cu, both designs of each): every value added into the
+// output mesh is rounded once to
 // a 64-bit fixed-point integer, v 2^k, and added with an integer atomic
 // into an accumulator the size of the mesh; a last pass turns each integer
 // back into a float, v 2^-k.  Integer addition is associative, so the
@@ -10,7 +11,10 @@
 // the brick's scale to the mesh's.
 //
 // The scale 2^k comes from max |v| over the launch's values (a first pass,
-// atomicMax on the bits of |v|, read on the device) and the number n of
+// atomicMax on the bits of |v|, read on the device; for K6, whose corner
+// values are alpha W + beta . grad W, the bound |alpha| + |beta_x| +
+// |beta_y| + |beta_z| of each particle's values, the B-spline weights and
+// their derivatives being at most 1 in magnitude) and the number n of
 // particles: with max |v| < 2^(e+1) and n <= 2^nb, k = 60 - (e+1) - nb, so
 // a cell's sum, at most n max|v| times the window's weight sum (at most 1;
 // a factor 4 is kept, as for the tiles), stays below 2^62.  The quantum
@@ -27,7 +31,8 @@
 namespace {
 
 // The accumulator of a launch and its scale; acc is null for float atomics
-// (non-finite values, or a kernel that keeps them: K6).
+// (non-finite values, or a launch that asks for them: the timing of the
+// fixed point's cost).
 struct MeshSum {
   unsigned long long* acc;
   double to_fixed;  // 2^k
@@ -79,6 +84,22 @@ __global__ void __launch_bounds__(kSumThreads)
   if (threadIdx.x % 32 == 0 && m != 0) atomicMax(out, m);
 }
 
+// K6's bound: max over n (particle, channel) pairs of |alpha| + |beta_x| +
+// |beta_y| + |beta_z| (alpha may be null), as abs_max_bits.
+__global__ void __launch_bounds__(kSumThreads)
+    grad_abs_max_bits(const float* __restrict__ alpha, const float* __restrict__ beta,
+                      long long n, unsigned* out) {
+  unsigned m = 0;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n; i += stride) {
+    const float v = (alpha ? fabsf(alpha[i]) : 0.f) + fabsf(beta[3 * i]) +
+                    fabsf(beta[3 * i + 1]) + fabsf(beta[3 * i + 2]);
+    m = max(m, __float_as_uint(v) & 0x7fffffffu);
+  }
+  m = __reduce_max_sync(0xffffffffu, m);
+  if (threadIdx.x % 32 == 0 && m != 0) atomicMax(out, m);
+}
+
 // out[i] += acc[i] 2^-k over the n cells (nothing when the launch fell
 // back to float atomics).
 __global__ void __launch_bounds__(kSumThreads)
@@ -100,6 +121,14 @@ void mesh_sum_begin(unsigned long long* acc, long long cells, const float* vals,
   cudaMemsetAsync(acc, 0, (size_t)(cells + 1) * sizeof(unsigned long long), stream);
   abs_max_bits<<<sum_blocks(n_vals), kSumThreads, 0, stream>>>(
       vals, n_vals, reinterpret_cast<unsigned*>(acc + cells));
+}
+
+// K6's: the same, max |v| from its n (particle, channel) alpha and beta.
+void mesh_sum_begin_grad(unsigned long long* acc, long long cells, const float* alpha,
+                         const float* beta, long long n, cudaStream_t stream) {
+  cudaMemsetAsync(acc, 0, (size_t)(cells + 1) * sizeof(unsigned long long), stream);
+  grad_abs_max_bits<<<sum_blocks(n), kSumThreads, 0, stream>>>(
+      alpha, beta, n, reinterpret_cast<unsigned*>(acc + cells));
 }
 
 // After it: the fixed-point sums added into the float mesh `out`.

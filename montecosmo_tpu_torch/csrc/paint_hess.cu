@@ -29,8 +29,8 @@
 // What bounds them on an H100: at the 224^3 render (11.24M particles, two
 // shifts, CIC, C = 1) K6 moves 315 MB of positions and per-particle vectors
 // and 90 MB of meshes, >= 0.12 ms at 3.35 TB/s, but this design makes
-// P^3 S C float atomics a particle (180M at CIC) as K1's atomic design
-// does, so it is bound by the L2 atomic rate; K7 reads 270 MB of positions
+// P^3 S C atomics a particle (180M at CIC) as K1's atomic design does, so
+// it is bound by the L2 atomic rate; K7 reads 270 MB of positions
 // and b, 90 MB of meshes and writes 270 MB of g and h (>= 0.19 ms), as
 // local a gather as K2's, and its least arithmetic (three z-sums a corner
 // and channel) bounds it at PCS.
@@ -39,7 +39,10 @@
 // corners share L2 lines), the P per-axis weights, derivatives and second
 // derivatives computed once per particle and shift, the clamped axes'
 // derivatives zeroed there.  K6 (atomic) adds each corner's value to
-// device memory; K7 (gather) reads the corners from device memory and
+// device memory, as a 64-bit fixed-point integer into K1's accumulator
+// (mesh_fixed.cuh: a max pass over |alpha| + |beta| first, a conversion
+// pass after), so that its meshes, and a Hessian-vector product, are the
+// same bit for bit from launch to launch; K7 (gather) reads the corners from device memory and
 // keeps its 6 C sums in registers, factored per (i, j) (hess_corners,
 // paint_window.cuh: three FMAs a corner and channel, not the nine
 // products of H_W b), and writes them once (more than one channel staged
@@ -53,6 +56,7 @@
 // cudaGetLastError() of its launch (cudaErrorInvalidValue for an order
 // outside 1-4, a channel count outside 1-4, or K7 at a Kaiser-Bessel
 // window, whose second derivative is not ported).
+#include "mesh_fixed.cuh"
 #include "paint_window.cuh"
 
 namespace {
@@ -83,12 +87,14 @@ template <class W>
 __global__ void paint_cic_grad_kernel(const float* __restrict__ pos,
                                       const float* __restrict__ alpha,
                                       const float* __restrict__ beta, int64_t n_p, int C, Geom g,
-                                      float* __restrict__ out) {
+                                      float* __restrict__ out, unsigned long long* acc,
+                                      const unsigned* vmax) {
   const int64_t p = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n_p) return;
   constexpr int P = W::P;
   const Site q = site<P>(p, g);
   const int64_t N = (int64_t)g.X * g.Y * g.Z;
+  const MeshSum ms = mesh_sum(acc, vmax, n_p);
   float a[kMaxC], bx[kMaxC], by[kMaxC], bz[kMaxC];
 #pragma unroll
   for (int ch = 0; ch < kMaxC; ++ch) {
@@ -101,7 +107,7 @@ __global__ void paint_cic_grad_kernel(const float* __restrict__ pos,
   for (int s = 0; s < g.n_shift; ++s) {
     Win<P> wx, wy, wz;
     windows<W>(pos, p, q, g, (float)s / (float)g.n_shift, wx, wy, wz);
-    float* o = out + (int64_t)s * N * C;
+    const int64_t o = (int64_t)s * N * C;
 #pragma unroll
     for (int i = 0; i < P; ++i)
 #pragma unroll
@@ -112,10 +118,11 @@ __global__ void paint_cic_grad_kernel(const float* __restrict__ pos,
         for (int k = 0; k < P; ++k) {
           const float wt = wxy * wz.w[k], gx = dxy * wz.w[k], gy = xdy * wz.w[k],
                       gz = wxy * wz.d[k];
-          float* cell = o + (row + wz.i[k]) * C;
+          const int64_t cell = o + (row + wz.i[k]) * C;
 #pragma unroll
           for (int ch = 0; ch < kMaxC; ++ch)
-            if (ch < C) atomicAdd(cell + ch, a[ch] * wt + bx[ch] * gx + by[ch] * gy + bz[ch] * gz);
+            if (ch < C)
+              ms.add(out, cell + ch, a[ch] * wt + bx[ch] * gx + by[ch] * gy + bz[ch] * gz);
         }
       }
   }
@@ -178,13 +185,20 @@ unsigned blocks_for(long long n_p) { return (unsigned)((n_p + kThreads - 1) / kT
 
 }  // namespace
 
+// acc: the fixed-point accumulator (mesh_fixed.cuh), n_shift X Y Z C + 1
+// int64 words; null: float atomics, in a run-dependent order.
 extern "C" int paint_cic_grad(const float* pos, const float* alpha, const float* beta_p,
-                              long long n_p, int C, GEOM_PARAMS, float* out, void* stream) {
+                              long long n_p, int C, GEOM_PARAMS, float* out,
+                              unsigned long long* acc, void* stream) {
   if (C < 1 || C > kMaxC) return (int)cudaErrorInvalidValue;
   const Geom g = make_geom(GEOM_ARGS);
-  DISPATCH_WINDOW(order, kb, paint_cic_grad_kernel<W><<<blocks_for(n_p), kThreads, 0,
-                                                  (cudaStream_t)stream>>>(pos, alpha, beta_p, n_p,
-                                                                          C, g, out));
+  const long long cells = (long long)n_shift * X * Y * Z * C;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (acc != nullptr && n_p > 0) mesh_sum_begin_grad(acc, cells, alpha, beta_p, n_p * C, s);
+  const unsigned* vmax = acc ? (const unsigned*)(acc + cells) : nullptr;
+  DISPATCH_WINDOW(order, kb, paint_cic_grad_kernel<W><<<blocks_for(n_p), kThreads, 0, s>>>(
+                                 pos, alpha, beta_p, n_p, C, g, out, acc, vmax));
+  if (acc != nullptr && n_p > 0) mesh_sum_end(acc, cells, n_p, out, s);
   return (int)cudaGetLastError();
 }
 

@@ -28,10 +28,10 @@
 // displacements.  After a barrier the tile is folded into the mesh: the
 // box of cells the in-tile particles reached, one reduction (RED) per
 // touched cell at its wrapped mesh cell.  Neighbouring tiles overlap, so
-// the caller zeroes the output.  K1 and K5 reduce into a 64-bit fixed-point
-// accumulator (mesh_fixed.cuh), the device-memory corners too, and a last
-// pass turns it into floats: their meshes are the same bit for bit from
-// launch to launch.
+// the caller zeroes the output.  K1, K5 and K6 reduce into a 64-bit
+// fixed-point accumulator (mesh_fixed.cuh), the device-memory corners too,
+// and a last pass turns it into floats: their meshes are the same bit for
+// bit from launch to launch.
 //
 // On sm_90a a float atomicAdd to shared memory is a compare-and-swap loop
 // (ATOMS.CAST.SPIN), which measured only ~2x the rate of the L2 atomics;
@@ -39,8 +39,8 @@
 // point: each CTA scales its values by 2^k from their largest magnitude
 // and adds each rounded product as two 32-bit words.  The sum is exact in
 // that fixed point (its quantum is ~2^-40 of the largest value) and is
-// rounded once, at the fold: to the mesh's fixed point (K1, K5) or to
-// float (K6).
+// rounded once, at the fold, to the mesh's fixed point (or to float when a
+// launch asks for float atomics).
 //
 // K1 is the C = 1 case of the tile, once per interlace shift (the tile is
 // painted and folded per shift); K5 the C-channel case (the cotangent's
@@ -170,11 +170,11 @@ __device__ __forceinline__ void mesh_paint(const MeshSum& ms, float* out, int64_
 // reductions (RED) fall in few 128-byte lines, and zeroed in the tile.
 // Each cell is wrapped periodically (a tile wider than the mesh adds its
 // aliased cells in turn); cells that no particle reached are skipped.
-// K1 and K5 add each exact tile sum, rescaled from the brick's 2^-k to
-// the mesh's fixed point and rounded once, into its accumulator
-// (mesh_fixed.cuh); K6 (float atomics, `ms` without an accumulator) adds
-// floats, K5-style C = 2 and 4 channels as one vector reduction (sm_90's
-// float2/float4 atomicAdd).
+// Each exact tile sum is rescaled from the brick's 2^-k to the mesh's
+// fixed point, rounded once and added into the accumulator
+// (mesh_fixed.cuh); without one (float atomics, `ms` without an
+// accumulator) floats are added, C = 2 and 4 channels as one vector
+// reduction (sm_90's float2/float4 atomicAdd).
 template <int C>
 __device__ __forceinline__ void fold(Fixed* tile, const Box& box, const Brick& k,
                                      const Tiles& t, const Geom& g, double to_float,
@@ -389,12 +389,14 @@ __device__ __forceinline__ void grad_corners(const Win<P>& wx, const Win<P>& wy,
 // the tile, the derivatives of clamped axes zeroed.  The fixed-point scale
 // comes from the brick's largest |alpha| + |beta_x| + |beta_y| + |beta_z|,
 // which bounds every corner value (the B-spline weights and their
-// derivatives are at most 1 in magnitude).
+// derivatives are at most 1 in magnitude); the mesh's from the launch's
+// (mesh_sum_begin_grad).
 template <class W, int C>
 __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
     paint_cic_grad_tiled_kernel(const float* __restrict__ pos, const float* __restrict__ alpha,
                                 const float* __restrict__ beta, Geom g, Tiles t,
-                                float* __restrict__ out, unsigned long long* n_out) {
+                                float* __restrict__ out, unsigned long long* n_out,
+                                unsigned long long* acc, const unsigned* acc_vmax) {
   extern __shared__ float4 smem[];
   Fixed* tile = reinterpret_cast<Fixed*>(smem);
   __shared__ unsigned n_glob, vmax;
@@ -403,6 +405,7 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
   const Brick k = brick_of<P>(blockIdx.x, g, t);
   const int n_site = k.n[0] * k.n[1] * k.n[2];
   const int64_t NC = (int64_t)g.X * g.Y * g.Z * C;
+  const MeshSum ms = mesh_sum(acc, acc_vmax, (long long)g.Lx * g.Ly * g.Lz);
   if (threadIdx.x == 0) n_glob = vmax = 0;
   zero_tile(tile, t.T[0] * t.T[1] * t.T[2] * C);  // each fold leaves it zeroed
   unsigned mine = 0;
@@ -425,7 +428,6 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
     __syncthreads();
     const Scale sc = scale_of(vmax, n_site);
     const float sh = (float)s / (float)g.n_shift;
-    float* o = out + s * NC;
     Box reached;
     open_box(reached);
     for (int i = threadIdx.x; i < n_site; i += blockDim.x) {
@@ -448,14 +450,14 @@ __global__ void __launch_bounds__(kTileThreads, kTileCTAs)
         widen<P>(reached, st.t0);
       } else {
         grad_corners<C>(wx, wy, wz, al, be, [&](int a, int b, int c, int ch, float v) {
-          atomicAdd(o + (((int64_t)wx.i[a] * g.Y + wy.i[b]) * g.Z + wz.i[c]) * C + ch, v);
+          ms.add(out, s * NC + (((int64_t)wx.i[a] * g.Y + wy.i[b]) * g.Z + wz.i[c]) * C + ch, v);
         });
         mine += P * P * P;
       }
     }
     reach(reached, box);
     __syncthreads();
-    fold<C>(tile, box, k, t, g, sc.to_float, MeshSum{nullptr, 1.0, 1.0}, out, s * NC);
+    fold<C>(tile, box, k, t, g, sc.to_float, ms, out, s * NC);
     __syncthreads();
   }
   count_outliers(mine, n_glob, n_out);
@@ -531,30 +533,41 @@ extern "C" int read_cic_adjoint_tiled(const float* pos, const float* mesh, const
 template <class W>
 int paint_grad_tiled(int C, const Geom& g, const Tiles& t, int smem, void* stream,
                      const float* pos, const float* alpha, const float* beta, float* out,
-                     unsigned long long* n_out) {
+                     unsigned long long* n_out, unsigned long long* acc, const unsigned* vmax) {
   switch (C) {
     case 1: return launch_tiled(paint_cic_grad_tiled_kernel<W, 1>, g, t, smem, stream, pos,
-                                alpha, beta, g, t, out, n_out);
+                                alpha, beta, g, t, out, n_out, acc, vmax);
     case 2: return launch_tiled(paint_cic_grad_tiled_kernel<W, 2>, g, t, smem, stream, pos,
-                                alpha, beta, g, t, out, n_out);
+                                alpha, beta, g, t, out, n_out, acc, vmax);
     case 3: return launch_tiled(paint_cic_grad_tiled_kernel<W, 3>, g, t, smem, stream, pos,
-                                alpha, beta, g, t, out, n_out);
+                                alpha, beta, g, t, out, n_out, acc, vmax);
     case 4: return launch_tiled(paint_cic_grad_tiled_kernel<W, 4>, g, t, smem, stream, pos,
-                                alpha, beta, g, t, out, n_out);
+                                alpha, beta, g, t, out, n_out, acc, vmax);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-// K6's lattice-brick design (B-spline windows: K6 takes no other).
+// K6's lattice-brick design (B-spline windows: K6 takes no other).  acc:
+// the fixed-point accumulator (mesh_fixed.cuh), n_shift X Y Z C + 1 int64
+// words; null: float atomics, in a run-dependent order.
 extern "C" int paint_cic_grad_tiled(const float* pos, const float* alpha, const float* beta_p,
                                     int C, GEOM_PARAMS, TILE_PARAMS, float* out,
-                                    unsigned long long* n_out, void* stream) {
+                                    unsigned long long* n_out, unsigned long long* acc,
+                                    void* stream) {
   const Geom g = make_geom(GEOM_ARGS);
   const Tiles t{{bx, by, bz}, R, {Tx, Ty, Tz}};
   if (kb || !plan_ok(g, t, C, smem, 8)) return (int)cudaErrorInvalidValue;
   const long long n_p = (long long)Lx * Ly * Lz;
+  const long long cells = (long long)n_shift * X * Y * Z * C;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (acc != nullptr && n_p > 0) mesh_sum_begin_grad(acc, cells, alpha, beta_p, n_p * C, s);
+  const unsigned* vmax = acc ? (const unsigned*)(acc + cells) : nullptr;
   int code = (int)cudaSuccess;
   DISPATCH_BSPLINE(order, code = paint_grad_tiled<W>(C, g, t, smem, stream, pos, alpha, beta_p,
-                                                    out, n_out));
+                                                    out, n_out, acc, vmax));
+  if (code == (int)cudaSuccess && acc != nullptr && n_p > 0) {
+    mesh_sum_end(acc, cells, n_p, out, s);
+    code = (int)cudaGetLastError();
+  }
   return code;
 }

@@ -1,7 +1,9 @@
-"""Physics bricks of the model paths: reparametrizations, the linear field,
-the Kaiser boost and the Kaiser (linear) galaxy field, Lagrangian and
-Eulerian bias, box geometry (flat or curved sky, at a fixed scale factor or
-on the light cone), RSD and the radial count selection.
+"""Physics bricks of the model paths: reparametrizations, the linear field
+and its local primordial non-Gaussianity (PNG), the Kaiser boost and the
+Kaiser (linear) galaxy field, Lagrangian and Eulerian bias with their PNG
+operators, box geometry (flat or curved sky, at a fixed scale factor or on
+the light cone), RSD, the Alcock-Paczynski (AP) remaps and the radial count
+selection.
 
 Parity: `montecosmo_tpu/models/bricks.py` (cited per function).  Rotations
 are 3x3 matrices (`Rotation`), in place of jax.scipy's Rotation objects.
@@ -11,12 +13,12 @@ import torch
 
 from montecosmo_tpu_torch.metrics import optim_mu2_delta
 from montecosmo_tpu_torch.models.truncnorm import std2trunc, trunc2std
-from montecosmo_tpu_torch.ops.background import Background, Cosmology
+from montecosmo_tpu_torch.ops.background import RH, Background, Cosmology, Esqr
 from montecosmo_tpu_torch.ops.fourier import gradient_hat, invlaplace_hat, irfftn, rfftk, rfftn
 from montecosmo_tpu_torch.ops.hermitian import cgh2rg, ch2rshape, rg2cgh
-from montecosmo_tpu_torch.ops.interp import take_rows
+from montecosmo_tpu_torch.ops.interp import take_rows, uniform_interp
 from montecosmo_tpu_torch.ops.paint import read_multi, read_sites
-from montecosmo_tpu_torch.ops.power import lin_power_mesh
+from montecosmo_tpu_torch.ops.power import lin_power, lin_power_mesh
 from montecosmo_tpu_torch.utils import to_tensor
 from montecosmo_tpu_torch.utils.safe import safe_div, safe_sqrt
 
@@ -46,7 +48,53 @@ class Rotation:
         return np.asarray(v) @ mat.T
 
 
-# ======================================================================= power
+# ======================================================================= power / PNG
+def trans_phi2delta_interp(cosmo: Cosmology, a=1.0, kpow=None, n_interp=256, bg=None):
+    """Interpolator k-mesh -> the primordial-potential to linear-density
+    transfer 2 rh^2 k^2 T(k) D(a) / (3 Omega_m) (arXiv:1904.08859), linear
+    in k between the log-uniform nodes of `lin_power` (the lookup of
+    `lin_power_interp`: one stacked-pair gather, K9 its backward).
+
+    Parity: bricks.py:30-51 (`log_uniform_interp_fn` on the EH98 nodes)."""
+    if bg is None:
+        bg = Background.create(cosmo)
+    ks, pow_lin = lin_power(cosmo, kpow=kpow, n_interp=n_interp, device=bg.a_tab.device)
+    pow_large = ks**cosmo.n_s  # primordial power on large scales
+    lin_trans = (pow_lin / pow_large / (pow_lin[0] / pow_large[0])) ** 0.5
+    a_md = 1.0 / (1.0 + 10.0)  # matter-dominated era
+    growth_md = bg.a2g(a_md) / a_md  # constant during matter domination
+    norm_growth = bg.a2g(a) / growth_md
+    trans = 2.0 * RH**2 * ks**2 * lin_trans * norm_growth / (3.0 * cosmo.Omega_m)
+    nodes = np.logspace(-4, 1, n_interp)
+    logk0 = float(np.log(nodes[0]))
+    dlogk = float((np.log(nodes[-1]) - logk0) / (nodes.size - 1))
+    return lambda x: uniform_interp(x, logk0, dlogk, trans, left=0.0, right=0.0, logx=True,
+                                    xtab=nodes)
+
+
+def _kmesh(mesh_shape, box_size, device):
+    return sum(ki**2 for ki in rfftk(mesh_shape, box_size, device)) ** 0.5
+
+
+def phi_transfer(cosmo: Cosmology, lin_mesh, box_size, kpow=None, bg=None):
+    """The primordial potential of the linear rfft mesh, lin / transfer (0
+    where the transfer is 0), and the transfer on its k-mesh."""
+    kmesh = _kmesh(ch2rshape(lin_mesh.shape), box_size, lin_mesh.device)
+    trans = trans_phi2delta_interp(cosmo, kpow=kpow, bg=bg)(kmesh)
+    return safe_div(lin_mesh, trans), trans
+
+
+def add_png(fNL, phi, trans):
+    """Local PNG: the primordial potential `phi` (real space) -> phi + fNL
+    (phi^2 - <phi^2>), back to the linear density's rfft mesh through the
+    transfer `trans` (both from `phi_transfer` of the linear mesh).
+
+    Parity: bricks.py:54-66."""
+    phi2 = phi**2
+    phi = phi + fNL * (phi2 - phi2.mean())
+    return trans * rfftn(phi)
+
+
 def white2lin(cosmo: Cosmology, white_mesh, init_shape, box_size, kpow=None):
     """White-noise mesh -> linear matter mesh (times sqrt(P)).
 
@@ -63,9 +111,10 @@ def lin2white(cosmo: Cosmology, lin_mesh, init_shape, box_size, kpow=None):
     return safe_div(lin_mesh, safe_sqrt(pmesh))
 
 
-def kaiser_boost(cosmo: Cosmology, a, mesh_shape, box_size, b1E, los=(0.0, 0.0, 0.0),
-                 bg=None, device="cpu"):
-    """Eulerian Kaiser boost growth x (b1E + f mu^2), flat sky, no PNG.
+def kaiser_boost(cosmo: Cosmology, a, mesh_shape, box_size, b1E, fNL_bp=0.0, png_type=None,
+                 los=(0.0, 0.0, 0.0), bg=None, device="cpu"):
+    """Eulerian Kaiser boost growth x (b1E + f mu^2), flat sky, plus the PNG
+    scale-dependent term fNL_bp / transfer(k) when png_type is set.
 
     Parity: bricks.py:102-122."""
     if bg is None:
@@ -74,47 +123,49 @@ def kaiser_boost(cosmo: Cosmology, a, mesh_shape, box_size, b1E, los=(0.0, 0.0, 
     kmesh = sum(ki**2 for ki in kvec) ** 0.5
     mumesh = safe_div(sum(ki * float(li) for ki, li in zip(kvec, los)), kmesh)
     g, _, f, _ = bg._growth(a)
-    return g * (b1E + f * mumesh**2)
-
-
-def _png_refused(png_type):
+    boost = g * (b1E + f * mumesh**2)
     if png_type is not None:
-        raise NotImplementedError(
-            f"png_type={png_type!r}: the PNG term is not ported yet (ROADMAP Queue A item 4 (PNG))")
+        boost = boost + safe_div(fNL_bp, trans_phi2delta_interp(cosmo, bg=bg)(kmesh))
+    return boost
 
 
-def kaiser_model(cosmo: Cosmology, a, lin_mesh, box_size, b1E, png_type=None,
+def kaiser_model(cosmo: Cosmology, a, lin_mesh, box_size, b1E, fNL_bp=0.0, png_type=None,
                  los=(0.0, 0.0, 0.0), bg=None):
     """Linear (Kaiser) galaxy field 1 + delta_g in real space: growth,
-    Eulerian bias b1E and RSD, in one of three regimes by the shapes of `a`
-    and `los`:
+    Eulerian bias b1E, RSD and, with png_type set, the PNG term fNL_bp phi,
+    in one of three regimes by the shapes of `a` and `los`:
     * flat sky at one scale factor (los (3,), `a` a number): diagonal in
-      Fourier, irfftn(lin_mesh g (b1E + f mu^2));
+      Fourier, irfftn(lin_mesh (g (b1E + f mu^2) + fNL_bp / transfer));
     * flat-sky light cone (los (3,), `a` a per-cell mesh): two irffts,
-      g(a) (b1E irfftn(lin_mesh) + f(a) irfftn(mu^2 lin_mesh));
+      g(a) (b1E irfftn(lin_mesh) + f(a) irfftn(mu^2 lin_mesh)), plus
+      fNL_bp irfftn(phi);
     * curved sky (`los` a per-cell unit field (X, Y, Z, 3)): the mu^2 field
-      through the Y_2m decomposition (`metrics.optim_mu2_delta`).
+      through the Y_2m decomposition (`metrics.optim_mu2_delta`), plus the
+      same PNG term.
     g and f come from one lookup of the stacked growth table
-    (`Background._growth`).  The PNG term raises (png_type None only).
+    (`Background._growth`).
 
     Parity: bricks.py:125-167."""
-    _png_refused(png_type)
     if bg is None:
         bg = Background.create(cosmo, lin_mesh.device)
     mesh_shape = ch2rshape(lin_mesh.shape)
     flat = not torch.is_tensor(los) or los.ndim == 1
     if flat and not torch.is_tensor(a):  # flat sky, one scale factor
-        boost = kaiser_boost(cosmo, a, mesh_shape, box_size, b1E, los=los, bg=bg)
+        boost = kaiser_boost(cosmo, a, mesh_shape, box_size, b1E, fNL_bp=fNL_bp,
+                             png_type=png_type, los=los, bg=bg)
         return 1 + irfftn(lin_mesh * boost)
     g, _, f, _ = bg._growth(a)
     if flat:  # flat-sky light cone
         kvec = rfftk(mesh_shape, box_size, lin_mesh.device)
         kmesh = sum(ki**2 for ki in kvec) ** 0.5
         mumesh = safe_div(sum(ki * float(li) for ki, li in zip(kvec, los)), kmesh)
-        delta = b1E * irfftn(lin_mesh) + f * irfftn(mumesh**2 * lin_mesh)
-        return 1 + g * delta
-    delta, mu2_delta = optim_mu2_delta(lin_mesh, los)  # curved sky
-    return 1 + g * (b1E * delta + f * mu2_delta)
+        delta = g * (b1E * irfftn(lin_mesh) + f * irfftn(mumesh**2 * lin_mesh))
+    else:  # curved sky
+        delta, mu2_delta = optim_mu2_delta(lin_mesh, los)
+        delta = g * (b1E * delta + f * mu2_delta)
+    if png_type is not None:
+        delta = delta + fNL_bp * irfftn(phi_transfer(cosmo, lin_mesh, box_size, bg=bg)[0])
+    return 1 + delta
 
 
 def kaiser_posterior(delta_obs, cosmo: Cosmology, a, box_size, var_noise, b1E,
@@ -200,19 +251,23 @@ def shear_comp(mesh, kvec, i, j):
     return irfftn(nabi * gradient_hat(kvec, j) * pot)
 
 
-def lagrangian_bias(cosmo: Cosmology, pos, a, box_size, lin_mesh, bias, bg,
-                    sites_shape):
-    """Lagrangian bias weights up to 3rd order plus the Laplacian operator,
-    read at the undisplaced particles and scaled by growth powers:
+def lagrangian_bias(pos, a, box_size, lin_mesh, bias, bg, sites_shape, png=None, phik=None):
+    """Lagrangian bias weights up to 3rd order plus the Laplacian operator
+    and, given the primordial potential's rfft mesh `phik` (from
+    `phi_transfer`), the PNG operators, read at the undisplaced particles
+    and scaled by growth powers:
 
         w = 1 + b1 dL + b2/2 (dL^2 - s2) + bs2 (s^2 - 2/3 s2) + b3/6 (dL^3 - 3 s2 dL)
             + bds2 dL s^2 + bs3 s^3 + bn2 lap(dL)
+            + fNL (bp phi + bpd phi dL + bpd2 phi dL^2 + bps2 phi s^2 + bn2p lap(phi))
 
-    plus the velocity-bias displacement dvel = bnpar grad(dL) D.  Returns
-    (weights, dvel, phi=0).  No PNG operators (png_type None).  The fields
-    are read at the lattice sites by strided slicing when the mesh refines
-    the `sites_shape` lattice, else at `pos` with `read_multi` at order 1
-    (K4 at NGP): the JAX model always passes read_order=1.
+    (`png` the effective amplitudes of `fNL_bias`), plus the velocity-bias
+    displacement dvel = bnpar grad(dL) D.  Returns (weights, dvel, phi):
+    phi the full primordial-potential mesh given `phik` (a likelihood
+    input), else 0.  The fields are read at the lattice sites by strided
+    slicing when the mesh refines the `sites_shape` lattice, else at `pos`
+    with `read_multi` at order 1 (K4 at NGP): the JAX model always passes
+    read_order=1.
 
     Parity: bricks.py:254-410 (the fused form)."""
     b1, b2, bs2 = bias["b1"], bias["b2"], bias["bs2"]
@@ -240,6 +295,10 @@ def lagrangian_bias(cosmo: Cosmology, pos, a, box_size, lin_mesh, bias, bg,
     grad_fields = [irfftn(gradient_hat(kvec, i) * lin_mesh) for i in range(3)]
 
     fields = [delta, shear2, shear3, delta_nab2, *grad_fields]
+    phi = 0.0
+    if phik is not None:
+        phi = irfftn(phik)
+        fields += [phi, irfftn(-(kmesh**2) * phik)]
     if sites_shape is not None:
         vals = read_sites(fields, sites_shape)
     else:
@@ -262,8 +321,19 @@ def lagrangian_bias(cosmo: Cosmology, pos, a, box_size, lin_mesh, bias, bg,
     weights = weights + bs3 * shear3_pos
     weights = weights + bn2 * delta_nab2_pos
 
+    if phik is not None:
+        phi_pos, phi_nab2_pos = vals[..., 7], vals[..., 8]
+        weights = weights + png["fNL_bp"] * phi_pos
+        phi_delta_pos = phi_pos * delta_pos
+        sigma_pd = phi_delta_pos.mean()
+        weights = weights + png["fNL_bpd"] * (phi_delta_pos - sigma_pd)
+        # delta2_pos is renormalized already: only the cross term remains
+        weights = weights + png["fNL_bpd2"] * (phi_pos * delta2_pos - 2 * sigma_pd * delta_pos)
+        weights = weights + png["fNL_bps2"] * phi_pos * shear2_pos
+        weights = weights + png["fNL_bn2p"] * phi_nab2_pos
+
     dvel = bnpar * delta_nabpar_pos * growths
-    return weights, dvel, 0.0
+    return weights, dvel, phi
 
 
 def velocity_bias(pos, a, box_size, lin_mesh, bnpar, bg, sites_shape):
@@ -304,16 +374,45 @@ def bpd_E2L(bpd, bp):
     return bpd - bp / 2
 
 
-def eulerian_bias(matter_mesh, box_size, bias):
+def b_phi(b1, p=1.0, delta_c=1.686):
+    """Universal-mass-relation primordial bias 2 dc (b1 + 1 - p)
+    (arXiv:0911.0017, arXiv:2107.06887)."""
+    return 2 * delta_c * (b1 + 1 - p)
+
+
+def b_phi_delta(b1, b2, delta_c=1.686):
+    """Primordial-density bias 2 (dc b2 - b1)."""
+    return 2 * (delta_c * b2 - b1)
+
+
+def fNL_bias(png, bias, p=1.0, png_type=None):
+    """The effective amplitudes fNL b_phi and fNL b_phi_delta of png_type:
+    'fNL' from the universal mass relation of b1, b2; 'bias' the sampled
+    fNL_bp, fNL_bpd times fNL; None the sampled values as they are.
+
+    Parity: bricks.py:448-466."""
+    fNL, fNL_bp, fNL_bpd = png["fNL"], png["fNL_bp"], png["fNL_bpd"]
+    b1, b2 = bias["b1"], bias["b2"]
+    if png_type == "fNL":
+        fNL_bp = fNL * b_phi(b1, p)
+        fNL_bpd = fNL * b_phi_delta(b1, b2)
+    elif png_type == "bias":
+        fNL_bp = fNL * fNL_bp
+        fNL_bpd = fNL * fNL_bpd
+    return dict(png) | {"fNL_bp": fNL_bp, "fNL_bpd": fNL_bpd}
+
+
+def eulerian_bias(matter_mesh, box_size, bias, phi_mesh=None, png=None, png_type=None):
     """Renormalized Eulerian bias operators applied to the advected matter
-    mesh (an rfft mesh):
+    mesh (an rfft mesh) and, with png_type set, to the advected primordial
+    potential `phi_mesh` (an rfft mesh):
 
-        w = 1 + b1E d + b2E/2 (d^2 - s2) + bs2 (s^2 - 2/3 s2) + bn2 lap(d)
+        w = 1 + b1E d + fNL bp phi + fNL bpdE (phi d - <phi d>)
+            + b2E/2 (d^2 - s2) + bs2 (s^2 - 2/3 s2) + bn2 lap(d)
 
-    with b1E, b2E the Eulerian biases of the Lagrangian b1, b2
-    (arXiv:1611.09787 eqs. 3.38, 7.10, 7.11).  Returns w in real space.
-    No PNG operators (png_type None): the advected phi mesh they read is not
-    needed.
+    with b1E, b2E, bpdE the Eulerian biases of the Lagrangian b1, b2, bpd
+    (arXiv:1611.09787 eqs. 3.38, 7.10, 7.11) and `png` the effective
+    amplitudes of `fNL_bias`.  Returns w in real space.
 
     Parity: bricks.py:469-513."""
     b1, b2, bs2, bn2 = bias["b1"], bias["b2"], bias["bs2"], bias["bn2"]
@@ -325,6 +424,13 @@ def eulerian_bias(matter_mesh, box_size, bias):
     kmesh = sum(ki**2 for ki in kvec) ** 0.5
 
     weights = 1.0 + b1 * delta
+    if png_type is not None:
+        fNL, fNL_bp = png["fNL"], png["fNL_bp"]
+        fNL_bpd = fNL * bpd_L2E(safe_div(png["fNL_bpd"], fNL), safe_div(fNL_bp, fNL))
+        phi = irfftn(phi_mesh)
+        weights = weights + fNL_bp * phi
+        phi_delta = phi * delta
+        weights = weights + fNL_bpd * (phi_delta - phi_delta.mean())
     delta2 = delta**2
     sigma2 = delta2.mean()
     weights = weights + b2 * (delta2 - sigma2) / 2
@@ -456,6 +562,95 @@ def rsd(bg: Background, vel, los, a, box_rot, box_size, mesh_shape, dvel=0.0):
     vel = vel * g * f + dvel
     los = to_tensor(los, vel.device)
     return (vel * los).sum(-1, keepdim=True) * los
+
+
+# ======================================================================= AP
+def scale_pos(pos, los, scale_par, scale_perp):
+    """Scale positions along and across the line of sight `los` ((3,) or
+    one per position)."""
+    los = to_tensor(los, pos.device).to(pos.dtype)
+    pos_par = (pos * los).sum(-1, keepdim=True) * los
+    return pos_par * scale_par + (pos - pos_par) * scale_perp
+
+
+def parperp2isoap(alpha_par, alpha_perp):
+    return (alpha_par * alpha_perp**2) ** (1 / 3), alpha_par / alpha_perp
+
+
+def isoap2parperp(alpha_iso, alpha_ap):
+    return alpha_iso * alpha_ap ** (2 / 3), alpha_iso * alpha_ap ** (-1 / 3)
+
+
+def _ap_radius(pos, los, curved_sky):
+    """The distance the AP remap reads: |pos| (curved sky) or |pos . los|."""
+    if curved_sky:
+        return torch.linalg.vector_norm(pos, dim=-1, keepdim=True)
+    return (pos * to_tensor(los, pos.device).to(pos.dtype)).sum(-1, keepdim=True).abs()
+
+
+def _ap_alpha(bg: Background, bg_fid: Background):
+    """r -> chi_fid(a(r)) / r: the sampled cosmology's scale factor at r,
+    at the fiducial cosmology's distance."""
+    return lambda r: safe_div(bg_fid.a2chi(bg.chi2a(r)), r)
+
+
+def ap_auto(pos, los, bg: Background, bg_fid: Background, curved_sky=True):
+    """Automatic Alcock-Paczynski: each position scaled by chi_fid(a(r)) / r,
+    r its distance (curved sky) or its distance along the line of sight.
+
+    Parity: bricks.py:678-691."""
+    return pos * _ap_alpha(bg, bg_fid)(_ap_radius(pos, los, curved_sky))
+
+
+def ap_auto_absdetjac(pos, los, bg: Background, bg_fid: Background, curved_sky=True):
+    """`ap_auto` and the |det Jacobian| of its remap, alpha^(d-1) (alpha +
+    r alpha'(r)) (d = 3 on the curved sky, 1 along the flat sky's line of
+    sight): alpha' by autograd, itself differentiable (create_graph).
+
+    Parity: bricks.py:694-724."""
+    alpha_fn = _ap_alpha(bg, bg_fid)
+    rpos = _ap_radius(pos, los, curved_sky)
+    new_pos = pos * alpha_fn(rpos)
+    with torch.enable_grad():
+        r = rpos.squeeze(-1)
+        if not r.requires_grad:
+            r = r.detach().requires_grad_(True)
+        alpha = alpha_fn(r)
+        (dalpha,) = torch.autograd.grad(alpha.sum(), r, create_graph=True)
+    adj = alpha + r * dalpha
+    if curved_sky:
+        adj = adj * alpha**2
+    return new_pos, adj
+
+
+def ap_param(pos, los, alphas, curved_sky=True):
+    """Parametrized AP: isotropic scaling by alpha_iso (curved sky), or
+    alpha_par along and alpha_perp across the line of sight (flat sky).
+
+    Parity: bricks.py:719-724."""
+    if curved_sky:
+        return pos * alphas["alpha_iso"]
+    alpha_par, alpha_perp = isoap2parperp(alphas["alpha_iso"], alphas["alpha_ap"])
+    return scale_pos(pos, los, alpha_par, alpha_perp)
+
+
+def rsd_ap_auto(pos, vel, rpos, los, a, bg: Background, bg_fid: Background, curved_sky=True):
+    """RSD and automatic AP in one remap: the scale factor redshifted by the
+    line-of-sight velocity, 1/a_obs = 1/a + v_los E(a) / rh, then placed at
+    the fiducial distance chi_fid(a_obs) (radially on the curved sky, along
+    the line of sight on the flat sky, where positions behind the observer
+    flip the velocity's sign).
+
+    Parity: bricks.py:727-743."""
+    los = to_tensor(los, pos.device).to(pos.dtype)
+    vel_los = (vel * los).sum(-1, keepdim=True)
+    if not curved_sky:
+        vel_los = vel_los * torch.sign((pos * los).sum(-1, keepdim=True))
+    a = (1 / a + vel_los * torch.sqrt(Esqr(bg.cosmo, a)) / RH) ** -1
+    alpha = safe_div(bg_fid.a2chi(a), rpos)
+    if curved_sky:
+        return pos * alpha
+    return scale_pos(pos, los, alpha, 1.0)
 
 
 def set_radial_count(mesh, rmesh, redges, rcounts):

@@ -9,10 +9,13 @@ evolution='kaiser' (its three regimes: flat sky at `a_obs`, the flat-sky
 light cone, the curved sky), 'lpt' and 'nbody' (BullFrog, at one scale
 factor `a_obs` or on the light cone with a_obs=None), B-spline paint orders
 1-4 and Kaiser-Bessel windows of support 1-4, bias_type 'lagrangian' or
-'eulerian', flat or curved sky without AP or PNG, observable 'field' with
-every lik_type (poisson, fourier_gauss, quad_gauss, two_quad_gauss, shash)
-or 'powspec', and precond 'kaiser', 'real' or 'fourier'; any other value
-raises NotImplementedError naming its ROADMAP item.  `reparam` works on
+'eulerian', flat or curved sky, Alcock-Paczynski distortions (ap_auto None,
+True: through the fiducial distances, False: the `ap` latents) and local
+primordial non-Gaussianity (png_type None, 'fNL' or 'bias'), observable
+'field' with every lik_type (poisson, fourier_gauss, quad_gauss,
+two_quad_gauss, shash) or 'powspec', and precond 'kaiser', 'real' or
+'fourier'; a register file raises NotImplementedError naming its ROADMAP
+item.  `reparam` works on
 plain dicts (no `Chains`).  `kaiser_post`, the samplers' start, is the
 flat-sky Kaiser posterior at the fiducial.
 """
@@ -28,10 +31,10 @@ from montecosmo_tpu_torch.convert import params_from_numpy
 from montecosmo_tpu_torch.metrics import _plan, _spectrum, kbin_edges, legendre
 from montecosmo_tpu_torch.models import ppl
 from montecosmo_tpu_torch.models.bricks import (
-    Rotation, b1_L2E, cell2phys_pos, count2delta, eulerian_bias, kaiser_boost, kaiser_model,
-    kaiser_posterior, lagrangian_bias, lin2white, los_scalefactor_mesh, los_scalefactor_pos,
-    phys2cell_pos, radius_mesh, regular_pos, rsd, samp2base, samp2base_mesh, set_radial_count,
-    velocity_bias, white2lin,
+    Rotation, add_png, ap_auto, ap_param, b1_L2E, cell2phys_pos, count2delta, eulerian_bias,
+    fNL_bias, kaiser_boost, kaiser_model, kaiser_posterior, lagrangian_bias, lin2white,
+    los_scalefactor_mesh, los_scalefactor_pos, phi_transfer, phys2cell_pos, radius_mesh,
+    regular_pos, rsd, samp2base, samp2base_mesh, set_radial_count, velocity_bias, white2lin,
 )
 from montecosmo_tpu_torch.models.distributions import (
     BlockMultivariateNormal, DetruncTruncNorm, DetruncUnif, Normal, Poisson, QuadGaussian,
@@ -42,7 +45,7 @@ from montecosmo_tpu_torch.ops.fourier import irfftn, rfftk, rfftn, top_hat
 from montecosmo_tpu_torch.ops.hermitian import (
     cgh2rg, ch2rshape, chreshape, masked2mesh, mesh2masked, r2chshape, rg2cgh, scale_shape,
 )
-from montecosmo_tpu_torch.ops.paint import nufft
+from montecosmo_tpu_torch.ops.paint import nufft, read, read_sites
 from montecosmo_tpu_torch.ops.pm import lpt, nbody_bf, nbody_bf_lightcone
 from montecosmo_tpu_torch.ops.power import lin_power, lin_power_mesh
 from montecosmo_tpu_torch.utils import to_tensor
@@ -150,13 +153,10 @@ default_config = {
 }
 
 
-_ROADMAP = {
-    "png_type": "ROADMAP Queue A item 4 (PNG)",
-    "ap_auto": "ROADMAP Queue A item 4 (AP)",
-    "register": "ROADMAP Queue A item 6 (register files)",
-}
-_SUPPORTED = {"png_type": (None,), "ap_auto": (None,), "register": (None,)}
-_CHOICES = {"evolution": ("kaiser", "lpt", "nbody"),
+_ROADMAP = {"register": "ROADMAP Queue A item 6 (register files)"}
+_SUPPORTED = {"register": (None,)}
+_CHOICES = {"evolution": ("kaiser", "lpt", "nbody"), "ap_auto": (None, True, False),
+            "png_type": (None, "fNL", "bias"),
             "lik_type": ("poisson", "fourier_gauss", "quad_gauss", "two_quad_gauss", "shash"),
             "bias_type": ("lagrangian", "eulerian"), "observable": ("field", "powspec")}
 
@@ -535,33 +535,50 @@ class FieldLevelModel(Model):
         return cosmology, bias, png, stoch, ap, syst, init
 
     def evolve(self, params: tuple):
-        """Linear field -> Kaiser, or 2LPT or BullFrog N-body -> Lagrangian
-        or Eulerian bias -> RSD -> the galaxy mesh (1 + delta_obs), on the
-        paint mesh (the evol mesh, resampled to the final one, for Kaiser).
-        The render's paint window is `kernel_type`'s; the N-body force
-        paints and reads are B-splines of `paint_order` whatever it is, as
-        in the JAX package."""
+        """Linear field -> Kaiser, or (PNG) 2LPT or BullFrog N-body ->
+        Lagrangian or Eulerian bias -> RSD -> AP -> the galaxy mesh (1 +
+        delta_obs), on the paint mesh (the evol mesh, resampled to the final
+        one, for Kaiser).  The render's paint window is `kernel_type`'s; the
+        N-body force paints and reads are B-splines of `paint_order`
+        whatever it is, as in the JAX package.  Returns (gxy_mesh, phi,
+        stoch, syst), phi the primordial-potential mesh with png_type set
+        on the particle paths, else 0."""
         cosmology, bias, png, stoch, ap, syst, init = params
         bg = Background.create(cosmology, self.device)
 
         init_mesh = white2lin(cosmology, init["white_mesh"], self.init_shape,
                               self.box_size, self.lin_kpow)
         init_mesh = chreshape(init_mesh, r2chshape(self.evol_shape))
+        png = fNL_bias(png, bias, p=1.0, png_type=self.png_type)
         if self.evolution == "kaiser":
-            return self._evolve_kaiser(cosmology, bias, stoch, syst, init_mesh, bg)
+            return self._evolve_kaiser(cosmology, bias, png, stoch, ap, syst, init_mesh, bg)
 
         pos = regular_pos(self.evol_shape, self.ptcl_shape, self.device)
         _, a = los_scalefactor_pos(pos, self.box_center, self.box_rot, self.box_size,
                                    self.evol_shape, bg, self.a_obs, self.curved_sky)
+        # the primordial potential and its transfer, built once for the
+        # bias operators and add_png
+        phik = trans = None
+        if self.png_type is not None:
+            phik, trans = phi_transfer(cosmology, init_mesh, self.box_size, self.lin_kpow, bg)
         if self.bias_type == "lagrangian":
-            lbe_weights, dvel, phi = lagrangian_bias(cosmology, pos, a, self.box_size,
-                                                     init_mesh, bias, bg, self.evol_sites)
+            lbe_weights, dvel, phi = lagrangian_bias(
+                pos, a, self.box_size, init_mesh, bias, bg, self.evol_sites, png=png, phik=phik)
         else:
             # the Eulerian path takes only the velocity bias of the
-            # Lagrangian operators (the JAX package evaluates them all)
+            # Lagrangian operators (the JAX package evaluates them all) and,
+            # with PNG, their phi mesh, read at the particles
             phi = 0.0
             dvel = velocity_bias(pos, a, self.box_size, init_mesh, bias["bnpar"], bg,
                                  self.evol_sites)
+            if self.png_type is not None:
+                phi = irfftn(phik)
+                phi_pos = (read_sites(phi, self.evol_sites) if self.evol_sites is not None
+                           else read(pos, phi, order=1))
+        if self.png_type is not None:
+            init_mesh = add_png(png["fNL"], phi, trans)
+            init_mesh = chreshape(chreshape(init_mesh, r2chshape(self.init_shape)),
+                                  r2chshape(self.evol_shape))
         if self.evolution == "lpt":
             dpos, vel = lpt(bg, init_mesh, pos=pos, a=a, lpt_order=self.lpt_order,
                             read_order=1, sites_shape=self.evol_sites)
@@ -595,37 +612,72 @@ class FieldLevelModel(Model):
         pos = cell2phys_pos(pos, self.box_center, self.box_rot, self.box_size,
                             self.evol_shape)
         pos = pos + rsd(bg, vel, los, a, self.box_rot, self.box_size, self.evol_shape, dvel)
+        pos = self._ap(pos, los, bg, ap)
         pos = phys2cell_pos(pos, self.box_center, self.box_rot, self.box_size,
                             self.init_shape)
 
-        def advect(weights, units):
-            mesh = nufft(pos, self.init_shape, tuple(self.paint_shape), weights=weights,
-                         paint_order=self.paint_order, interlace_order=self.interlace_order,
-                         kernel_type=self.kernel_type, paint_deconv=self.paint_deconv,
-                         lattice_shape=self.paint_lattice, max_disp=self.max_disp, clip=True)
-            mesh = mesh * float(np.prod(np.divide(units, self.ptcl_shape)))
-            return chreshape(mesh, r2chshape(self.paint_shape))
-
         if self.bias_type == "lagrangian":
-            gxy_mesh = irfftn(advect(lbe_weights, self.init_shape))
+            gxy_mesh = irfftn(self._advect(pos, lbe_weights, self.init_shape, self.init_shape))
         else:
-            # the advected matter mesh, in paint-mesh units (the JAX
-            # package's advect: paint_shape / ptcl_shape, not the Lagrangian
-            # render's init_shape / ptcl_shape)
-            gxy_mesh = eulerian_bias(advect(1.0, self.paint_shape), self.box_size, bias)
+            # the advected matter (and phi) meshes, in paint-mesh units (the
+            # JAX package's advect: paint_shape / ptcl_shape, not the
+            # Lagrangian render's init_shape / ptcl_shape)
+            phi_mesh = None if self.png_type is None else self._advect(
+                pos, phi_pos, self.init_shape, self.paint_shape)
+            gxy_mesh = eulerian_bias(self._advect(pos, 1.0, self.init_shape, self.paint_shape),
+                                     self.box_size, bias, phi_mesh=phi_mesh, png=png,
+                                     png_type=self.png_type)
         gxy_mesh = ppl.deterministic("gxy_mesh", gxy_mesh)
         return gxy_mesh, phi, stoch, syst
 
-    def _evolve_kaiser(self, cosmology, bias, stoch, syst, init_mesh, bg):
+    def _advect(self, pos, weights, cell_shape, units):
+        """Paint `weights` at `pos` (in cells of `cell_shape`) on the paint
+        mesh through `nufft` (K1, K3), times prod(units / ptcl_shape): the
+        rfft mesh at the paint shape."""
+        mesh = nufft(pos, cell_shape, tuple(self.paint_shape), weights=weights,
+                     paint_order=self.paint_order, interlace_order=self.interlace_order,
+                     kernel_type=self.kernel_type, paint_deconv=self.paint_deconv,
+                     lattice_shape=self.paint_lattice, max_disp=self.max_disp, clip=True)
+        mesh = mesh * float(np.prod(np.divide(units, self.ptcl_shape)))
+        return chreshape(mesh, r2chshape(self.paint_shape))
+
+    def _ap(self, pos, los, bg, ap):
+        """The Alcock-Paczynski remap of physical positions: none (ap_auto
+        None), through the fiducial distances (True) or the `ap` latents
+        (False)."""
+        if self.ap_auto is None:
+            return pos
+        if self.ap_auto:
+            return ap_auto(pos, los, bg, self.bg_fid, self.curved_sky)
+        return ap_param(pos, los, ap, self.curved_sky)
+
+    def _evolve_kaiser(self, cosmology, bias, png, stoch, ap, syst, init_mesh, bg):
         """The Kaiser evolution (`kaiser_model`) on the evol mesh, each cell
         at its scale factor on the light cone (a_obs None) and along its
-        own line of sight on the curved sky, resampled to the final mesh."""
+        own line of sight on the curved sky; with AP, read at the particle
+        lattice, remapped and painted back through `nufft`; resampled to
+        the final mesh."""
         los, a = los_scalefactor_mesh(self.box_center, self.box_rot, self.box_size,
                                       self.evol_shape, bg, self.a_obs, self.curved_sky)
-        if not torch.is_tensor(los):  # flat sky: the box frame's line of sight
-            los = self.box_rot.apply(np.asarray(los, float), inverse=True)
+        # flat sky: the box frame's line of sight
+        cell_los = los if torch.is_tensor(los) else self.box_rot.apply(
+            np.asarray(los, float), inverse=True)
         gxy_mesh = kaiser_model(cosmology, a, init_mesh, self.box_size, b1_L2E(bias["b1"]),
-                                png_type=self.png_type, los=los, bg=bg)
+                                fNL_bp=png["fNL_bp"], png_type=self.png_type, los=cell_los,
+                                bg=bg)
+        if self.ap_auto is not None:
+            # the Kaiser mesh re-sampled on the AP-distorted particle lattice
+            pos = regular_pos(self.evol_shape, self.ptcl_shape, self.device)
+            if self.evol_sites is not None and self.paint_order <= 2:
+                weights = read_sites(gxy_mesh, self.evol_sites)
+            else:
+                weights = read(pos, gxy_mesh, self.paint_order)
+            pos = cell2phys_pos(pos, self.box_center, self.box_rot, self.box_size,
+                                self.evol_shape)
+            pos = self._ap(pos, los, bg, ap)
+            pos = phys2cell_pos(pos, self.box_center, self.box_rot, self.box_size,
+                                self.paint_shape)
+            gxy_mesh = irfftn(self._advect(pos, weights, self.paint_shape, self.evol_shape))
         if tuple(gxy_mesh.shape) != tuple(self.final_shape):
             gxy_mesh = irfftn(chreshape(rfftn(gxy_mesh), r2chshape(self.final_shape)))
         gxy_mesh = ppl.deterministic("gxy_mesh", gxy_mesh)
@@ -646,6 +698,8 @@ class FieldLevelModel(Model):
         rcounts = syst["ngbars"] * self.cell_length**3
         count_mesh = self._count_mesh(gxy_mesh, rcounts)
         selec_mesh = rcounts.mean()
+        if self.png_type is not None and torch.is_tensor(phi) and phi.ndim == 3:
+            phi = irfftn(chreshape(rfftn(phi), r2chshape(self.final_shape)))
 
         if self.lik_type == "poisson":
             return ppl.sample("count_mesh", Poisson(count_mesh.abs() ** (1 / temp)))

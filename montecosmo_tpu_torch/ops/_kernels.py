@@ -105,11 +105,11 @@ def cuda_library(rebuild=False):
     lib.nufft_epilogue.argtypes = [_P, _P, _I, _I, _I, _I, _F, _I, _I, _P, _P, _P, _P, _P, _P,
                                    _P]
     lib.nufft_epilogue.restype = _I
-    lib.paint_cic_grad.argtypes = [_P, _P, _P, _L, _I, *_GEOM, _P, _P]
+    lib.paint_cic_grad.argtypes = [_P, _P, _P, _L, _I, *_GEOM, _P, _P, _P]
     lib.paint_cic_grad.restype = _I
     lib.read_cic_hess.argtypes = [_P, _P, _P, _L, _I, *_GEOM, _P, _P, _P]
     lib.read_cic_hess.restype = _I
-    lib.paint_cic_grad_tiled.argtypes = [_P, _P, _P, _I, *_GEOM, *_TILE, _P, _P, _P]
+    lib.paint_cic_grad_tiled.argtypes = [_P, _P, _P, _I, *_GEOM, *_TILE, _P, _P, _P, _P]
     lib.paint_cic_grad_tiled.restype = _I
     lib.read_cic_hess_tiled.argtypes = [_P, _P, _P, _I, *_GEOM, *_TILE, _P, _P, _P, _P]
     lib.read_cic_hess_tiled.restype = _I

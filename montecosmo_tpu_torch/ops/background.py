@@ -9,7 +9,7 @@
   and second derivatives with respect to Omega_m; `_BackgroundTables` turns
   them into the gradient (and, under `create_graph`, the second
   derivative).  Only Omega_m may carry a gradient into the tables.
-* Lookups (`a2g`, `a2g2`, `a2f`, `a2dg2dg`, `chi2a`, and the growth-time
+* Lookups (`a2g`, `a2g2`, `a2f`, `a2dg2dg`, `a2chi`, `chi2a`, and the growth-time
   `g2a`, `g2g2`, `g2f`, `g2f2`, `g2dg2dg` that BullFrog steps in)
   interpolate those tables.  The four growth tables are kept stacked as one
   (n, 4) table, so a call site that needs several of them at the same scale
@@ -373,6 +373,8 @@ class Background(NamedTuple):
         return self.growth_tab[:, 3]
 
     def _a_lookup(self, a, ytab):
+        # the growth and distance tables both start at 10^-3 (their node
+        # counts differ)
         nodes = np.logspace(GROWTH_LOG10_AMIN, 0.0, ytab.shape[0])
         x0 = float(np.log(nodes[0]))
         dx = float((np.log(nodes[-1]) - x0) / (nodes.size - 1))
@@ -416,6 +418,11 @@ class Background(NamedTuple):
     def g2dg2dg(self, g):
         g2, f, f2 = self.g2g2(g), self.g2f(g), self.g2f2(g)
         return safe_div(g2 * f2, g * f)
+
+    def a2chi(self, a):
+        """Comoving distance [Mpc/h] at scale factor `a`: the distance table
+        on its log-uniform a nodes, clipped at 0."""
+        return torch.clamp(self._a_lookup(a, self.chi_tab), min=0.0)
 
     def chi2a(self, chi):
         return uniform_interp(chi, 0.0, CHI_GRID_MAX / (CHI_STEPS - 1), self.a_chi_tab)

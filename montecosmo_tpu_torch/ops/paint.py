@@ -35,7 +35,10 @@ support 1 is the one-hot NGP whatever the kernel type.
   sum_p alpha_p W(x_p - c) + beta_p . grad W(x_p - c), over the interlace
   shifts and C channels; CUDA, lattice-brick (`paint_cic_grad_tiled`,
   `csrc/paint_tiled.cu`, K5's C-channel fixed-point tile) or atomic
-  (`csrc/paint_hess.cu`).
+  (`csrc/paint_hess.cu`).  K1, K5 and K6 add into the mesh through a
+  64-bit fixed-point accumulator (`_accumulator`, `csrc/mesh_fixed.cuh`),
+  so their meshes, and a gradient or a Hessian-vector product through
+  them, are the same bit for bit from launch to launch.
 * K7 `read_cic_hess`: the read of the window's gradient and Hessian,
   g_p = sum_c M[c] grad W(x_p - c) and h_p = sum_c M[c] H_W(x_p - c) b_p,
   its corner sums factored per (i, j); CUDA, one thread per particle
@@ -50,8 +53,8 @@ clamped axis (|pos - site| >= H) are 0 at every order.  Kaiser-Bessel
 windows have no double backward yet (`_KB_HESSIAN`).
 
 The route is fixed by the kernel, the geometry and the order (`_tiled`,
-`TILED_FROM`): on a clamped (lattice) geometry K1 and K5 take the
-lattice-brick design from CIC up, K4 and K6 from TSC up, K7 never; NGP (order 1:
+`TILED_FROM`): on a clamped (lattice) geometry K1, K5 and K6 take the
+lattice-brick design from CIC up, K4 from TSC up, K7 never; NGP (order 1:
 B-spline order 1 and the clamped Kaiser-Bessel support 1, the one-hot NGP)
 and every unclamped call take the per-particle designs (PERF.md, Findings,
 has the timings).  Each wrapper launches its kernel for a CUDA tensor (or
@@ -504,7 +507,7 @@ def _counter(outliers, device):
 
 
 def _accumulator(mesh, fixed=True):
-    """The pointer to K1's and K5's fixed-point accumulator for the float32
+    """The pointer to K1's, K5's and K6's fixed-point accumulator for the float32
     `mesh` they add into (csrc/mesh_fixed.cuh): one int64 a cell and one
     for the values' largest magnitude, zeroed by the kernel's launch.  With
     `fixed` False a null pointer: the kernels then add floats with
@@ -575,12 +578,14 @@ def paint_cic_adjoint_kernel(pos, weights, grads, geom: CICGeometry):
 # per-particle design runs.  K1 and K5 from CIC (at NGP one atomic add a
 # particle is cheaper than a brick's set-up); K4 from TSC (at NGP and CIC
 # the per-particle gather is faster than staging the brick's box); K6 from
-# TSC, on the render's case (2 shifts, one channel: at CIC its atomics
-# measured faster than the tile).  K7's per-particle gather (its corner
+# CIC (since its corners add fixed point, its tile is the faster at CIC on
+# the render's case, the force read's and a flagship HVP column's own
+# inputs; at NGP one 64-bit atomic a corner and shift still is).  K7's
+# per-particle gather (its corner
 # sums factored per (i, j)) measured faster than its staged boxes at every
 # order of the render's case, so it has no entry; K2 has the per-particle
 # design only.
-TILED_FROM = {"paint_cic": 2, "read_cic_adjoint": 2, "read_cic": 3, "paint_cic_grad": 3}
+TILED_FROM = {"paint_cic": 2, "read_cic_adjoint": 2, "read_cic": 3, "paint_cic_grad": 2}
 
 
 def _tiled(kernel, geom):
@@ -997,7 +1002,7 @@ def paint_cic_grad_tiled_kernel(pos, alpha, beta, geom: CICGeometry, outliers=No
     return _paint_cic_grad(pos, alpha, beta, geom, tiled=True, outliers=outliers)
 
 
-def _paint_cic_grad(pos, alpha, beta, geom, tiled, outliers=None):
+def _paint_cic_grad(pos, alpha, beta, geom, tiled, outliers=None, fixed=True):
     from montecosmo_tpu_torch.ops import _kernels
 
     _check_hess_inputs(pos, beta, geom)
@@ -1008,7 +1013,7 @@ def _paint_cic_grad(pos, alpha, beta, geom, tiled, outliers=None):
     if C > MAX_CHANNELS:
         return torch.cat([_paint_cic_grad(
             pos, None if alpha is None else alpha[:, c:c + MAX_CHANNELS].contiguous(),
-            beta[:, c:c + MAX_CHANNELS].contiguous(), geom, tiled, outliers)
+            beta[:, c:c + MAX_CHANNELS].contiguous(), geom, tiled, outliers, fixed)
             for c in range(0, C, MAX_CHANNELS)], -1)
     lib = _kernels.cuda_library()
     out = torch.zeros((geom.n_shift,) + geom.shape + (C,), dtype=torch.float32, device=pos.device)
@@ -1018,11 +1023,13 @@ def _paint_cic_grad(pos, alpha, beta, geom, tiled, outliers=None):
         name = "paint_cic_grad_tiled"
         code = lib.paint_cic_grad_tiled(_ptr(pos), al, _ptr(beta), ctypes.c_int(C),
                                         *_geom_args(geom), *_tile_args(tile_plan(geom, C)),
-                                        _ptr(out), _counter(outliers, pos.device), stream)
+                                        _ptr(out), _counter(outliers, pos.device),
+                                        _accumulator(out, fixed), stream)
     else:
         name = "paint_cic_grad"
         code = lib.paint_cic_grad(_ptr(pos), al, _ptr(beta), ctypes.c_longlong(pos.shape[0]),
-                                  ctypes.c_int(C), *_geom_args(geom), _ptr(out), stream)
+                                  ctypes.c_int(C), *_geom_args(geom), _ptr(out),
+                                  _accumulator(out, fixed), stream)
     LAUNCHES[name, geom.window, geom.order] += 1
     _launch_status(code, name)
     return out

@@ -214,6 +214,77 @@ def test_paint_kernels_repeat_bit_for_bit_on_card():
 
 
 @pytest.mark.cuda
+def test_paint_grad_kernels_repeat_bit_for_bit_on_card():
+    """K6 in both designs (lattice-brick and per-particle, clamped, and the
+    per-particle one unclamped) gives the same meshes bit for bit from
+    launch to launch: its corners add fixed point into K1's accumulator
+    (csrc/mesh_fixed.cuh).  At B-spline orders 1-4, with ties and outliers,
+    for the render's case (2 shifts, C = 1, alpha) and the force read's (C
+    = 3, no alpha), with values spanning 12 decades; within 1e-5 of the
+    plain version; a non-finite beta makes the meshes non-finite where it
+    lands (skips without a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K6 is CUDA")
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    pos, _ = _lattice_particles((16, 16, 16), (2, 2, 2), 2, 31, n_out=400)
+    pos = torch.tensor(_with_ties(pos, (16, 16, 16), (2, 2, 2), np.random.default_rng(32)),
+                       device=dev)
+    n = pos.shape[0]
+    wide = torch.tensor(10.0 ** np.random.default_rng(33).uniform(-6, 6, n), dtype=torch.float32,
+                        device=dev)
+    for order in (1, 2, 3, 4):
+        for S, C in ((2, 1), (1, 3)):
+            gc = tpa.cic_geometry((32, 32, 32), S, (16, 16, 16), 2, True, order)
+            gu = tpa.cic_geometry((32, 32, 32), S, order=order)
+            alpha = torch.randn((n, C), generator=gen, device=dev) if S == 2 else None
+            beta = torch.randn((n, C, 3), generator=gen, device=dev) * wide[:, None, None]
+            for f, g in ((tpa.paint_cic_grad_tiled_kernel, gc), (tpa.paint_cic_grad_kernel, gc),
+                         (tpa.paint_cic_grad_kernel, gu)):
+                a, b = f(pos, alpha, beta, g), f(pos, alpha, beta, g)
+                assert torch.equal(a, b), (f.__name__, order, S, C)
+                ref = tpa.paint_cic_grad_plain(pos, alpha, beta, g)
+                torch.testing.assert_close(a, ref, rtol=1e-5, atol=1e-5 * float(ref.abs().max()))
+    bad = beta.clone()
+    bad[5, 0, 1] = float("nan")
+    for f in (tpa.paint_cic_grad_tiled_kernel, tpa.paint_cic_grad_kernel):
+        out = f(pos, None, bad, gc)
+        assert torch.isnan(out).any() and torch.isfinite(out).sum() > out.numel() // 2
+
+
+@pytest.mark.cuda
+def test_ap_png_model_gradient_finite_on_card():
+    """One value+grad of chip_smoke.py's 5k (a) configuration at 32^3 on the
+    card (2LPT, Lagrangian bias, ap_auto=True, png_type='fNL',
+    quad-Gaussian, Kaiser preconditioning, float32), every scalar latent
+    but s_e2_ 0.3 sigma off the fiducial (fNL off 0, the cosmology off the
+    fiducial one that ap_auto maps through): the logpdf and every latent's
+    gradient (alpha_iso_, alpha_ap_ and the fNL*_ latents included) are
+    finite (skips without a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card")
+    from montecosmo_tpu_torch import FieldLevelModel, default_config
+
+    conf = dict(default_config, final_shape=(32,) * 3, cell_length=1000.0 / 32,
+                box_center=(0.0, 0.0, 1500.0), evolution="lpt", a_obs=0.5, curved_sky=False,
+                lik_type="quad_gauss", precond="kaiser", ap_auto=True, png_type="fNL")
+    model = FieldLevelModel(**conf, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    params = model.reparam({k: np.asarray(v) for k, v in model.fiduc.items()}, inv=True)
+    params = {k: v if k == "s_e2_" else v + 0.3 for k, v in params.items()}
+    params["white_mesh_"] = torch.randn(model.init_shape, generator=gen, device="cuda")
+    obs = model.predict(seed=gen, samples=params, hide_samp=False)["count_mesh"]
+    leaves = {k: torch.as_tensor(v, device="cuda").clone().requires_grad_(True)
+              for k, v in params.items()}
+    lp = model.logpdf({**leaves, "count_mesh": obs})
+    grads = torch.autograd.grad(lp, list(leaves.values()))
+    assert torch.isfinite(lp)
+    assert {"alpha_iso_", "alpha_ap_", "fNL_", "fNL_bp_", "fNL_bpd_"} <= set(leaves)
+    for k, g in zip(leaves, grads):
+        assert torch.isfinite(g).all(), k
+
+
+@pytest.mark.cuda
 def test_tiled_read_matches_plain_and_per_particle_on_card():
     """The lattice-brick K4 (read) against its plain version and against
     the per-particle kernel on the same inputs, at 32^3 (stride-2 lattice,

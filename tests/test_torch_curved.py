@@ -100,7 +100,7 @@ def test_lagrangian_bias_off_lattice_matches_jax():
     bt, bj = _backgrounds()
     pt, pj = tbr.regular_pos(shape, ptcl), jbr.regular_pos(shape, ptcl)
     close(pt, pj, 0, 0)
-    wt, dvt, _ = tbr.lagrangian_bias(tbg.Planck18(), pt, a, box, torch.tensor(lin),
+    wt, dvt, _ = tbr.lagrangian_bias(pt, a, box, torch.tensor(lin),
                                      {k: torch.tensor(v) for k, v in bias.items()}, bt, None)
     wj, dvj, _ = jax.jit(lambda m: jbr.lagrangian_bias(
         jbg.Planck18(), pj, a, box, m, bias, png, read_order=1, bg=bj, sites_shape=None))(

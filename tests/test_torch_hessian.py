@@ -18,9 +18,12 @@ CPU.
   backward, naming their ROADMAP item.
 * The port's counterpart of tests/test_hessian_finite.py: the 3x3 Hessian
   (`script.block_hessian`) of the 8^3 model's logpdf in {Omega_m_,
-  sigma8_, b1_} for `lpt` and `nbody` is finite, nonzero and within rtol 2e-3 (atol 1e-3 of the largest
-  entry) of the JAX package's forward-over-reverse one (float32 value+grads
-  of ~10^3 terms, differentiated once more); the port's `_laplace_seed` of
+  sigma8_, b1_} for `lpt` and `nbody` is finite, nonzero and within rtol
+  2e-3 (atol 1e-3 of the largest entry: the port's float32 value+grads of
+  ~10^3 terms, differentiated once more) of the JAX package's, central
+  differences of its float64 gradient (within 4.3e-4 of its float32
+  forward-over-reverse one, which takes 4x longer to compile; measured);
+  the port's `_laplace_seed` of
   the block on the model against the JAX package's on the quadratic of
   JAX's Hessian (its curvatures at 2e-3, the inverse at 5e-3: an inverse
   amplifies the Hessian's float32 error by its condition number); for lpt,
@@ -216,12 +219,16 @@ MODEL_CONF = dict(final_shape=3 * (8,), cell_length=40.0, lpt_order=2, a_obs=0.5
                   paint_oversamp=1.0)
 
 
-def _lower_jax_hvps(evolution):
+FD_STEP = 1e-3  # the central differences' step along each tangent (sample-space units)
+
+
+def _lower_jax_gradient(evolution):
     """One evolution's case: the port's model, the counts it predicts at the
-    fiducial point and a seeded white mesh, and JAX's Hessian-vector
-    products of the same logpdf lowered as one vmapped forward-over-reverse
-    program (the 3 scalar columns and, for lpt, over (scalars, white_mesh_)
-    with the field's Hutchinson probes too)."""
+    fiducial point and a seeded white mesh, the tangents (the 3 scalar
+    columns and, for lpt, over (scalars, white_mesh_) the field's
+    Hutchinson probes too), and the JAX package's gradient of the same
+    logpdf in float64 (jax.enable_x64), lowered with the point and the
+    observation as its arguments."""
     from montecosmo_tpu import FieldLevelModel as JaxModel, default_config as jax_default
     from montecosmo_tpu_torch import FieldLevelModel, default_config
 
@@ -238,35 +245,48 @@ def _lower_jax_hvps(evolution):
     m, wm = len(HESS_KEYS), truth["white_mesh_"]
     n_y = wm.size if evolution == "lpt" else 0
 
-    def lp_j(flat):
-        field = {"white_mesh_": flat[m:].reshape(wm.shape)} if n_y else {}
-        return jm.logpdf({**{k: jnp.asarray(v) for k, v in obs.items()}, **field,
-                          **{k: flat[i] for i, k in enumerate(HESS_KEYS)}})
+    def grad_j(flat, o):
+        def lp(f):
+            field = {"white_mesh_": f[m:].reshape(wm.shape)} if n_y else {}
+            return jm.logpdf({**o, **field, **{k: f[i] for i, k in enumerate(HESS_KEYS)}})
+        return jax.grad(lp)(flat)
 
     probes = np.stack([np.asarray(jr.rademacher(k, (n_y,), dtype=jnp.float32))
                        for k in jr.split(jr.key(0), N_PROBES)]) if n_y else np.zeros((0, 0))
     tangents = np.eye(m, m + n_y, dtype=np.float32)
     if n_y:
         tangents = np.concatenate([tangents, np.pad(probes, ((0, 0), (m, 0)))])
-    flat0 = jnp.concatenate([jnp.zeros(m), jnp.asarray(wm.reshape(-1))[:n_y]])
-    lowered = jax.jit(jax.vmap(lambda v: jax.jvp(jax.grad(lp_j), (flat0,), (v,))[1])).lower(
-        jnp.asarray(tangents))
-    return dict(tm=tm, obs=obs, probes=probes, wm=wm, n_y=n_y, tangents=tangents), lowered
+    with jax.enable_x64(True):
+        flat0 = jnp.concatenate([jnp.zeros(m), jnp.asarray(wm.reshape(-1), jnp.float64)[:n_y]])
+        o64 = {k: jnp.asarray(v, jnp.float64) for k, v in obs.items()
+               if not (n_y and k == "white_mesh_")}
+        lowered = jax.jit(grad_j).lower(flat0, o64)
+    return dict(tm=tm, obs=obs, probes=probes, wm=wm, n_y=n_y, tangents=tangents,
+                flat0=flat0, o64=o64), lowered
 
 
 @lru_cache(maxsize=None)
 def _jax_model_hvps():
-    """Both evolutions' cases with JAX's HVP columns (`cols`).  Each program
-    takes ~2 min to compile on one CPU core, so they are lowered one after
-    the other (tracing is not thread-safe) and compiled side by side in two
-    threads."""
+    """Both evolutions' cases with the JAX package's Hessian-vector product
+    columns (`cols`): central differences, step FD_STEP, of its float64
+    gradient along each tangent.  They match the JAX package's float32
+    forward-over-reverse columns (`jax.vmap(jax.jvp(jax.grad))`, which this
+    test compared with before) within 2.8e-6 (lpt) and 4.3e-4 (nbody: that
+    program's own float32 error) of the largest entry, and compile in ~40
+    s where those took ~170 s each (measured, one CPU core).  The gradients
+    are lowered one after the other (tracing is not thread-safe) and
+    compiled side by side in two threads."""
     cases, lowered = {}, {}
     for evolution in ("lpt", "nbody"):
-        cases[evolution], lowered[evolution] = _lower_jax_hvps(evolution)
+        cases[evolution], lowered[evolution] = _lower_jax_gradient(evolution)
     with ThreadPoolExecutor(len(lowered)) as pool:
         compiled = dict(zip(lowered, pool.map(lambda low: low.compile(), lowered.values())))
-    for evolution, case in cases.items():
-        case["cols"] = np.asarray(compiled[evolution](jnp.asarray(case["tangents"])))
+    with jax.enable_x64(True):
+        for evolution, case in cases.items():
+            grad_j, x0, o = compiled[evolution], case["flat0"], case["o64"]
+            case["cols"] = np.stack([
+                (np.asarray(grad_j(x0 + FD_STEP * v, o)) - np.asarray(grad_j(x0 - FD_STEP * v, o)))
+                / (2 * FD_STEP) for v in jnp.asarray(case["tangents"], jnp.float64)])
     return cases
 
 
@@ -275,8 +295,9 @@ def test_scalar_hessian_matches_jax(evolution):
     """tests/test_hessian_finite.py's configuration (8^3, Kaiser
     preconditioning, quad-Gaussian) and block, the N-body one with its
     default 10 BullFrog steps: the port's reverse-over-reverse 3x3 Hessian
-    at the fiducial point against JAX's forward over reverse, on the same
-    white mesh, counts and other latents."""
+    at the fiducial point against the JAX package's (central differences
+    of its float64 gradient, `_jax_model_hvps`), on the same white mesh,
+    counts and other latents."""
     case = _jax_model_hvps()[evolution]
     tm, obs, probes, wm, n_y, cols = (case[k] for k in ("tm", "obs", "probes", "wm", "n_y",
                                                          "cols"))

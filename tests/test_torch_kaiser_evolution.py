@@ -26,6 +26,7 @@ from test_torch_likelihoods import BASE, model_parity
 
 torch.set_num_threads(1)
 SHAPE = (16, 16, 16)
+LOS = (0.0, 0.0, 1.0)
 
 
 def _close(a, b, tol):
@@ -120,14 +121,34 @@ def test_kaiser_model_matches_jax(regime):
 
 
 def test_kaiser_png_and_ap_are_refused():
-    """The PNG term of kaiser_model and the Kaiser evolution's AP
-    re-sampling raise, naming their ROADMAP items."""
-    cosmo = tbg.get_cosmology(Omega_m=0.31, sigma8=0.81)
-    with pytest.raises(NotImplementedError, match="Queue A item 4 \\(PNG\\)"):
-        tbr.kaiser_model(cosmo, 0.5, torch.zeros(8, 8, 5, dtype=torch.complex64), (100.0,) * 3,
-                         2.0, png_type="fNL")
-    with pytest.raises(NotImplementedError, match="Queue A item 4 \\(AP\\)"):
-        FieldLevelModel(**{**default_config, **BASE, "ap_auto": True}, device="cpu")
+    """What was refused before PNG and AP were ported, now held: the PNG
+    term of kaiser_model (flat sky at a_obs 0.5, png_type 'fNL', its
+    fNL_bp) against the JAX package's, values 1e-5 of the largest and the
+    gradients in the field 1e-4 of the largest and in fNL_bp rtol 1e-4;
+    the Kaiser evolution with AP builds (its value and gradient are
+    test_torch_ap.py's); a register file is still refused, naming its
+    ROADMAP item."""
+    rng = np.random.default_rng(4)
+    x = rng.standard_normal(SHAPE).astype(np.float32)
+    ct = rng.standard_normal(SHAPE).astype(np.float32)
+    box = np.array([160.0] * 3)
+    cosmo_t = tbg.get_cosmology(Omega_m=0.31, sigma8=0.81)
+    cosmo_j = jbg.get_cosmology(Omega_m=0.31, sigma8=0.81)
+    bg_t, bg_j = tbg.Background.create(cosmo_t), jbg.Background.create(cosmo_j)
+    xt, ft = torch.tensor(x, requires_grad=True), torch.tensor(30.0, requires_grad=True)
+    out = tbr.kaiser_model(cosmo_t, 0.5, torch.fft.rfftn(xt), box, 1.7, fNL_bp=ft,
+                           png_type="fNL", los=LOS, bg=bg_t)
+    gx, gf = torch.autograd.grad(out, (xt, ft), torch.tensor(ct))
+    oj, vjp = jax.vjp(lambda y, f: jbr.kaiser_model(
+        cosmo_j, 0.5, jnp.fft.rfftn(y), box, 1.7, fNL_bp=f, png_type="fNL", los=LOS, bg=bg_j),
+        jnp.asarray(x), jnp.float32(30.0))
+    gxj, gfj = vjp(jnp.asarray(ct))
+    _close(out.detach(), oj, 1e-5)
+    _close(gx, gxj, 1e-4)
+    np.testing.assert_allclose(gf.item(), float(gfj), rtol=1e-4)
+    assert FieldLevelModel(**{**default_config, **BASE, "ap_auto": True}, device="cpu").ap_auto
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        FieldLevelModel(**{**default_config, **BASE, "register": "counts.h5"}, device="cpu")
 
 
 @pytest.mark.parametrize("regime", list(REGIMES))

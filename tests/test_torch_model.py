@@ -63,6 +63,12 @@ def test_golden_forward_lpt_32():
     golden_forward_32("lpt")
 
 
+# the JAX value_and_grad of each configuration, compiled once per process
+# (the latents and the counts are its arguments): the two 16^3 2LPT tests
+# share one
+JAX_VALUE_AND_GRAD = {}
+
+
 def logpdf_and_grad_16(evolution, s_e2=None, **updates):
     """logpdf value and gradient (white_mesh_ and every scalar latent) at the
     __graft_entry__._small_model(final=16, evolution) configuration with
@@ -112,9 +118,11 @@ def logpdf_and_grad_16(evolution, s_e2=None, **updates):
     lt = tm.logpdf({**tp, "count_mesh": torch.as_tensor(count)})
     lt.backward()
 
-    obs = {"count_mesh": jnp.asarray(count)}
-    lj, gj = jax.jit(jax.value_and_grad(lambda q: jm.logpdf({**q, **obs})))(
-        {k: jnp.asarray(v) for k, v in p.items()})
+    key = repr(sorted((k, v) for k, v in conf.items()))
+    if key not in JAX_VALUE_AND_GRAD:
+        JAX_VALUE_AND_GRAD[key] = jax.jit(jax.value_and_grad(lambda q, o: jm.logpdf({**q, **o})))
+    lj, gj = JAX_VALUE_AND_GRAD[key]({k: jnp.asarray(v) for k, v in p.items()},
+                                     {"count_mesh": jnp.asarray(count)})
 
     assert np.isfinite(lt.item()) and abs(lt.item() - float(lj)) <= 1e-5 * abs(float(lj))
     assert set(gj) == set(tp)

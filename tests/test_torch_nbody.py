@@ -199,9 +199,12 @@ def test_model_defaults_to_the_card_and_refuses_unported_configs():
     """FieldLevelModel targets the card unless told otherwise.  The N-body
     light cone on the flat and on the curved sky, every B-spline order and
     the Kaiser-Bessel windows of support 1-4 build; Kaiser-Bessel windows of
-    support 5 and more, AP and PNG are refused, naming their ROADMAP item
-    (Eulerian bias builds); snapshots on the light cone (exclusive in the JAX package
-    too), B-spline orders outside 1-4 and unknown kernel types are invalid."""
+    support 5 and more and register files are refused, naming their ROADMAP
+    item (Eulerian bias, AP with ap_auto True or False and PNG with png_type
+    'fNL' or 'bias' build, and one value+grad of the N-body light cone with
+    ap_auto=True and png_type='fNL' is finite); snapshots on the light cone
+    (exclusive in the JAX package too), B-spline orders outside 1-4, unknown
+    kernel types, ap_auto and png_type values are invalid."""
     from montecosmo_tpu_torch import FieldLevelModel, default_config
 
     assert FieldLevelModel.__dataclass_fields__["device"].default == "cuda"
@@ -220,7 +223,23 @@ def test_model_defaults_to_the_card_and_refuses_unported_configs():
     assert FieldLevelModel(**{**conf, "bias_type": "eulerian"}, device="cpu").bias_type \
         == "eulerian"
     for key, value in (("ap_auto", True), ("png_type", "fNL")):
-        with pytest.raises(NotImplementedError, match="Queue A item 4"):
+        m = FieldLevelModel(**{**conf, key: value, "nbody_n_steps": 2}, device="cpu")
+        assert getattr(m, key) == value
+    for key, value in (("ap_auto", False), ("png_type", "bias")):
+        assert getattr(FieldLevelModel(**{**conf, key: value}, device="cpu"), key) == value
+    m = FieldLevelModel(**{**conf, "ap_auto": True, "png_type": "fNL", "nbody_n_steps": 2},
+                        device="cpu")
+    p = {k: torch.as_tensor(v).requires_grad_(True) for k, v in m.reparam(
+        {k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True).items()}
+    p["white_mesh_"] = torch.randn(m.init_shape, generator=torch.Generator().manual_seed(0),
+                                   requires_grad=True)
+    lp = m.logpdf({**p, "count_mesh": torch.ones(m.final_shape)})
+    grads = torch.autograd.grad(lp, list(p.values()))
+    assert torch.isfinite(lp) and all(bool(torch.isfinite(g).all()) for g in grads)
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        FieldLevelModel(**{**conf, "register": "counts.h5"}, device="cpu")
+    for key, value in (("ap_auto", "auto"), ("png_type", "fnl")):
+        with pytest.raises(ValueError, match=key):
             FieldLevelModel(**{**conf, key: value}, device="cpu")
     with pytest.raises(ValueError, match="exclusive"):
         FieldLevelModel(**{**conf, "nbody_snapshots": 3}, device="cpu")

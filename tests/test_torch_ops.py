@@ -200,9 +200,8 @@ def test_lagrangian_bias_16():
             "bn2": 0.05, "bnpar": 0.2}
     png = {k: 0.0 for k in ("fNL", "fNL_bp", "fNL_bpd", "fNL_bpd2", "fNL_bps2", "fNL_bn2p")}
     bt, bj = tbg.Background.create(tbg.Planck18()), jbg.Background.create(jbg.Planck18())
-    wt, dvt, _ = tbr.lagrangian_bias(tbg.Planck18(), tbr.regular_pos(shape), a, box,
-                                     torch.tensor(lin), {k: torch.tensor(v) for k, v in bias.items()},
-                                     bt, shape)
+    wt, dvt, _ = tbr.lagrangian_bias(tbr.regular_pos(shape), a, box, torch.tensor(lin),
+                                     {k: torch.tensor(v) for k, v in bias.items()}, bt, shape)
     wj, dvj, _ = jax.jit(lambda m: jbr.lagrangian_bias(
         jbg.Planck18(), jbr.regular_pos(shape), a, box, m, bias, png, read_order=1, bg=bj,
         sites_shape=shape))(jnp.asarray(lin))
