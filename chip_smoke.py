@@ -148,6 +148,17 @@ Phases, in order; any failure raises and the script exits non-zero:
      column each again from the same inputs, equal bit for bit;
   5g. one 2LPT flagship value+grad profiled: device kernels launched and
      device busy; 3 more timed;
+  5l. (after 5k) the registered-survey campaign: cut-sky catalogs in the
+     geometry of examples/cutsky_inference.py (2M data, 20M randoms,
+     seeded numpy); at 32^3 (200,000 data, 1M randoms) the register built on
+     the card and on the CPU, footprint masks equal cell for cell, selection
+     and counts within TOL, the two registers' models' logpdfs within 1e-4;
+     then the 128^3-budget register on the card (K1 and K3 launches, build
+     ms, count conservation), npsave'd, the campaign's value+grad timed, the
+     CLI's campaign (--self-data, 2 chains, MCLMC: field and full warmups of
+     8 steps, 2 runs of 4 samples thinned by 2) and its resume with 3 runs
+     (both warmups loaded, run 3 only), finite chains, ESS and r-hat, every
+     McLachlan step timed, peak memory, K1/K2/K3/K8/K9 launched;
   5k. (after 5g) the AP and PNG flagships at bench.py's widths: 2LPT with
      Lagrangian bias, ap_auto=True and png_type='fNL'; the Kaiser flat-sky
      light cone with ap_auto=False (the Kaiser mesh read at the particle
@@ -168,7 +179,9 @@ Phases, in order; any failure raises and the script exits non-zero:
      order, both designs' times and the route's, launches and HVP times
      from 5f at CIC with the flagship-input times, and K6's fixed-point and
      float-atomic times; the CIC rows of K1, K2 and K3 and the K8 row also
-     with their launches per value+grad in each 5k flagship; K8 with its
+     with their launches per value+grad in each 5k flagship; the CIC rows of
+     K1 and K3 with their launches in one 5l register (`launches_register`)
+     and its build ms; K8 with its
      launches in phase 5's 2LPT run and 5g's counts; K9 with its launches in phase 5's
      2LPT run and per value+grad in every flagship, its times at the chi2a
      site, index_add_ as its library time and index_put_(accumulate) beside
@@ -1863,6 +1876,256 @@ def phase_ap_png():
     return out
 
 
+# ---------------------------------------------------------------- phase 5l
+# the registered-survey campaign: catalogs of examples/cutsky_inference.py at
+# full width, its register at the flagship's 128^3 cell budget, and the
+# campaign's cut depth (run/infer.py's phases, MCLMC)
+SURVEY = {"data": 2_000_000, "randoms": 20_000_000, "cell_budget": 128**3,
+          "check_data": 200_000, "check_randoms": 1_000_000, "check_budget": 32**3}
+CAMPAIGN = dict(n_chains=2, n_steps_field=8, n_steps_full=8, n_samples=4, thinning=2)
+SURVEY_COSMO = dict(Omega_m=0.3111, sigma8=0.8102)  # default_config's fiducial
+# the 32^3 card-vs-CPU models on the catalog's counts are held in the cells
+# whose resampled selection is at least EDGE of its mean, at most MAX_EDGE of
+# the footprint being left out
+EDGE, MAX_EDGE = 0.01, 0.05
+
+
+def survey_catalog(n, seed):
+    """A cut-sky catalog (examples/cutsky_inference.py:29-48): RA 150-210
+    deg, DEC +-20 deg uniform on the sphere, z triangular 0.8-1.0-1.2, unit
+    weights; numpy float64, seeded."""
+    rng = np.random.default_rng(seed)
+    smin, smax = np.sin(np.deg2rad(-20.0)), np.sin(np.deg2rad(20.0))
+    return dict(RA=rng.uniform(150.0, 210.0, n),
+                DEC=np.rad2deg(np.arcsin(rng.uniform(smin, smax, n))),
+                Z=rng.triangular(0.8, 1.0, 1.2, n), WEIGHT=np.ones(n))
+
+
+def survey_32(data, rand, tmp):
+    """5l at 32^3: the register of the thinned catalogs built on the card
+    and on the CPU (K1's and K3's plain versions): footprint masks equal
+    cell for cell, selection and counts within TOL of their largest value;
+    then each register's model (2LPT, curved-sky light cone, masked) at the
+    same latents (the fiducial, one seeded white mesh): the logpdfs given
+    the CPU model's predicted counts within 1e-4 relative; and, given each
+    register's own catalog counts, the count log-prob summed over the
+    cells whose resampled selection is at least EDGE of its mean within
+    1e-4 relative, those cells at least 1 - MAX_EDGE of the footprint.
+    The footprint's edge is left out of that sum: there the variance is
+    the selection, near zero, so a count over it turns the registers'
+    float32 rounding of the selection (within TOL of its largest value)
+    into log-prob differences of order one per cell; their share of the
+    whole difference is printed."""
+    from montecosmo_tpu_torch import FieldLevelModel
+    from montecosmo_tpu_torch.infer import build_model
+    from montecosmo_tpu_torch.models import ppl
+    from montecosmo_tpu_torch.ops.background import get_cosmology
+    from montecosmo_tpu_torch.utils.io import npsave
+
+    sub_d = {k: v[:SURVEY["check_data"]] for k, v in data.items()}
+    sub_r = {k: v[:SURVEY["check_randoms"]] for k, v in rand.items()}
+    regs = {}
+    for dev in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        regs[dev] = FieldLevelModel.register_catalog(
+            SURVEY["check_budget"], get_cosmology(**SURVEY_COSMO), sub_d, sub_r, device=dev)
+        log(f"# 5l 32^3 register on {dev}: {1e3 * (time.perf_counter() - t0):.3f} ms, final "
+            f"{regs[dev]['count_mesh'].shape}")
+    card, cpu = regs["cuda"], regs["cpu"]
+    diff = int((card["mask_mesh"] != cpu["mask_mesh"]).sum())
+    errs = {k: float(np.abs(card[k] - cpu[k]).max() / np.abs(cpu[k]).max())
+            for k in ("count_mesh", "selec_mesh")}
+    log(f"# 5l 32^3 register, card vs CPU: footprint {int(cpu['mask_mesh'].sum())} of "
+        f"{cpu['mask_mesh'].size} cells, {diff} differ (limit 0); max|difference| / max|value| "
+        f"{errs} (limit {TOL})")
+    assert diff == 0, "5l: the card's footprint mask differs from the CPU's"
+    assert all(e <= TOL for e in errs.values()), "5l: the card's register disagrees"
+    lps, cells, obs, edge = {}, {}, None, None
+    for dev in ("cpu", "cuda"):
+        npsave(tmp / f"register_32_{dev}.npz", regs[dev])
+        m = build_model(tmp / f"register_32_{dev}.npz", device=dev)
+        p = m.reparam({k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True)
+        p["white_mesh_"] = torch.as_tensor(np.random.default_rng(0).standard_normal(
+            m.init_shape).astype(np.float32), device=dev)
+        with torch.no_grad():
+            if obs is None:
+                obs = m.predict(seed=0, samples=p, hide_samp=False)["count_mesh"]
+                selec = m._selec_final.abs().cpu()
+                edge = selec < EDGE * selec.mean()
+            lps[dev] = m.logpdf(p | {"count_mesh": obs.to(dev)}).item()
+            lp, _ = ppl.compute_log_probs(m.model, (), {}, p | m.obs_data(), sum_log_prob=False)
+            cells[dev] = lp["count_mesh"].double().cpu()
+    rel = abs(lps["cuda"] - lps["cpu"]) / abs(lps["cpu"])
+    d = (cells["cuda"] - cells["cpu"]).abs()
+    inner = {dev: float(c[~edge].sum()) for dev, c in cells.items()}
+    rel_inner = abs(inner["cuda"] - inner["cpu"]) / abs(inner["cpu"])
+    whole = {dev: float(c.sum()) for dev, c in cells.items()}
+    share_edge = int(edge.sum()) / edge.numel()
+    log(f"# 5l 32^3 models of the two registers, the CPU's predicted counts: logpdf card "
+        f"{lps['cuda']:.6e} vs CPU {lps['cpu']:.6e}, relative {rel:.3e} (limit 1e-4); the "
+        f"catalog's counts: count_mesh log-prob over the {int((~edge).sum())} cells whose "
+        f"selection is at least {EDGE} of its mean card {inner['cuda']:.6e} vs CPU "
+        f"{inner['cpu']:.6e}, relative {rel_inner:.3e} (limit 1e-4); the other "
+        f"{int(edge.sum())} cells, {share_edge:.4f} of the footprint (limit {MAX_EDGE}), "
+        f"hold {100 * float(d[edge].sum() / d.sum().clamp(min=1e-300)):.2f}% of the per-cell "
+        f"difference; over "
+        f"every cell card {whole['cuda']:.6e} vs CPU {whole['cpu']:.6e}, relative "
+        f"{abs(whole['cuda'] - whole['cpu']) / abs(whole['cpu']):.3e}")
+    assert rel <= 1e-4, "5l: the 32^3 registered models' logpdfs disagree"
+    assert share_edge <= MAX_EDGE, "5l: the footprint's edge is more of it than MAX_EDGE"
+    assert rel_inner <= 1e-4, "5l: the 32^3 registered models disagree on the catalog's counts"
+
+
+def phase_survey():
+    """5l: the registered-survey campaign at full width.  Catalogs of
+    SURVEY's sizes (numpy, seeded); first `survey_32`; then the 128^3-budget
+    cut-sky register on the card (default paint settings: CIC, interlace
+    2, deconvolved; K1 unclamped in its atomic design, K3), timed with its
+    K1/K3 launches, npsave'd; the campaign through the CLI's function
+    (`infer.infer`, --self-data, MCLMC, CAMPAIGN, 2 runs), then again with
+    3 runs, which must load both warmups and make run 3 only; every run's
+    logdensity finite, the chains' ESS and r-hat printed; the ms per
+    value+grad of the campaign's model (2 warm-ups, 5 timed) and per
+    McLachlan step (every step of the campaign timed), its peak memory,
+    and the path's kernels launched (K1, K2, K3 in the route's designs, K8,
+    K9).  Returns the K1/K3 rows' extras."""
+    import tempfile
+
+    from montecosmo_tpu_torch import FieldLevelModel
+    from montecosmo_tpu_torch.infer import DEFAULT_OBS, build_model, infer, obs_names_of
+    from montecosmo_tpu_torch.ops import paint as P
+    from montecosmo_tpu_torch.ops.background import get_cosmology
+    from montecosmo_tpu_torch.samplers import mclmc as S
+    from montecosmo_tpu_torch.utils.io import npload, npsave
+
+    t0 = time.perf_counter()
+    data, rand = survey_catalog(SURVEY["data"], 0), survey_catalog(SURVEY["randoms"], 1)
+    log(f"# 5l catalogs: {SURVEY['data']} data, {SURVEY['randoms']} randoms "
+        f"({time.perf_counter() - t0:.2f} s, numpy)")
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        survey_32(data, rand, tmp)
+
+        P.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        reg = FieldLevelModel.register_catalog(SURVEY["cell_budget"],
+                                               get_cosmology(**SURVEY_COSMO), data, rand)
+        torch.cuda.synchronize()
+        build_ms = 1e3 * (time.perf_counter() - t0)
+        launches = dict(P.LAUNCHES)
+        k1 = sum(n for (k, w, o), n in launches.items() if k.startswith("paint_cic") and o == 2
+                 and k != "paint_cic_adjoint")
+        k3 = launches.get(("nufft_epilogue", "bspline", 2), 0)
+        npsave(tmp / "register_survey.npz", reg)
+        count = reg["count_mesh"]
+        final = count.shape
+        m = build_model(tmp / "register_survey.npz")
+        log(f"# 5l register (cell budget {SURVEY['cell_budget']}): final {final} "
+            f"({int(np.prod(final))} cells, footprint {int(reg['mask_mesh'].sum())}), init "
+            f"{m.init_shape}, paint {m.paint_shape}, selection {reg['selec_mesh'].shape}; cell "
+            f"{reg['cell_length']:.4f} Mpc/h; built in {build_ms:.3f} ms with {k1} K1 and {k3} "
+            f"K3 launches {launches}; count_mesh.sum() {float(count.sum(dtype=np.float64)):.3f} "
+            f"against the data's weight {float(data['WEIGHT'].sum()):.1f}")
+        assert k1 >= 3 and k3 >= 2, "5l: the register did not go through K1 and K3"
+        np.testing.assert_allclose(float(count.sum(dtype=np.float64)), SURVEY["data"],
+                                   rtol=1e-4)
+        del data, rand
+
+        # the campaign's model: one value+grad timed, then the campaign
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        p = m.reparam({k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True)
+        p["white_mesh_"] = torch.randn(m.init_shape, generator=gen, device="cuda")
+        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+        obs = m.obs_data()
+
+        def value_and_grad():
+            for v in leaves.values():
+                v.grad = None
+            m.logpdf({**leaves, **obs}).backward()
+
+        walls = []
+        for i in range(7):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            value_and_grad()
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t))
+        vg_ms = float(np.median(walls[2:]))
+        log(f"# 5l value+grad of the campaign's model (2LPT, Lagrangian bias, quad-Gaussian, "
+            f"curved-sky light cone, masked, d = {sum(v.numel() for v in p.values())}): ms "
+            f"{[round(w, 3) for w in walls[2:]]} median {vg_ms:.3f}")
+        del m, leaves, obs
+
+        steps, step = [], S._mclachlan_step
+
+        def timed_step(*args, **kwargs):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = step(*args, **kwargs)
+            torch.cuda.synchronize()
+            steps.append(1e3 * (time.perf_counter() - t))
+            return out
+
+        kw = dict(CAMPAIGN, self_data=True, sampler="mclmc", device="cuda",
+                  save_root=str(tmp / "results"), obs_names=obs_names_of(None, "quad_gauss", None))
+        S._mclachlan_step = timed_step
+        P.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        try:
+            save_dir, _ = infer(tmp / "register_survey.npz", n_runs=2, **kw)
+            torch.cuda.synchronize()
+            first = time.perf_counter() - t0
+            n_first = len(steps)
+            path = dict(P.LAUNCHES)
+            chains_dir = save_dir / "chains"
+            kept = ["field_warm_state.npz", "full_warm_state.npz", "run_1.npz", "run_2.npz"]
+            mtimes = {f: (chains_dir / f).stat().st_mtime_ns for f in kept}
+            t1 = time.perf_counter()
+            save_dir, chains = infer(tmp / "register_survey.npz", n_runs=3, **kw)
+            torch.cuda.synchronize()
+            resumed = time.perf_counter() - t1
+        finally:
+            S._mclachlan_step = step
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        need = path_kernels(2) + ("background_tables", "segment_sum")
+        made = {k: sum(n for (kk, _, _), n in path.items() if kk == k) for k in need}
+        log(f"# 5l campaign (2 runs): {first:.2f} s, {n_first} McLachlan steps; resumed with 3 "
+            f"runs: {resumed:.2f} s, {len(steps) - n_first} steps; McLachlan step ms median "
+            f"{float(np.median(steps)):.3f} (min {min(steps):.3f}, max {max(steps):.3f}); peak "
+            f"memory {peak:.2f} GiB; path launches {made}")
+        assert all(made.values()), f"5l: kernels of the path never launched: {made}"
+        out = (save_dir / "run.out").read_text()
+        for line in ("Loading field warmup...", "Loading full warmup...", "Resuming at run 3..."):
+            assert line in out, f"5l: the resumed campaign did not log {line!r}"
+        assert out.count("run 3/3") == 1 and "run 1/3" not in out and "run 2/3" not in out
+        assert all((chains_dir / f).stat().st_mtime_ns == t for f, t in mtimes.items()), \
+            "5l: the resumed campaign rewrote a finished phase"
+        assert len(steps) - n_first == CAMPAIGN["n_chains"] * CAMPAIGN["n_samples"] * CAMPAIGN[
+            "thinning"], "5l: the resumed campaign ran more than run 3"
+        for i in (1, 2, 3):
+            lp = npload(chains_dir / f"run_{i}.npz")["logdensity"]
+            assert lp.shape == (CAMPAIGN["n_chains"], CAMPAIGN["n_samples"]) and np.isfinite(
+                lp).all(), f"5l: run {i}'s logdensity is not finite"
+        ess = {k: float(v) for k, v in chains[["*~white_mesh_"]].multi_ess().data.items()}
+        rhat = {k: float(_rhat(v)) for k, v in chains.data.items()
+                if k not in ("white_mesh_", "n_evals")}
+        log(f"# 5l chains {chains.shape}: ESS {ess}; r-hat {rhat}")
+        log(f"# 5l observed sites {sorted(set(DEFAULT_OBS) & set(npload(save_dir / 'obs.npz')))}")
+    return {"launches_register": {"paint_cic": k1, "nufft_epilogue": k3},
+            "register_ms": build_ms, "campaign_value_and_grad_ms": vg_ms,
+            "campaign_mclachlan_step_ms": float(np.median(steps))}
+
+
+def _rhat(x):
+    from montecosmo_tpu_torch.metrics import gelman_rubin
+
+    x = np.asarray(x, np.float64)
+    x = x.reshape(x.shape[0], x.shape[1], -1).mean(-1)
+    return gelman_rubin(x)
+
+
 LIKELIHOODS = ("poisson", "fourier_gauss", "two_quad_gauss", "shash", "powspec")
 
 
@@ -2154,7 +2417,7 @@ def phase_nuts(m, state_f, per_eval):
     t0 = time.perf_counter()
     try:
         field = H.HMCState({k: v[None] for k, v in state_f.position.items()}, None, None)
-        state, config, n_evals = SC.full_warmup(
+        state, config, n_evals = SC._nuts_full_warmup(
             m, {}, field, NUTS_CUTS["warmup steps"], 1, gen,
             max_num_doublings=NUTS_CUTS["max doublings"], log=lambda *a: log("#", *a))
         made_warm, n_warm = evals[0], len(record)
@@ -2590,6 +2853,8 @@ def main():
     done("5g")
     ap_png = phase_ap_png()
     done("5k")
+    survey = phase_survey()
+    done("5l")
     for run in PROFILES:
         run()
     kernels = []
@@ -2613,6 +2878,11 @@ def main():
             if kernel != KB and order == 2:
                 kernels[-1]["launches_ap_png"] = {
                     tag: per.get(path_name(n, order), 0) for tag, per in ap_png.items()}
+                if n in survey["launches_register"]:
+                    # one 128^3-budget register: unclamped paints (the atomic
+                    # design) and their nufft epilogues
+                    kernels[-1]["launches_register"] = survey["launches_register"][n]
+                    kernels[-1]["register_ms"] = survey["register_ms"]
     for order in ORDERS:
         sfx = _suffix(order, "rectangular")
         for n, (tiled, other, rep) in HESS_SOURCES.items():

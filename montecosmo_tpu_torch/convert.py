@@ -17,6 +17,11 @@ latents' `loc_fid` as the JAX package does: `config_from_numpy` carries a
 JAX model's config (`dataclasses.asdict(model)`, a register's fiducial
 already in its latents) into the port's keyword arguments.
 
+A register crosses as a file: `register_from_h5` reads one of the JAX
+package's `.h5` registers (where h5py is installed) into the tree that
+`utils.io.npsave` writes as the port's `.npz`, which
+`FieldLevelModel(register=...)` loads on a machine without h5py.
+
 A sampler's state crosses as numpy: the JAX `IntegratorState` and
 `MCLMCAdaptationState` with numpy leaves (`jax.tree.map(np.asarray, state)`)
 become the port's, so that a chain warmed in one package continues in the
@@ -114,3 +119,12 @@ def nuts_config_from_numpy(config, device):
     kept) -> the same of tensors on `device`."""
     return {name: {k: _array(conf[k], device) for k in ("step_size", "inverse_mass_matrix")}
             for name, conf in config.items()}
+
+
+def register_from_h5(path) -> dict:
+    """A JAX package register (`.h5`, read through h5py) -> the register
+    dict of numpy arrays and Python scalars that `utils.io.npsave` writes
+    as the port's `.npz`."""
+    from montecosmo_tpu_torch.utils.io import h5load
+
+    return h5load(path)

@@ -1,6 +1,7 @@
 """Summary statistics on the port's model paths: the multipole power
-spectrum (the `powspec` observable) and the curved-sky mu^2 operator (the
-Kaiser evolution on the curved sky).
+spectrum (the `powspec` observable), the curved-sky mu^2 operator (the
+Kaiser evolution on the curved sky), transfer and coherence against a
+reference mesh, and the chains' diagnostics (ESS, Gelman-Rubin).
 
 The spectrum's plan is host numpy, built once per geometry (`spectrum_plan`,
 cached with its device tensors by `_plan`): the bin of every rfft mode and
@@ -11,7 +12,9 @@ weights, K9 (`ops/segment.py::segment_sum`), whose backward is its gather.
 
 Parity: `montecosmo_tpu/metrics.py:27-186` (kbin_edges, _kmu_grid,
 spectrum_plan, _segment_reduce, _spectrum, spectrum) and `:462-494`
-(_y2_cartesian, optim_mu2_delta).  The plan is the JAX package's numpy,
+(_y2_cartesian, optim_mu2_delta), `:250-278` (transfer, coherence,
+powtranscoh) and `:545-606` (effective_sample_size, gelman_rubin, geomean,
+harmean, multi_ess, multi_gr).  The plan is the JAX package's numpy,
 copied (the port imports nothing of it).
 """
 from functools import lru_cache
@@ -208,6 +211,31 @@ def spectrum(mesh0, mesh1=None, box_size=None, box_center=(0.0, 0.0, 0.0), ells=
     return kmean, pows
 
 
+def transfer(mesh0, mesh1, box_size, kedges=None, include_corners=True):
+    """(k, (P1/P0)^1/2) per k-bin."""
+    ks, pow0 = spectrum(mesh0, box_size=box_size, kedges=kedges, include_corners=include_corners)
+    ks, pow1 = spectrum(mesh1, box_size=box_size, kedges=kedges, include_corners=include_corners)
+    return ks, (pow1 / pow0) ** 0.5
+
+
+def coherence(mesh0, mesh1, box_size, kedges=None, include_corners=True):
+    """(k, P01 / (P0 P1)^1/2) per k-bin."""
+    kw = dict(box_size=box_size, kedges=kedges, include_corners=include_corners)
+    ks, pow01 = spectrum(mesh0, mesh1, **kw)
+    ks, pow0 = spectrum(mesh0, **kw)
+    ks, pow1 = spectrum(mesh1, **kw)
+    return ks, pow01 / (pow0 * pow1) ** 0.5
+
+
+def powtranscoh(mesh0, mesh1, box_size, kedges=None, include_corners=True):
+    """(k, P1, transfer, coherence) of mesh1 against the reference mesh0."""
+    kw = dict(box_size=box_size, kedges=kedges, include_corners=include_corners)
+    ks, pow01 = spectrum(mesh0, mesh1, **kw)
+    ks, pow0 = spectrum(mesh0, **kw)
+    ks, pow1 = spectrum(mesh1, **kw)
+    return ks, pow1, (pow1 / pow0) ** 0.5, pow01 / (pow0 * pow1) ** 0.5
+
+
 # ----------------------------------------------------------------------- curved-sky mu^2
 def _y2_cartesian(u):
     """The five real l = 2 spherical harmonics of a unit vector field
@@ -240,3 +268,70 @@ def optim_mu2_delta(mesh, los):
     for yl, ykm in zip(ylos, yk):
         mu2_delta = mu2_delta + 8 * np.pi / 15 * yl * irfftn(ykm * mesh)
     return delta, mu2_delta
+
+
+# ----------------------------------------------------------------------- chain diagnostics
+def _draws(x):
+    """Draws (n_chains, n_samples, ...) as a tensor (numpy float32 ->
+    float32, float64 -> float64)."""
+    return x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
+
+
+def effective_sample_size(x):
+    """ESS per parameter from (n_chains, n_samples, ...) draws: the
+    initial-monotone-positive-sequence autocorrelation estimator (Geyer
+    1992, as in Vehtari+2021), autocovariances by FFT."""
+    x = _draws(x)
+    n_chains, n_samples = x.shape[:2]
+    xc = x - x.mean(1, keepdim=True)
+    n_fft = int(2 ** np.ceil(np.log2(2 * n_samples)))
+    f = torch.fft.rfft(xc, n=n_fft, dim=1)
+    acov = torch.fft.irfft(f * f.conj(), n=n_fft, dim=1)[:, :n_samples] / n_samples
+
+    within = acov[:, 0].mean(0)
+    var_plus = within * (n_samples - 1) / n_samples
+    if n_chains > 1:
+        var_plus = var_plus + x.mean(1).var(0, unbiased=True)
+    rho = 1.0 - (within - acov.mean(0)) / var_plus
+    rho[0] = 1.0
+
+    # paired sums, up to the first negative pair (monotone-positive sequence)
+    n_pairs = n_samples // 2
+    paired = rho[: 2 * n_pairs].reshape(n_pairs, 2, *rho.shape[1:]).sum(1)
+    mask = torch.cumprod((paired > 0).to(paired.dtype), 0)
+    paired = torch.minimum(paired, torch.cat(
+        [paired[:1], torch.cummin(paired, 0).values[:-1]], 0))
+    tau = -1.0 + 2.0 * (paired * mask).sum(0)
+    return n_chains * n_samples / torch.clamp(tau, min=1e-8)
+
+
+def gelman_rubin(x):
+    """The split-free potential scale reduction factor of (n_chains,
+    n_samples, ...) draws."""
+    x = _draws(x)
+    n_samples = x.shape[1]
+    W = x.var(1, unbiased=True).mean(0)
+    B = n_samples * x.mean(1).var(0, unbiased=True)
+    return torch.sqrt(((n_samples - 1) / n_samples * W + B / n_samples) / W)
+
+
+def geomean(x, axis=None):
+    x = _draws(x)
+    return torch.exp(torch.log(x).mean() if axis is None else torch.log(x).mean(axis))
+
+
+def harmean(x, axis=None):
+    x = _draws(x)
+    return 1 / ((1 / x).mean() if axis is None else (1 / x).mean(axis))
+
+
+def multi_ess(x, axis=None):
+    """The harmonic mean of the parameters' ESS."""
+    return harmean(effective_sample_size(x), axis=axis)
+
+
+def multi_gr(x, axis=None):
+    """Multivariate Gelman-Rubin ~ (1 + n_chains / mESS)^1/2
+    (arXiv:1812.09384)."""
+    g2 = gelman_rubin(x) ** 2
+    return (g2.mean() if axis is None else g2.mean(axis)) ** 0.5

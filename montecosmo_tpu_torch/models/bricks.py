@@ -2,8 +2,9 @@
 and its local primordial non-Gaussianity (PNG), the Kaiser boost and the
 Kaiser (linear) galaxy field, Lagrangian and Eulerian bias with their PNG
 operators, box geometry (flat or curved sky, at a fixed scale factor or on
-the light cone), RSD, the Alcock-Paczynski (AP) remaps and the radial count
-selection.
+the light cone), RSD, the Alcock-Paczynski (AP) remaps, the radial count
+selection, and the catalogs and selections of a register (sky coordinates,
+the box fitted to randoms, the painted selection, footprint and counts).
 
 Parity: `montecosmo_tpu/models/bricks.py` (cited per function).  Rotations
 are 3x3 matrices (`Rotation`), in place of jax.scipy's Rotation objects.
@@ -16,10 +17,11 @@ from montecosmo_tpu_torch.models.truncnorm import std2trunc, trunc2std
 from montecosmo_tpu_torch.ops.background import RH, Background, Cosmology, Esqr
 from montecosmo_tpu_torch.ops.fourier import gradient_hat, invlaplace_hat, irfftn, rfftk, rfftn
 from montecosmo_tpu_torch.ops.hermitian import cgh2rg, ch2rshape, rg2cgh
-from montecosmo_tpu_torch.ops.interp import take_rows, uniform_interp
-from montecosmo_tpu_torch.ops.paint import read_multi, read_sites
+from montecosmo_tpu_torch.ops.interp import log_uniform_interp_fn, take_rows
+from montecosmo_tpu_torch.ops.paint import nufft, paint, read_multi, read_sites
 from montecosmo_tpu_torch.ops.power import lin_power, lin_power_mesh
 from montecosmo_tpu_torch.utils import to_tensor
+from montecosmo_tpu_torch.utils.geometry import cart2radecrad, radecrad2cart
 from montecosmo_tpu_torch.utils.safe import safe_div, safe_sqrt
 
 
@@ -55,7 +57,8 @@ def trans_phi2delta_interp(cosmo: Cosmology, a=1.0, kpow=None, n_interp=256, bg=
     in k between the log-uniform nodes of `lin_power` (the lookup of
     `lin_power_interp`: one stacked-pair gather, K9 its backward).
 
-    Parity: bricks.py:30-51 (`log_uniform_interp_fn` on the EH98 nodes)."""
+    Parity: bricks.py:30-51 (`log_uniform_interp_fn` on the EH98 nodes or a
+    register's table)."""
     if bg is None:
         bg = Background.create(cosmo)
     ks, pow_lin = lin_power(cosmo, kpow=kpow, n_interp=n_interp, device=bg.a_tab.device)
@@ -65,11 +68,8 @@ def trans_phi2delta_interp(cosmo: Cosmology, a=1.0, kpow=None, n_interp=256, bg=
     growth_md = bg.a2g(a_md) / a_md  # constant during matter domination
     norm_growth = bg.a2g(a) / growth_md
     trans = 2.0 * RH**2 * ks**2 * lin_trans * norm_growth / (3.0 * cosmo.Omega_m)
-    nodes = np.logspace(-4, 1, n_interp)
-    logk0 = float(np.log(nodes[0]))
-    dlogk = float((np.log(nodes[-1]) - logk0) / (nodes.size - 1))
-    return lambda x: uniform_interp(x, logk0, dlogk, trans, left=0.0, right=0.0, logx=True,
-                                    xtab=nodes)
+    nodes = np.logspace(-4, 1, n_interp) if kpow is None else np.asarray(kpow[0])
+    return log_uniform_interp_fn(nodes, trans, left=0.0, right=0.0)
 
 
 def _kmesh(mesh_shape, box_size, device):
@@ -112,7 +112,7 @@ def lin2white(cosmo: Cosmology, lin_mesh, init_shape, box_size, kpow=None):
 
 
 def kaiser_boost(cosmo: Cosmology, a, mesh_shape, box_size, b1E, fNL_bp=0.0, png_type=None,
-                 los=(0.0, 0.0, 0.0), bg=None, device="cpu"):
+                 los=(0.0, 0.0, 0.0), kpow=None, bg=None, device="cpu"):
     """Eulerian Kaiser boost growth x (b1E + f mu^2), flat sky, plus the PNG
     scale-dependent term fNL_bp / transfer(k) when png_type is set.
 
@@ -125,12 +125,12 @@ def kaiser_boost(cosmo: Cosmology, a, mesh_shape, box_size, b1E, fNL_bp=0.0, png
     g, _, f, _ = bg._growth(a)
     boost = g * (b1E + f * mumesh**2)
     if png_type is not None:
-        boost = boost + safe_div(fNL_bp, trans_phi2delta_interp(cosmo, bg=bg)(kmesh))
+        boost = boost + safe_div(fNL_bp, trans_phi2delta_interp(cosmo, kpow=kpow, bg=bg)(kmesh))
     return boost
 
 
 def kaiser_model(cosmo: Cosmology, a, lin_mesh, box_size, b1E, fNL_bp=0.0, png_type=None,
-                 los=(0.0, 0.0, 0.0), bg=None):
+                 los=(0.0, 0.0, 0.0), kpow=None, bg=None):
     """Linear (Kaiser) galaxy field 1 + delta_g in real space: growth,
     Eulerian bias b1E, RSD and, with png_type set, the PNG term fNL_bp phi,
     in one of three regimes by the shapes of `a` and `los`:
@@ -152,7 +152,7 @@ def kaiser_model(cosmo: Cosmology, a, lin_mesh, box_size, b1E, fNL_bp=0.0, png_t
     flat = not torch.is_tensor(los) or los.ndim == 1
     if flat and not torch.is_tensor(a):  # flat sky, one scale factor
         boost = kaiser_boost(cosmo, a, mesh_shape, box_size, b1E, fNL_bp=fNL_bp,
-                             png_type=png_type, los=los, bg=bg)
+                             png_type=png_type, los=los, kpow=kpow, bg=bg)
         return 1 + irfftn(lin_mesh * boost)
     g, _, f, _ = bg._growth(a)
     if flat:  # flat-sky light cone
@@ -164,7 +164,7 @@ def kaiser_model(cosmo: Cosmology, a, lin_mesh, box_size, b1E, fNL_bp=0.0, png_t
         delta, mu2_delta = optim_mu2_delta(lin_mesh, los)
         delta = g * (b1E * delta + f * mu2_delta)
     if png_type is not None:
-        delta = delta + fNL_bp * irfftn(phi_transfer(cosmo, lin_mesh, box_size, bg=bg)[0])
+        delta = delta + fNL_bp * irfftn(phi_transfer(cosmo, lin_mesh, box_size, kpow, bg)[0])
     return 1 + delta
 
 
@@ -690,3 +690,178 @@ def radial_bin_index(rmesh, redges):
     the adjacent bin; this lookup does not."""
     edges = torch.as_tensor(np.asarray(redges, np.float32), device=rmesh.device).to(rmesh.dtype)
     return torch.searchsorted(edges, rmesh.contiguous(), right=False) - 1
+
+
+# ======================================================================= selection / catalogs
+def radecz2cart(bg: Background, radecz: dict):
+    """(RA, DEC, Z) in degrees -> cartesian Mpc/h (P, 3), float32 on the
+    background's device.
+
+    Parity: bricks.py:747-752."""
+    device = bg.a_tab.device
+    z = torch.as_tensor(np.asarray(radecz["Z"], np.float32), device=device)
+    return radecrad2cart(radecz["RA"], radecz["DEC"], bg.a2chi(1 / (1 + z)), device)
+
+
+def cart2radecz(bg: Background, cart):
+    """Cartesian Mpc/h -> {RA, DEC, Z}.
+
+    Parity: bricks.py:755-759."""
+    ra, dec, radius = cart2radecrad(cart, bg.a_tab.device)
+    return {"RA": ra, "DEC": dec, "Z": 1 / bg.chi2a(radius) - 1}
+
+
+def _unit_mean_in_support(selec):
+    return selec / selec[selec > 0].mean()
+
+
+def top_hat_selection(mesh_shape, padding=0.0, norm_order: float = np.inf,
+                      pow_order: float = np.inf, device="cpu"):
+    """lp-ball selection mesh with a padded fraction, unit mean within its
+    support.
+
+    Parity: bricks.py:772-795."""
+    norm_order = float(norm_order)
+    rvec = []
+    for ax, m in enumerate(mesh_shape):
+        shape = [1, 1, 1]
+        shape[ax] = -1
+        rvec.append(np.abs((np.arange(m) + 0.5) * 2 / m - 1).reshape(shape))
+    if norm_order == np.inf:
+        rmesh = np.maximum(np.maximum(rvec[0], rvec[1]), rvec[2])
+    elif norm_order == -np.inf:
+        rmesh = np.minimum(np.minimum(rvec[0], rvec[1]), rvec[2])
+    else:
+        rmesh = sum(ri**norm_order for ri in rvec) ** (1 / norm_order)
+    arg = -((rmesh / (1 / (1 + padding))) ** pow_order)
+    return _unit_mean_in_support(torch.exp(torch.as_tensor(arg.astype(np.float32), device=device)))
+
+
+def gen_gauss_selection(box_center, box_rot: Rotation, box_size, mesh_shape, curved_sky,
+                        r_loc=None, r_scale=None, order: float = 2.0, device="cpu"):
+    """Generalized-Gaussian radial selection mesh, unit mean within its
+    support.
+
+    Parity: bricks.py:798-816."""
+    rmesh = radius_mesh(box_center, box_rot, box_size, mesh_shape, curved_sky, device)
+    if r_loc is None:
+        r_loc = float(np.linalg.norm(np.asarray(box_center, float)))
+    if r_scale is None:
+        if r_loc == 0.0:
+            r_scale = float(np.min(box_size)) / 4
+        else:
+            los = safe_div(np.asarray(box_center, float), np.linalg.norm(box_center))
+            los = box_rot.apply(los, inverse=True)
+            r_scale = float(np.asarray(box_size) @ np.abs(los)) / 4
+    return _unit_mean_in_support(torch.exp(-((rmesh - r_loc) / r_scale).abs() ** order))
+
+
+def minmax_box(pos):
+    """Axis-aligned box (size, center, rotvec) covering the positions, numpy
+    (computed in the positions' dtype, as the JAX package's).
+
+    Parity: bricks.py:819-822."""
+    low, high = pos.min(0).values, pos.max(0).values
+    return (high - low).cpu().numpy(), ((low + high) / 2).cpu().numpy(), np.zeros(pos.shape[-1])
+
+
+def get_mesh_shape(box_size, cell_budget, padding=0.0):
+    """Mesh shape (even ints) and cell length for a box and a cell budget.
+
+    Parity: bricks.py:825-830."""
+    box_size = np.multiply(box_size, 1 + padding)
+    cell_length = float((np.prod(box_size) / cell_budget) ** (1 / 3))
+    mesh_shape = 2 * np.rint(box_size / cell_length / 2).astype(int)
+    return tuple(map(int, mesh_shape)), cell_length
+
+
+def cutsky2config(data, bg: Background, cell_budget: float, padding: float = 0.0,
+                  box_size=None, box_center=None, box_rotvec=None):
+    """Fit the box geometry to cut-sky randoms: (final_shape, cell_length,
+    box_center, box_rotvec); a given box_size/center/rotvec is kept.
+
+    Parity: bricks.py:833-847."""
+    computed = minmax_box(radecz2cart(bg, data))
+    box_size, box_center, box_rotvec = (
+        np.asarray(p, float) if p is not None else np.asarray(c, float)
+        for p, c in zip((box_size, box_center, box_rotvec), computed))
+    final_shape, cell_length = get_mesh_shape(box_size, cell_budget, padding)
+    return final_shape, cell_length, box_center, box_rotvec
+
+
+def _catalog_cells(data, bg, box_size, box_center, box_rotvec, mesh_shape):
+    """A catalog's positions in cells of `mesh_shape` and its weights (1
+    where the catalog has no WEIGHT), float32 on the background's device."""
+    pos = radecz2cart(bg, data)
+    weights = data.get("WEIGHT")
+    weights = (torch.ones(pos.shape[0], device=pos.device) if weights is None
+               else torch.as_tensor(np.asarray(weights, np.float32), device=pos.device))
+    pos = phys2cell_pos(pos, box_center, Rotation(box_rotvec), box_size, mesh_shape)
+    return pos, weights
+
+
+def cutsky2selection(data, bg: Background, mask_shape, selec_shape, paint_shape,
+                     box_size, box_center, box_rotvec,
+                     paint_order=2, interlace_order=2, paint_deconv=True):
+    """Paint randoms into the selection mesh at `selec_shape` (the nufft, K1
+    and K3: unit mean within the painted support) and the binary footprint
+    at `mask_shape` (`paint(...) > 0`, K1).
+
+    Parity: bricks.py:850-873."""
+    pos, weights = _catalog_cells(data, bg, box_size, box_center, box_rotvec, selec_shape)
+    selec = irfftn(nufft(pos, tuple(selec_shape), paint_shape, weights=weights,
+                         paint_order=paint_order, interlace_order=interlace_order,
+                         paint_deconv=paint_deconv))
+    mask = paint(pos, tuple(selec_shape), weights=weights, order=paint_order) > 0
+    selec = selec / selec[mask].mean()
+    pos = pos * torch.as_tensor(np.divide(mask_shape, selec_shape).astype(np.float32),
+                                device=pos.device)
+    mask = paint(pos, tuple(mask_shape), weights=weights, order=paint_order) > 0
+    return selec, mask
+
+
+def cutsky2count(data, bg: Background, count_shape, paint_shape, box_size, box_center,
+                 box_rotvec, paint_order=2, interlace_order=2, paint_deconv=True):
+    """Paint a cut-sky data catalog into a count mesh (the nufft: K1, K3).
+
+    Parity: bricks.py:876-890."""
+    pos, weights = _catalog_cells(data, bg, box_size, box_center, box_rotvec, count_shape)
+    return irfftn(nufft(pos, tuple(count_shape), paint_shape, weights=weights,
+                        paint_order=paint_order, interlace_order=interlace_order,
+                        paint_deconv=paint_deconv))
+
+
+def fullsky2count(data, bg: Background, a_obs: float, los, box_size, box_center, box_rotvec,
+                  final_shape, paint_shape, paint_order=2, interlace_order=2,
+                  paint_deconv=True):
+    """Count mesh from cartesian particle chunks (a full-sky periodic box),
+    summed in Fourier space chunk by chunk, with the catalog's RSD from its
+    velocities (km/s) at `a_obs` along `los`; the total weight is conserved
+    (asserted to 1e-3).
+
+    Parity: bricks.py:893-938."""
+    box_rot = Rotation(box_rotvec)
+    los = np.asarray(los, float)
+    device = bg.a_tab.device
+    chunks = [data] if isinstance(data, dict) else data
+    n_tracers, count = 0.0, 0.0
+    for chunk in chunks:
+        pos = torch.as_tensor(np.asarray(chunk["pos"], np.float32), device=device)
+        if "vel" in chunk:
+            E = float(Esqr(bg.cosmo, torch.as_tensor(a_obs, dtype=torch.float64)) ** 0.5)
+            vel = torch.as_tensor(np.asarray(chunk["vel"], np.float32) / (a_obs * 100 * E),
+                                  device=device)  # km/s -> Mpc/h
+            los_t = torch.as_tensor(los.astype(np.float32), device=device)
+            pos = pos + (vel * los_t).sum(-1, keepdim=True) * los_t
+        weights = (torch.as_tensor(np.asarray(chunk["WEIGHT"], np.float32), device=device)
+                   if "WEIGHT" in chunk else torch.ones(pos.shape[0], device=device))
+        pos = phys2cell_pos(pos, box_center, box_rot, box_size, final_shape)
+        count = count + nufft(pos, tuple(final_shape), paint_shape, weights=weights,
+                              paint_order=paint_order, interlace_order=interlace_order,
+                              paint_deconv=paint_deconv)
+        n_tracers += float(weights.sum()) if "WEIGHT" in chunk else len(pos)
+    count = irfftn(count)
+    # the nufft applies the units jacobian: the total counts are conserved
+    assert np.allclose(float(count.sum()), n_tracers, rtol=1e-3), \
+        f"count sum {float(count.sum())} != n_tracers {n_tracers}"
+    return count

@@ -3,8 +3,8 @@ evolve -> field or power-spectrum likelihood, with the handler algebra of
 `Model`.
 
 Parity: `montecosmo_tpu/models/model.py` (default_config:56-154,
-Model:157-403 but `value_and_grad_staged` and save/load,
-FieldLevelModel:420-1130, 1283-1327 and 1486-1509).  The port covers
+Model:157-417 but `value_and_grad_staged`, FieldLevelModel:420-1130,
+1283-1406 and 1449-1509).  The port covers
 evolution='kaiser' (its three regimes: flat sky at `a_obs`, the flat-sky
 light cone, the curved sky), 'lpt' and 'nbody' (BullFrog, at one scale
 factor `a_obs` or on the light cone with a_obs=None), B-spline paint orders
@@ -14,25 +14,33 @@ True: through the fiducial distances, False: the `ap` latents) and local
 primordial non-Gaussianity (png_type None, 'fNL' or 'bias'), observable
 'field' with every lik_type (poisson, fourier_gauss, quad_gauss,
 two_quad_gauss, shash) or 'powspec', and precond 'kaiser', 'real' or
-'fourier'; a register file raises NotImplementedError naming its ROADMAP
-item.  `reparam` works on
-plain dicts (no `Chains`).  `kaiser_post`, the samplers' start, is the
-flat-sky Kaiser posterior at the fiducial.
+'fourier'; a register file (`register`: the port's `.npz`, or the JAX
+package's `.h5` where h5py is installed) with its selection mesh and
+footprint mask in the likelihood, and `register_catalog`, which paints a
+catalog (cut sky or full sky) into one.  `reparam` works on plain dicts;
+`reparam_chains` and `powtranscoh_chains` loop over a `Chains` batch.
+`kaiser_post`, the samplers' start, is the flat-sky Kaiser posterior at
+the fiducial.  `save` writes the config as JSON, which the JAX package's
+`FieldLevelModel.load` reads; `load` reads either package's file.
 """
 import functools
 import warnings
-from dataclasses import dataclass
+from dataclasses import dataclass, fields
 from pathlib import Path
 
 import numpy as np
 import torch
 
+from montecosmo_tpu_torch.chains import Chains
 from montecosmo_tpu_torch.convert import params_from_numpy
-from montecosmo_tpu_torch.metrics import _plan, _spectrum, kbin_edges, legendre
+from montecosmo_tpu_torch.metrics import (
+    _plan, _spectrum, kbin_edges, legendre, powtranscoh, spectrum,
+)
 from montecosmo_tpu_torch.models import ppl
 from montecosmo_tpu_torch.models.bricks import (
-    Rotation, add_png, ap_auto, ap_param, b1_L2E, cell2phys_pos, count2delta, eulerian_bias,
-    fNL_bias, kaiser_boost, kaiser_model, kaiser_posterior, lagrangian_bias, lin2white,
+    Rotation, add_png, ap_auto, ap_param, b1_L2E, cell2phys_pos, count2delta, cutsky2config,
+    cutsky2count, cutsky2selection, eulerian_bias, fNL_bias, fullsky2count, get_mesh_shape,
+    kaiser_boost, kaiser_model, kaiser_posterior, lagrangian_bias, lin2white,
     los_scalefactor_mesh, los_scalefactor_pos, phi_transfer, phys2cell_pos, radius_mesh,
     regular_pos, rsd, samp2base, samp2base_mesh, set_radial_count, velocity_bias, white2lin,
 )
@@ -40,7 +48,7 @@ from montecosmo_tpu_torch.models.distributions import (
     BlockMultivariateNormal, DetruncTruncNorm, DetruncUnif, Normal, Poisson, QuadGaussian,
     SinhArcsinh, TwoQuadGaussian,
 )
-from montecosmo_tpu_torch.ops.background import Background, get_cosmology
+from montecosmo_tpu_torch.ops.background import Background, Cosmology, get_cosmology
 from montecosmo_tpu_torch.ops.fourier import irfftn, rfftk, rfftn, top_hat
 from montecosmo_tpu_torch.ops.hermitian import (
     cgh2rg, ch2rshape, chreshape, masked2mesh, mesh2masked, r2chshape, rg2cgh, scale_shape,
@@ -49,6 +57,7 @@ from montecosmo_tpu_torch.ops.paint import nufft, read, read_sites
 from montecosmo_tpu_torch.ops.pm import lpt, nbody_bf, nbody_bf_lightcone
 from montecosmo_tpu_torch.ops.power import lin_power, lin_power_mesh
 from montecosmo_tpu_torch.utils import to_tensor
+from montecosmo_tpu_torch.utils.io import load_tree, yload, ysave
 from montecosmo_tpu_torch.utils.safe import safe_div
 
 
@@ -84,7 +93,7 @@ default_config = {
     "a_obs": None,                       # None -> light-cone
     "curved_sky": True,
     "ap_auto": None,                     # None: no AP; True: auto; False: parametric
-    "register": None,                    # path to a register HDF5 file
+    "register": None,                    # path to a register file (.npz, or .h5 with h5py)
     "n_rbins": None,
     "lik_type": "quad_gauss",            # poisson, fourier_gauss, quad_gauss,
                                          # two_quad_gauss, shash
@@ -153,8 +162,6 @@ default_config = {
 }
 
 
-_ROADMAP = {"register": "ROADMAP Queue A item 6 (register files)"}
-_SUPPORTED = {"register": (None,)}
 _CHOICES = {"evolution": ("kaiser", "lpt", "nbody"), "ap_auto": (None, True, False),
             "png_type": (None, "fNL", "bias"),
             "lik_type": ("poisson", "fourier_gauss", "quad_gauss", "two_quad_gauss", "shash"),
@@ -338,6 +345,21 @@ class Model:
     def partial(self, *args, **kwargs):
         self.model = functools.partial(self.model, *args, **kwargs)
 
+    # ------------------------------------------------------------------ persistence
+    def asdict(self):
+        """The config: every field but `device` (the JAX package's keys)."""
+        return {f.name: getattr(self, f.name) for f in fields(self) if f.name != "device"}
+
+    def save(self, path):
+        """Write the config as JSON (YAML 1.2 reads it: the JAX package's
+        `FieldLevelModel.load` takes the file)."""
+        ysave(self.asdict(), path)
+
+    @classmethod
+    def load(cls, path, device="cuda"):
+        """The model of a config file written by either package's `save`."""
+        return cls(**yload(path), device=device)
+
 
 def _stacked(outs, shape):
     """Dicts of per-sample values -> one dict of values with leading `shape`."""
@@ -391,6 +413,13 @@ class FieldLevelModel(Model):
     def __post_init__(self):
         super().__post_init__()
         self.device = torch.device(self.device)
+        self.lin_kpow = None
+        self.white_mesh = None
+        self.count_mesh = None
+        self.selec_mesh = np.array(1.0)
+        self.mask_mesh = None
+        if self.register is not None:
+            self._load_register()
         if self.kernel_type not in ("rectangular", "kaiser_bessel"):
             raise ValueError(f"Unknown kernel type: {self.kernel_type}")
         if self.kernel_type == "kaiser_bessel" and int(self.paint_order) > 4:
@@ -400,21 +429,12 @@ class FieldLevelModel(Model):
         if self.paint_order not in (1, 2, 3, 4):
             raise ValueError(f"paint_order must be a window order in 1..4, got "
                              f"{self.paint_order!r}")
-        for key, allowed in _SUPPORTED.items():
-            if getattr(self, key) not in allowed:
-                raise NotImplementedError(
-                    f"{key}={getattr(self, key)!r} is not ported yet ({_ROADMAP[key]})")
         for key, allowed in _CHOICES.items():
             if getattr(self, key) not in allowed:
                 raise ValueError(f"Unknown {key}: {getattr(self, key)!r} (one of {allowed})")
         if self.evolution == "nbody" and self.a_obs is None and self.nbody_snapshots is not None:
             raise ValueError("nbody_snapshots and the N-body light cone (a_obs=None) are "
                              "exclusive")
-        self.lin_kpow = None
-        self.white_mesh = None
-        self.count_mesh = None
-        self.selec_mesh = np.array(1.0)
-        self.mask_mesh = None
 
         # Geometry
         self.cell_length = float(self.cell_length)
@@ -478,11 +498,14 @@ class FieldLevelModel(Model):
         # Latents / groups / labels
         self._rmesh = radius_mesh(self.box_center, self.box_rot, self.box_size,
                                   self.final_shape, self.curved_sky, self.device)
+        self._rmasked = mesh2masked(self._rmesh, self.mask_mesh)
+        self._selection()
         self.latents = self._validate_latents()
         (self.n_rbins, self.rmasked, self.redges,
          self.latents["ngbars"]) = self._validate_rbins()
         self.groups = self._groups(base=True)
         self.groups_ = self._groups(base=False)
+        self.labels = self._labels()
 
         # Fiducial quantities
         self.fiduc = self._fiduc()
@@ -504,6 +527,61 @@ class FieldLevelModel(Model):
         self.powspec_data = None
         if self.observable == "powspec":
             self._powspec_static()
+
+    def _load_register(self):
+        """Take the register file's geometry and paint keys (they override
+        the config's), its tabulated spectrum, white mesh, selection,
+        footprint and counts (masked, or the real packing of their rfft for
+        lik_type='fourier_gauss'), the final shape of its counts, and its
+        fiducial cosmology and mean density as the latents' centres.
+
+        Parity: model.py:469-511."""
+        path = str(self.register)
+        if not Path(path).exists():
+            raise FileNotFoundError(f"register file not found: {path}")
+        self.register = path
+        reg = load_tree(path)
+        for k in ("cell_length", "box_center", "box_rotvec", "init_oversamp", "paint_oversamp"):
+            setattr(self, k, reg[k])
+        for k in ("a_obs", "curved_sky", "paint_order", "interlace_order", "paint_deconv",
+                  "kernel_type"):
+            if k in reg:
+                setattr(self, k, reg[k])
+        kpow = reg.get("lin_kpow")  # (k, P / sigma8^2)
+        if isinstance(kpow, dict):
+            kpow = (kpow["k"], kpow["pow"])
+        if kpow is not None:
+            self.lin_kpow = tuple(np.asarray(x, np.float32) for x in kpow)
+        white = reg.get("white_mesh", reg.get("white_fake"))
+        if white is not None:
+            self.white_mesh = to_tensor(white, self.device)
+        if reg.get("selec_mesh") is not None:
+            self.selec_mesh = np.asarray(reg["selec_mesh"], np.float32)
+        if reg.get("mask_mesh") is not None:
+            self.mask_mesh = torch.as_tensor(np.asarray(reg["mask_mesh"], bool),
+                                             device=self.device)
+        count = torch.as_tensor(np.asarray(reg["count_mesh"], np.float32), device=self.device)
+        if self.lik_type == "fourier_gauss":
+            self.count_mesh = cgh2rg(rfftn(count))
+        else:
+            self.count_mesh = mesh2masked(count, self.mask_mesh)
+        self.final_shape = tuple(count.shape)
+        n_tracers = reg.get("n_tracers", float(count.sum()))
+        ngbar = n_tracers / (self.count_mesh.numel() * float(self.cell_length)**3)
+        self.latents = self.new_latents_from_loc(
+            self.latents, {**reg["cosmo_fid"], "ngbars": ngbar}, update_prior=True)
+
+    def _selection(self):
+        """The registered 3-D selection on the card once: at the paint
+        shape, which multiplies the galaxy mesh, and resampled to the final
+        mesh and masked, the likelihood's mean count before its radial
+        counts (None for a scalar selection)."""
+        self._selec_paint = self._selec_final = None
+        if np.ndim(self.selec_mesh) == 3:
+            selec = torch.as_tensor(self.selec_mesh, device=self.device)
+            self._selec_paint = selec
+            self._selec_final = mesh2masked(irfftn(chreshape(
+                rfftn(selec), r2chshape(self.final_shape))), self.mask_mesh)
 
     # ------------------------------------------------------------------ program
     def _model(self, temp_prior=1.0, temp_lik=1.0):
@@ -664,7 +742,7 @@ class FieldLevelModel(Model):
             np.asarray(los, float), inverse=True)
         gxy_mesh = kaiser_model(cosmology, a, init_mesh, self.box_size, b1_L2E(bias["b1"]),
                                 fNL_bp=png["fNL_bp"], png_type=self.png_type, los=cell_los,
-                                bg=bg)
+                                kpow=self.lin_kpow, bg=bg)
         if self.ap_auto is not None:
             # the Kaiser mesh re-sampled on the AP-distorted particle lattice
             pos = regular_pos(self.evol_shape, self.ptcl_shape, self.device)
@@ -683,11 +761,17 @@ class FieldLevelModel(Model):
         gxy_mesh = ppl.deterministic("gxy_mesh", gxy_mesh)
         return gxy_mesh, 0.0, stoch, syst
 
-    def _count_mesh(self, gxy_mesh, rcounts):
-        """The galaxy mesh on the final mesh, times each radial bin's count."""
-        count_mesh = irfftn(chreshape(rfftn(gxy_mesh * float(self.selec_mesh)),
-                                      r2chshape(self.final_shape)))
-        return set_radial_count(count_mesh, self._rmesh, self.redges, rcounts)
+    def _count_mesh(self, gxy_mesh, rcounts, masked=True):
+        """The galaxy mesh times the selection, on the final mesh, in the
+        footprint (`masked`: the mask's cells, a vector) or the whole box,
+        times each radial bin's count."""
+        if self._selec_paint is not None:
+            gxy_mesh = gxy_mesh * self._selec_paint
+        count_mesh = irfftn(chreshape(rfftn(gxy_mesh), r2chshape(self.final_shape)))
+        if masked:
+            count_mesh = mesh2masked(count_mesh, self.mask_mesh)
+        rmesh = self._rmasked if masked else self._rmesh
+        return set_radial_count(count_mesh, rmesh, self.redges, rcounts)
 
     def likelihood(self, params: tuple, temp=1.0):
         """Observe the galaxy count mesh under the `lik_type` noise, or its
@@ -697,13 +781,20 @@ class FieldLevelModel(Model):
             return self._likelihood_powspec(gxy_mesh, stoch, syst, temp)
         rcounts = syst["ngbars"] * self.cell_length**3
         count_mesh = self._count_mesh(gxy_mesh, rcounts)
-        selec_mesh = rcounts.mean()
+        if self._selec_final is not None:
+            selec_mesh = set_radial_count(self._selec_final, self._rmasked, self.redges,
+                                          rcounts).abs()
+        else:
+            selec_mesh = rcounts.mean()
         if self.png_type is not None and torch.is_tensor(phi) and phi.ndim == 3:
-            phi = irfftn(chreshape(rfftn(phi), r2chshape(self.final_shape)))
+            phi = mesh2masked(irfftn(chreshape(rfftn(phi), r2chshape(self.final_shape))),
+                              self.mask_mesh)
 
         if self.lik_type == "poisson":
             return ppl.sample("count_mesh", Poisson(count_mesh.abs() ** (1 / temp)))
         if self.lik_type == "fourier_gauss":
+            if self.mask_mesh is not None:
+                raise ValueError("the Fourier likelihood needs a full box (no footprint mask)")
             kvec = rfftk(self.final_shape, self.box_size, self.device)
             kmesh = sum(ki**2 for ki in kvec) ** 0.5
             mumesh = safe_div(sum(ki * float(li) for ki, li in zip(kvec, self.los_fid)), kmesh)
@@ -794,7 +885,7 @@ class FieldLevelModel(Model):
         multipole covariance of `_powspec_static`."""
         rcounts = syst["ngbars"] * self.cell_length**3
         nbar_cell = rcounts.mean()
-        delta = self._count_mesh(gxy_mesh, rcounts) / nbar_cell - 1.0
+        delta = self._count_mesh(gxy_mesh, rcounts, masked=False) / nbar_cell - 1.0
         pred = self._powspec_estimate(delta)
         # stochasticity enters as the (scaled) shot-noise monopole
         shot = stoch["s_e"] ** 2 / (nbar_cell / self.cell_length**3)
@@ -808,6 +899,8 @@ class FieldLevelModel(Model):
         default), by the likelihood's own estimator."""
         count_mesh = to_tensor(self.count_mesh if count_mesh is None else count_mesh,
                                self.device)
+        if self.mask_mesh is not None and count_mesh.ndim == 1:
+            count_mesh = masked2mesh(count_mesh, self.mask_mesh)
         nbar_cell = float(np.mean(self.fiduc["ngbars"])) * self.cell_length**3
         with torch.no_grad():
             return self._powspec_estimate(count_mesh / nbar_cell - 1.0)
@@ -881,7 +974,7 @@ class FieldLevelModel(Model):
         return new
 
     def _validate_rbins(self):
-        rmasked = self._rmesh.cpu().numpy()
+        rmasked = self._rmasked.cpu().numpy()
         rmin, rmax = rmasked.min(), rmasked.max()
         dr = 3**0.5 * self.cell_length
         n_rbins = max(int((rmax - rmin) / dr), 1) if self.n_rbins is None else self.n_rbins
@@ -953,6 +1046,13 @@ class FieldLevelModel(Model):
     def _fiduc(self):
         return {k: v["loc_fid"] for k, v in self.latents.items() if "loc_fid" in v}
 
+    def _labels(self):
+        labs = {}
+        for name, val in self.latents.items():
+            labs[name] = val["label"]
+            labs[name + "_"] = "\\tilde" + val["label"]
+        return labs
+
     @classmethod
     def new_latents_from_loc(cls, latents, loc: dict, update_prior: bool = False):
         """New latents config with updated fiducial (and optionally prior)
@@ -967,6 +1067,12 @@ class FieldLevelModel(Model):
         return new
 
     # ------------------------------------------------------------------ data helpers
+    def mesh2masked(self, mesh):
+        return mesh2masked(to_tensor(mesh, self.device), self.mask_mesh)
+
+    def masked2mesh(self, mesh):
+        return masked2mesh(to_tensor(mesh, self.device), self.mask_mesh)
+
     def count2delta(self, mesh):
         """Counts -> overdensity under the global integral constraint (the
         fourier_gauss likelihood's counts are the real packing of their
@@ -983,6 +1089,140 @@ class FieldLevelModel(Model):
         else:
             selec = to_tensor(selec, self.device)
         return count2delta(mesh, selec)
+
+    @classmethod
+    def register_catalog(cls, cell_budget: float, cosmo_fid: Cosmology, data, random=None,
+                         box_size=None, box_center=None, box_rotvec=None, a_obs=None, los=None,
+                         padding: float = 0.0, init_oversamp: float = 3 / 2,
+                         paint_oversamp: float = 7 / 4, paint_order: int = 2,
+                         interlace_order: int = 2, paint_deconv: bool = True,
+                         kernel_type: str = "rectangular", device="cuda"):
+        """Register a catalog into inference-ready meshes and metadata, on
+        `device` (the card unless the caller names another):
+        * cut sky (`random` given): (RA, DEC, Z[, WEIGHT]) dicts; the box
+          fitted to the randoms, the selection and the footprint painted
+          from the randoms, the counts from the data; light cone, curved sky;
+        * full sky (`random` None): a cartesian 'pos' (optional 'vel',
+          'WEIGHT') dict or an iterable of such chunks; a periodic box, the
+          catalog's RSD at `a_obs` along `los`.
+        Every paint is K1 (and the nufft's epilogue K3).  Returns the
+        register dict that `utils.io.npsave` writes (None entries dropped).
+
+        Parity: model.py:1332-1406."""
+        bg = Background.create(cosmo_fid, device)
+        cut_sky = random is not None
+        if cut_sky:
+            assert a_obs is None and los is None, \
+                "cut-sky: a_obs and los must be None (light-cone, curved sky)"
+            curved_sky = True
+            final_shape, cell_length, box_center, box_rotvec = cutsky2config(
+                random, bg, cell_budget, padding, box_size=box_size, box_center=box_center,
+                box_rotvec=box_rotvec)
+        else:
+            assert a_obs is not None and los is not None and box_size is not None \
+                and box_center is not None, \
+                "full-sky: a_obs, los, box_size, box_center are required"
+            box_rotvec = np.zeros(3) if box_rotvec is None else np.asarray(box_rotvec, float)
+            final_shape, cell_length = get_mesh_shape(box_size, cell_budget)
+            curved_sky = False
+
+        paint_kw = dict(paint_order=paint_order, interlace_order=interlace_order,
+                        paint_deconv=paint_deconv)
+        box_size = np.multiply(final_shape, cell_length)
+        init_shape = scale_shape(final_shape, init_oversamp)
+        paint_shape = scale_shape(final_shape, paint_oversamp)
+        with torch.no_grad():
+            if cut_sky:
+                selec_mesh, mask_mesh = cutsky2selection(
+                    random, bg, mask_shape=final_shape, selec_shape=init_shape,
+                    paint_shape=paint_shape, box_size=box_size, box_center=box_center,
+                    box_rotvec=box_rotvec, **paint_kw)
+                selec_mesh = irfftn(chreshape(rfftn(selec_mesh), r2chshape(paint_shape)))
+                count_mesh = cutsky2count(data, bg, final_shape, paint_shape, box_size=box_size,
+                                          box_center=box_center, box_rotvec=box_rotvec,
+                                          **paint_kw)
+                n_tracers = float(np.sum(np.asarray(data["WEIGHT"], np.float64)))
+                n_randoms = float(np.sum(np.asarray(random["WEIGHT"], np.float64)))
+            else:
+                count_mesh = fullsky2count(data, bg, a_obs, los=los, box_size=box_size,
+                                           box_center=box_center, box_rotvec=box_rotvec,
+                                           final_shape=final_shape, paint_shape=paint_shape,
+                                           **paint_kw)
+                box_center = np.multiply(los, float(bg.a2chi(torch.tensor(a_obs))))
+                n_tracers = float(count_mesh.sum())
+                selec_mesh = mask_mesh = n_randoms = None
+        host = lambda x: None if x is None else x.cpu().numpy()
+        return {
+            "cell_length": float(cell_length),
+            "box_center": np.asarray(box_center, float),
+            "box_rotvec": np.asarray(box_rotvec, float),
+            "init_oversamp": float(init_oversamp),
+            "paint_oversamp": float(paint_oversamp),
+            "cosmo_fid": {"Omega_m": float(cosmo_fid.Omega_m), "sigma8": float(cosmo_fid.sigma8)},
+            "count_mesh": host(count_mesh),
+            "selec_mesh": host(selec_mesh),
+            "mask_mesh": host(mask_mesh),
+            "n_tracers": n_tracers, "n_randoms": n_randoms,
+            "a_obs": a_obs, "curved_sky": curved_sky,
+            "paint_order": int(paint_order), "interlace_order": int(interlace_order),
+            "paint_deconv": bool(paint_deconv), "kernel_type": kernel_type,
+            "cell_budget": float(cell_budget), "padding": float(padding),
+        }
+
+    # ------------------------------------------------------------------ metrics
+    def spectrum(self, mesh0, mesh1=None, ells=0, kedges=None, include_corners=True):
+        return spectrum(mesh0, mesh1=mesh1, box_size=self.box_size, box_center=self.box_center,
+                        ells=ells, kedges=kedges, include_corners=include_corners)
+
+    def powtranscoh(self, mesh0, mesh1, kedges=None, include_corners=True):
+        """(k, P1, (P1/P0)^1/2, P01/(P0 P1)^1/2) of mesh1 against mesh0."""
+        return powtranscoh(mesh0, mesh1, box_size=self.box_size, kedges=kedges,
+                           include_corners=include_corners)
+
+    # ------------------------------------------------------------------ chains
+    def load_runs(self, path, start: int, end: int, transforms=None, batch_ndim=2):
+        return Chains.load_runs(path, start, end, transforms, groups=self.groups | self.groups_,
+                                labels=self.labels, batch_ndim=batch_ndim)
+
+    def _batched(self, fn, data, batch_ndim):
+        """fn(one sample's dict) over the leading `batch_ndim` axes of the
+        numpy dict `data`, one sample after another, stacked as numpy."""
+        shape = np.shape(next(iter(data.values())))[:batch_ndim]
+        outs = []
+        for idx in np.ndindex(shape):
+            out = fn({k: v[idx] for k, v in data.items()})
+            outs.append({k: v.detach().cpu().numpy() if torch.is_tensor(v) else np.asarray(v)
+                         for k, v in out.items()})
+        return {k: np.stack([o[k] for o in outs]).reshape(shape + np.shape(outs[0][k]))
+                for k in outs[0]}
+
+    def reparam_chains(self, chains: Chains, fourier=False, inv=False, batch_ndim=2):
+        """`reparam` of every sample of the chains (their latents; the other
+        entries, logdensity and n_evals, as they are)."""
+        chains = chains.copy()
+        grouped = set().union(*self.groups.values(), *self.groups_.values())
+        latents = {k: v for k, v in chains.data.items() if k in grouped}
+        if latents:
+            with torch.no_grad():
+                out = self._batched(functools.partial(self.reparam, fourier=fourier, inv=inv),
+                                    latents, batch_ndim)
+            chains.data = {k: v for k, v in chains.data.items() if k not in grouped} | out
+        return chains
+
+    def powtranscoh_chains(self, chains: Chains, mesh0, names=(), kedges=None, batch_ndim=2):
+        """Add 'kptc_{name}' = (k, P, transfer, coherence) of each sample's
+        mesh `name` against the reference `mesh0`, stacked (*batch, 4, n_k)
+        (the batch axes first, so that runs concatenate as every entry)."""
+        chains = chains.copy()
+        mesh0 = to_tensor(mesh0, self.device)
+        for name in np.atleast_1d(names):
+            def kptc(d):
+                out = self.powtranscoh(mesh0, to_tensor(d[name], self.device), kedges=kedges)
+                return {str(i): x for i, x in enumerate(out)}
+            with torch.no_grad():
+                out = self._batched(kptc, {name: chains.data[name]}, batch_ndim)
+            chains.data[f"kptc_{name}"] = np.stack([out[str(i)] for i in range(4)], batch_ndim)
+        return chains
 
     def kaiser_post(self, gen, base=False, temp=1.0, scale_field=1.0):
         """Draw from the analytic Kaiser posterior of the init field given the

@@ -1,7 +1,8 @@
 """Linear interpolation on uniform grids (index arithmetic) and on general
 sorted nodes (`interp`, the counterpart of `jnp.interp`).
 
-Parity: `montecosmo_tpu/ops/interp.py:20-108`; `interp` follows
+Parity: `montecosmo_tpu/ops/interp.py:20-108` (with `is_uniform` and
+`log_uniform_interp_fn`, the lookup of tabulated register spectra); `interp` follows
 `jnp.interp`'s semantics (clamp to the end values, differentiable in the
 query, the nodes and the values).
 """
@@ -79,3 +80,35 @@ def interp(x, xp, fp):
                     fp[i - 1] + delta / torch.where(zero, torch.ones_like(dx), dx) * df)
     f = torch.where(x < xp[0], fp[0], f)
     return torch.where(x > xp[-1], fp[-1], f)
+
+
+def is_uniform(x, logx=False, rtol=1e-6):
+    """True if the concrete 1-D node array is uniformly spaced (in log x)."""
+    x = np.asarray(x, float)
+    if logx:
+        if np.any(x <= 0):
+            return False
+        x = np.log(x)
+    d = np.diff(x)
+    return d.size > 0 and bool(np.all(np.abs(d - d[0]) <= rtol * np.abs(d[0])))
+
+
+def log_uniform_interp_fn(ks, ys, left=0.0, right=0.0, n_min=256):
+    """Interpolator x -> y of a table with concrete nodes `ks` (the values
+    `ys` a tensor, differentiable): log-uniform nodes are used as they are;
+    others are resampled once onto a log-uniform grid (`interp` over the
+    table itself, not over the queries), then `uniform_interp`."""
+    ks_np = np.asarray(ks, float)
+    if is_uniform(ks_np, logx=True):
+        logk0 = float(np.log(ks_np[0]))
+        dlogk = float((np.log(ks_np[-1]) - logk0) / (ks_np.size - 1))
+        tab, nodes = ys, ks_np
+    else:
+        t = np.log(ks_np)
+        tu = np.linspace(t[0], t[-1], max(2 * ks_np.size, n_min))
+        nodes = np.exp(tu)
+        tab = interp(torch.as_tensor(nodes, dtype=ys.dtype, device=ys.device),
+                     torch.as_tensor(ks_np, dtype=ys.dtype, device=ys.device), ys)
+        logk0, dlogk = float(tu[0]), float(tu[1] - tu[0])
+    return lambda x: uniform_interp(x, logk0, dlogk, tab, left=left, right=right, logx=True,
+                                    xtab=nodes)

@@ -1,14 +1,14 @@
 """Linear matter power spectrum: Eisenstein & Hu (1998) transfer with BAO,
 sigma8-normalized, differentiable in the cosmological parameters.
 
-Parity: `montecosmo_tpu/ops/power.py:16-143`.
+Parity: `montecosmo_tpu/ops/power.py:16-143` (`lin_power`'s `kpow`: :89-110).
 """
 import numpy as np
 import torch
 
 from montecosmo_tpu_torch.ops.background import Background, Cosmology, _device_of
 from montecosmo_tpu_torch.ops.fourier import rfftk
-from montecosmo_tpu_torch.ops.interp import uniform_interp
+from montecosmo_tpu_torch.ops.interp import log_uniform_interp_fn
 from montecosmo_tpu_torch.utils import to_tensor
 
 TCMB = 2.726  # K
@@ -83,15 +83,17 @@ def _sigma_r(cosmo: Cosmology, pk_unnorm_fn, device, r=8.0, n=512):
 def lin_power(cosmo: Cosmology, a=1.0, kpow=None, n_interp=256, bg: Background = None,
               device="cpu"):
     """Tabulated linear matter power spectrum (k [h/Mpc], P [(Mpc/h)^3]):
-    EH98 normalized to sigma8, scaled by D(a)^2 at a != 1."""
-    if kpow is not None:
-        raise NotImplementedError(
-            "tabulated register spectra (kpow) are not ported yet (ROADMAP Queue A item 6)")
+    with `kpow` a register's (k, P / sigma8^2) table times the sampled
+    sigma8^2, else EH98 normalized to sigma8; scaled by D(a)^2 at a != 1."""
     device = _device_of(cosmo, device)
-    ks = torch.logspace(-4, 1, n_interp, device=device)
-    raw = lambda k: k**cosmo.n_s * eisenstein_hu_transfer(cosmo, k)**2
-    norm = (cosmo.sigma8 / _sigma_r(cosmo, raw, device))**2
-    pows = raw(ks) * norm
+    if kpow is None:
+        ks = torch.logspace(-4, 1, n_interp, device=device)
+        raw = lambda k: k**cosmo.n_s * eisenstein_hu_transfer(cosmo, k)**2
+        norm = (cosmo.sigma8 / _sigma_r(cosmo, raw, device))**2
+        pows = raw(ks) * norm
+    else:
+        ks = torch.as_tensor(np.asarray(kpow[0], np.float32), device=device)
+        pows = torch.as_tensor(np.asarray(kpow[1], np.float32), device=device) * cosmo.sigma8**2
     if not (isinstance(a, float) and a == 1.0):
         if bg is None:
             bg = Background.create(cosmo, device)
@@ -101,13 +103,11 @@ def lin_power(cosmo: Cosmology, a=1.0, kpow=None, n_interp=256, bg: Background =
 
 def lin_power_interp(cosmo: Cosmology, a=1.0, kpow=None, n_interp=256, bg=None,
                      device="cpu"):
-    """Interpolator k-mesh -> P(k), linear in k between log-spaced nodes."""
+    """Interpolator k-mesh -> P(k), linear in k between log-spaced nodes
+    (a register table's nodes, resampled once when not log-uniform)."""
     _, pows = lin_power(cosmo, a=a, kpow=kpow, n_interp=n_interp, bg=bg, device=device)
-    nodes = np.logspace(-4, 1, n_interp)
-    logk0 = float(np.log(nodes[0]))
-    dlogk = float((np.log(nodes[-1]) - logk0) / (nodes.size - 1))
-    return lambda x: uniform_interp(x, logk0, dlogk, pows, left=0.0, right=0.0,
-                                    logx=True, xtab=nodes)
+    nodes = np.logspace(-4, 1, n_interp) if kpow is None else np.asarray(kpow[0])
+    return log_uniform_interp_fn(nodes, pows, left=0.0, right=0.0)
 
 
 def lin_power_mesh(cosmo: Cosmology, mesh_shape: tuple, box_size, a=1.0,

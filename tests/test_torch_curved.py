@@ -1,10 +1,9 @@
 """The PyTorch port's curved sky against the JAX package on the same numpy
 inputs, on the CPU: the curved-sky bricks, the off-lattice branch of
-`lagrangian_bias`, and the 16^3 curved-sky 2LPT light cone with the
-Kaiser-Bessel window of support 3 (logpdf and gradients against the JAX
-model at paint_method='scatter'; the port's 'auto' against its own
-'scatter'), and the JAX package's own default configuration.  Tolerances as
-test_torch_model.py.
+`lagrangian_bias`, and the JAX package's own default configuration; the
+helpers of the 16^3 curved-sky 2LPT light cone with the Kaiser-Bessel
+window of support 3, whose test is in test_torch_kb_curved_model.py.
+Tolerances as test_torch_model.py.
 """
 from functools import lru_cache
 
@@ -140,55 +139,6 @@ def _close_value_and_grad(lt, gt, lj, gj, scale):
     for k, gjk in gj.items():
         assert np.isfinite(gt[k]).all(), k
         np.testing.assert_allclose(gt[k], gjk, rtol=1e-3, atol=1e-4 * scale[k], err_msg=k)
-
-
-def test_curved_sky_kaiser_bessel_logpdf_and_grad_match_jax_16():
-    """The 16^3 curved-sky 2LPT light cone at Kaiser-Bessel support 3: the
-    port's logpdf and gradients (white_mesh_ and every scalar latent, moved
-    0.3 sigma off the fiducial point but s_e2_) against the JAX model at
-    paint_method='scatter' (its window path's KB gradient is NaN), on three
-    inputs; then the port's 'auto' (the clamped lattice paint) against its
-    own 'scatter' on the first.
-
-    A scalar latent's gradient is a sum over the mesh: its float32 rounding
-    does not shrink when the sum cancels, so on an input where it is small
-    (sigma8_, b1_, alpha_ap_ on some seeds) a pure 1e-3 relative bound fails.
-    So each latent's atol is 1e-4 of its largest |gradient| over the three
-    inputs, as a mesh latent's is 1e-4 of its largest element."""
-    from montecosmo_tpu import FieldLevelModel as JaxModel, default_config as jax_default
-    from montecosmo_tpu_torch import FieldLevelModel, default_config
-    from montecosmo_tpu_torch.convert import params_from_numpy
-
-    conf = _curved_conf(paint_method="scatter")
-    jm = JaxModel(**{**jax_default, **conf})
-    tm = FieldLevelModel(**{**default_config, **conf}, device="cpu")
-    ta = FieldLevelModel(**{**default_config, **conf, "paint_method": "auto"}, device="cpu")
-    assert tm.paint_lattice is None and ta.paint_lattice == tm.ptcl_shape
-    np.testing.assert_array_equal(tm.redges, jm.redges)
-    np.testing.assert_allclose(tm.a_fid, jm.a_fid, rtol=1e-5)
-
-    jax_value_and_grad = jax.jit(jax.value_and_grad(
-        lambda q, count: jm.logpdf({**q, "count_mesh": count})))
-    runs = []
-    for seed in (70, 71, 72):
-        rng = np.random.default_rng(seed)
-        p = {k: v.numpy() for k, v in tm.reparam(dict(tm.fiduc), inv=True).items()}
-        for k in p:
-            if k != "s_e2_":
-                p[k] = (p[k] + 0.3 * rng.standard_normal(np.shape(p[k]))).astype(np.float32)
-        p["white_mesh_"] = rng.standard_normal(jm.init_shape).astype(np.float32)
-        count = tm.predict(seed=1, samples=params_from_numpy(p, "cpu"), hide_base=False,
-                           hide_det=False, hide_samp=False)["count_mesh"].numpy()
-        lj, gj = jax_value_and_grad({k: jnp.asarray(v) for k, v in p.items()},
-                                    jnp.asarray(count))
-        runs.append((p, count, *_port_value_and_grad(tm, p, count), float(lj),
-                     {k: np.asarray(v) for k, v in gj.items()}))
-    scale = {k: max(np.abs(r[5][k]).max() for r in runs) for k in runs[0][5]}
-    for _, _, lt, gt, lj, gj in runs:
-        _close_value_and_grad(lt, gt, lj, gj, scale)
-    p, count, lt, gt = runs[0][:4]
-    la, ga = _port_value_and_grad(ta, p, count)
-    _close_value_and_grad(la, ga, lt, gt, scale)
 
 
 def test_default_config_builds_and_evaluates_on_the_cpu():

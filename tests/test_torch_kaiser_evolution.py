@@ -126,8 +126,8 @@ def test_kaiser_png_and_ap_are_refused():
     fNL_bp) against the JAX package's, values 1e-5 of the largest and the
     gradients in the field 1e-4 of the largest and in fNL_bp rtol 1e-4;
     the Kaiser evolution with AP builds (its value and gradient are
-    test_torch_ap.py's); a register file is still refused, naming its
-    ROADMAP item."""
+    test_torch_ap.py's); register files are ported (test_torch_register.py):
+    one that does not exist is a FileNotFoundError."""
     rng = np.random.default_rng(4)
     x = rng.standard_normal(SHAPE).astype(np.float32)
     ct = rng.standard_normal(SHAPE).astype(np.float32)
@@ -147,7 +147,7 @@ def test_kaiser_png_and_ap_are_refused():
     _close(gx, gxj, 1e-4)
     np.testing.assert_allclose(gf.item(), float(gfj), rtol=1e-4)
     assert FieldLevelModel(**{**default_config, **BASE, "ap_auto": True}, device="cpu").ap_auto
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(FileNotFoundError, match="counts.h5"):
         FieldLevelModel(**{**default_config, **BASE, "register": "counts.h5"}, device="cpu")
 
 

@@ -108,7 +108,14 @@ def model_parity(site="count_mesh", move_s_e2=False, **updates):
                       {site: jnp.asarray(obs.numpy(), jnp.float64)})
         lj, gj = float(lj), {k: np.asarray(v) for k, v in gj.items()}
     lt, g32 = grads[torch.float32]
-    g64 = grads[torch.float64][1]
+    hold_value_and_grad(lt, g32, grads[torch.float64][1], lj, gj)
+    return tm, p, obs
+
+
+def hold_value_and_grad(lt, g32, g64, lj, gj):
+    """The port's float32 logpdf `lt` and gradient `g32` (its float64 run's
+    `g64`) against the JAX package's float64 `lj`, `gj`, at the module's
+    tolerances."""
     assert np.isfinite(lt) and abs(lt - lj) <= 1e-5 * abs(lj), (lt, lj)
     assert set(gj) == set(g32)
     for k, gk in gj.items():
@@ -120,7 +127,6 @@ def model_parity(site="count_mesh", move_s_e2=False, **updates):
             np.testing.assert_allclose(g32[k], g64[k], rtol=5e-2, atol=0, err_msg=k)
         else:
             np.testing.assert_allclose(g32[k], gk, rtol=1e-3, atol=1e-2 * scale, err_msg=k)
-    return tm, p, obs
 
 
 # ======================================================================= distributions

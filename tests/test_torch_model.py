@@ -152,12 +152,14 @@ def test_logpdf_and_grad_match_jax_16_s_e2():
 
 
 def test_port_never_imports_jax():
-    """A fresh interpreter that imports the port and its samplers, builds a
-    model, conditions and blocks it and draws the samplers' start leaves jax
-    out of sys.modules."""
+    """A fresh interpreter that imports the port, its samplers, its files
+    (utils.io, utils.geometry), chains, the campaign and its CLI, builds a
+    model, conditions and blocks it and draws the samplers' start leaves
+    jax, the JAX package, h5py and PyYAML out of sys.modules."""
     code = ("import sys, torch, montecosmo_tpu_torch as m\n"
             "from montecosmo_tpu_torch.ops import paint, pm, _kernels\n"
-            "from montecosmo_tpu_torch import convert, samplers\n"
+            "from montecosmo_tpu_torch import convert, samplers, chains, script, infer\n"
+            "from montecosmo_tpu_torch.utils import io, geometry\n"
             "c = dict(m.default_config); c.update(final_shape=(8, 8, 8), curved_sky=False,"
             " a_obs=0.5, box_center=(0, 0, 500.0))\n"
             "f = m.FieldLevelModel(**c, device='cpu')\n"
@@ -166,8 +168,8 @@ def test_port_never_imports_jax():
             "f.substitute(f.fiduc | f.obs_data(), from_base=True)\n"
             "f.block()\n"
             "assert set(f.kaiser_post(0)) == {'white_mesh_'}\n"
-            "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith(('jax.', 'jaxlib',"
-            " 'montecosmo_tpu.')) or k == 'montecosmo_tpu')\n"
+            "bad = sorted(k for k in sys.modules if k in ('jax', 'montecosmo_tpu', 'h5py', 'yaml')"
+            " or k.startswith(('jax.', 'jaxlib', 'montecosmo_tpu.', 'h5py.', 'yaml.')))\n"
             "assert not bad, bad\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

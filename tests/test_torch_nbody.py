@@ -1,7 +1,8 @@
 """The PyTorch port's N-body slice (BullFrog, `evolution='nbody'`) against the
 JAX package on the same numpy inputs, on the CPU: the force read and its
-gradients, the growth-time lookups and kick coefficients, `nbody_bf`, the
-golden 32^3 N-body product, and the 16^3 N-body logpdf value and gradient.
+gradients, the growth-time lookups and kick coefficients, `nbody_bf` and the
+golden 32^3 N-body product (the 16^3 N-body logpdf value and gradient are in
+test_torch_nbody_model.py).
 
 Tolerances are float32 ones, as in test_torch_ops.py: a few ulps for
 elementwise chains, ~1e-5 relative for sums over a mesh; N-body states
@@ -21,7 +22,7 @@ from montecosmo_tpu.models import bricks as jbr
 from montecosmo_tpu_torch.ops import background as tbg, fourier as tfo, paint as tpa, pm as tpm
 from montecosmo_tpu_torch.models import bricks as tbr
 
-from test_torch_model import golden_forward_32, logpdf_and_grad_16
+from test_torch_model import golden_forward_32
 from test_torch_ops import T, _lattice_particles, close
 
 torch.set_num_threads(1)
@@ -187,21 +188,14 @@ def test_golden_forward_nbody_32():
     golden_forward_32("nbody")
 
 
-def test_logpdf_and_grad_nbody_match_jax_16():
-    """The N-body model at 16^3 on the light cone (a_obs=None) at TSC
-    (paint_order=3): force paints and reads, and the render, at order 3.  The
-    fixed-a_obs CIC N-body stays covered by the golden 32^3 forward and the
-    nbody_bf gradient tests."""
-    logpdf_and_grad_16("nbody", a_obs=None, paint_order=3)
-
-
 def test_model_defaults_to_the_card_and_refuses_unported_configs():
     """FieldLevelModel targets the card unless told otherwise.  The N-body
     light cone on the flat and on the curved sky, every B-spline order and
     the Kaiser-Bessel windows of support 1-4 build; Kaiser-Bessel windows of
-    support 5 and more and register files are refused, naming their ROADMAP
-    item (Eulerian bias, AP with ap_auto True or False and PNG with png_type
-    'fNL' or 'bias' build, and one value+grad of the N-body light cone with
+    support 5 and more are refused, naming their ROADMAP item, and a
+    register file that does not exist is a FileNotFoundError (Eulerian
+    bias, AP with ap_auto True or False and PNG with png_type 'fNL' or
+    'bias' build, and one value+grad of the N-body light cone with
     ap_auto=True and png_type='fNL' is finite); snapshots on the light cone
     (exclusive in the JAX package too), B-spline orders outside 1-4, unknown
     kernel types, ap_auto and png_type values are invalid."""
@@ -236,7 +230,7 @@ def test_model_defaults_to_the_card_and_refuses_unported_configs():
     lp = m.logpdf({**p, "count_mesh": torch.ones(m.final_shape)})
     grads = torch.autograd.grad(lp, list(p.values()))
     assert torch.isfinite(lp) and all(bool(torch.isfinite(g).all()) for g in grads)
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+    with pytest.raises(FileNotFoundError, match="counts.h5"):
         FieldLevelModel(**{**conf, "register": "counts.h5"}, device="cpu")
     for key, value in (("ap_auto", "auto"), ("png_type", "fnl")):
         with pytest.raises(ValueError, match=key):

@@ -6,9 +6,8 @@ of `kaiser_model` in the flat-sky light cone and on the curved sky;
 `lagrangian_bias`'s PNG operators at the lattice sites and off them; and
 `eulerian_bias`'s with its advected phi mesh: values and gradients (in
 Omega_m, the PNG amplitudes and the fields), on seeded numpy inputs at
-16^3.  One model case through `model_parity` (its tolerances and its
-float64 JAX reference, test_torch_likelihoods.py): Eulerian bias with
-png_type='bias' on the curved-sky light cone.
+16^3.  The model case (Eulerian bias with png_type='bias' on the
+curved-sky light cone) is in test_torch_png_bias_model.py.
 
 Tolerances: the bias relations 1e-6 relative (float32 in both packages).
 The transfer, `add_png` and the Kaiser terms, the port's float32 against
@@ -33,7 +32,6 @@ from montecosmo_tpu.ops import background as jbg, power as jpo
 
 from montecosmo_tpu_torch.models import bricks as tbr
 from montecosmo_tpu_torch.ops import background as tbg
-from test_torch_likelihoods import model_parity
 
 torch.set_num_threads(1)
 
@@ -271,15 +269,3 @@ def test_eulerian_bias_png_terms_match_jax():
         _close(a, b, 0, 1e-4)
     for a, b in zip(gt[2:], gj[2:]):
         _close(a, b, 1e-4)
-
-
-def test_eulerian_png_model_matches_jax():
-    """The logpdf value and gradient of the 8^3 model with Eulerian bias
-    and png_type='bias' on the curved-sky light cone: phi read at the
-    particles (strided slices), advected with them (K1/K3, K2 in the
-    backward), its Eulerian PNG terms, the fNL-shifted initial field
-    (`add_png` and the chreshape round trip) and phi in the likelihood's
-    s_ep term."""
-    tm, _, _ = model_parity(evolution="lpt", bias_type="eulerian", png_type="bias", a_obs=None,
-                            curved_sky=True)
-    assert (tm.bias_type, tm.png_type) == ("eulerian", "bias")
