@@ -159,6 +159,22 @@ Phases, in order; any failure raises and the script exits non-zero:
      8 steps, 2 runs of 4 samples thinned by 2) and its resume with 3 runs
      (both warmups loaded, run 3 only), finite chains, ESS and r-hat, every
      McLachlan step timed, peak memory, K1/K2/K3/K8/K9 launched;
+  5m. (after 5l) the N-body remainder: at 32^3 lpt_fpm, nbody_bf_scan, a
+     16-step nbody_rk4 and nbody_tsit5 (tol 1e-3, 3 snapshots), grad_fd 4,
+     on the card and on the CPU (positions within 1e-3 cells, Tsit5 1e-2,
+     its step counts printed); at 128^3 (2,097,152 particles) Tsit5 at tol
+     1e-4 from a = 0.05 to 0.5 against RK4 with 64 steps (held in Tsit5's
+     own error norm, at most its accepted steps) and RK4 64 against 128
+     (2e-3 cells), each
+     timed, ms and K1/K4 launches per force evaluation; a value+grad
+     through Tsit5 (tol 1e-2, 24 attempts) finite, timed, with K2/K5
+     launches and peak memory; `python -m montecosmo_tpu_torch.accuracy
+     --final 128 --f64-final 32` in a subprocess (exit code asserted, its
+     lines and kernel launches printed); the verify drive on the port:
+     `register synthetic` at the 128^3 cell budget from a 256^3-particle
+     mock (count conservation 1e-4, ms, K1/K3 launches), its model's
+     value+grad, then the SKILL drive's Kaiser campaign on a 512-cell
+     synthetic register (finite logdensity);
   5k. (after 5g) the AP and PNG flagships at bench.py's widths: 2LPT with
      Lagrangian bias, ap_auto=True and png_type='fNL'; the Kaiser flat-sky
      light cone with ap_auto=False (the Kaiser mesh read at the particle
@@ -181,7 +197,11 @@ Phases, in order; any failure raises and the script exits non-zero:
      float-atomic times; the CIC rows of K1, K2 and K3 and the K8 row also
      with their launches per value+grad in each 5k flagship; the CIC rows of
      K1 and K3 with their launches in one 5l register (`launches_register`)
-     and its build ms; K8 with its
+     and its build ms; the CIC rows of K1, K2, K4 and K5, K8 and K9 with
+     their launches on 5m's path (`launches_nbody_remainder`: per force
+     evaluation and per accepted step of Tsit5 and RK4 at 128^3, in a
+     value+grad through Tsit5, in the accuracy report, K1 in the synthetic
+     register); K8 with its
      launches in phase 5's 2LPT run and 5g's counts; K9 with its launches in phase 5's
      2LPT run and per value+grad in every flagship, its times at the chi2a
      site, index_add_ as its library time and index_put_(accumulate) beside
@@ -2118,6 +2138,310 @@ def phase_survey():
             "campaign_mclachlan_step_ms": float(np.median(steps))}
 
 
+# ---------------------------------------------------------------- phase 5m
+# the N-body remainder: the integrators in scale-factor time at the
+# flagship's cell (1000/128 Mpc/h), the accuracy report, the register CLI
+REMAINDER = {"check": 32, "final": 128, "rk4_steps": 16, "fine_rk4": (64, 128),
+             "tsit5_tol": 1e-3, "fine_tol": 1e-4, "grad_tol": 1e-2, "grad_max_steps": 24,
+             "report_f64": 32, "register_ptcl": 256, "register_box": 2000.0}
+# the SKILL drive's smallest campaign (.claude/skills/verify/SKILL.md)
+SMOKE_REGISTER = ["--cell-budget", "512", "--n-ptcl", "16", "--box-size", "320",
+                  "--init-oversamp", "1.0", "--paint-oversamp", "1.0"]
+SMOKE_CAMPAIGN = dict(evolution="kaiser", self_data=True, n_chains=2, n_steps_field=64,
+                      n_steps_full=64, n_samples=4, n_runs=2, thinning=2)
+# K1, K2, K4, K5 in their per-particle designs: this path paints and reads
+# unclamped
+REMAINDER_KERNELS = ("paint_cic", "paint_cic_adjoint", "read_cic", "read_cic_adjoint")
+
+
+def remainder_field(n, device, seed=7):
+    """(Background, rfft linear field, particle lattice) at n^3 with the
+    flagship's cell: the white field drawn on the CPU from a seeded
+    generator, so that the card and the CPU integrate the same field."""
+    from montecosmo_tpu_torch.models.bricks import regular_pos, white2lin, white_noise
+    from montecosmo_tpu_torch.ops.background import Background, get_cosmology
+
+    shape, box = (n,) * 3, (n * 1000.0 / 128,) * 3
+    cosmo = get_cosmology(**SURVEY_COSMO)
+    lin = white2lin(cosmo, white_noise(torch.Generator().manual_seed(seed), shape, box), shape, box)
+    return Background.create(cosmo, device=device), lin.to(device), regular_pos(shape, device=device)
+
+
+def _launched():
+    """{kernel: launches} of REMAINDER_KERNELS at CIC since the last reset."""
+    from montecosmo_tpu_torch.ops import paint as P
+
+    return {k: P.LAUNCHES.get((k, "bspline", 2), 0) for k in REMAINDER_KERNELS}
+
+
+def remainder_32():
+    """5m (a): lpt_fpm (order 2), nbody_bf_scan (10 steps), a 16-step
+    nbody_rk4 and nbody_tsit5 (tol 1e-3, 3 snapshots), grad_fd 4, at 32^3
+    on the card and on the CPU: positions within 1e-3 cells (Tsit5 10 tol),
+    the Tsit5 step counts of both printed."""
+    from montecosmo_tpu_torch.ops import pm
+
+    tol = REMAINDER["tsit5_tol"]
+    runs = {"lpt_fpm": (lambda bg, lin, p, st: pm.lpt_fpm(bg, lin, p, 0.05, 2, grad_fd=4), 1e-3),
+            "nbody_bf_scan": (lambda bg, lin, p, st: pm.nbody_bf_scan(bg, lin, p, 0.5, 10,
+                                                                      grad_fd=4), 1e-3),
+            "nbody_rk4": (lambda bg, lin, p, st: pm.nbody_rk4(bg, lin, p, 0.05, 0.5,
+                                                              REMAINDER["rk4_steps"]), 1e-3),
+            "nbody_tsit5": (lambda bg, lin, p, st: pm.nbody_tsit5(bg, lin, p, 0.05, 0.5, tol,
+                                                                  snapshots=3, stats=st), 10 * tol)}
+    fields = {dev: remainder_field(REMAINDER["check"], dev) for dev in ("cuda", "cpu")}
+    for name, (fn, limit) in runs.items():
+        out, stats = {}, {}
+        for dev, (bg, lin, pos0) in fields.items():
+            stats[dev] = {}
+            with torch.no_grad():
+                out[dev] = fn(bg, lin, pos0, stats[dev])
+        (pc, vc), (pr, vr) = out["cuda"], out["cpu"]
+        dpos = float((pc.cpu() - pr).abs().max())
+        dvel = float((vc.cpu() - vr).abs().max() / vr.abs().max())
+        # lpt_fpm returns the displacement, the integrators the positions
+        disp = pr if name == "lpt_fpm" else pr[-1] - fields["cpu"][2]
+        log(f"# 5m 32^3 {name}: card vs CPU max |d pos| {dpos:.3e} cells (limit {limit:g}), "
+            f"max |d vel| / max |vel| {dvel:.3e}, max displacement "
+            f"{float(disp.abs().max()):.3f} cells"
+            + (f"; steps card {stats['cuda']}, CPU {stats['cpu']}" if stats["cpu"] else ""))
+        assert torch.isfinite(pc).all() and dpos <= limit, f"5m: {name} on the card disagrees"
+
+
+def remainder_128():
+    """5m (b): Tsit5 (tol 1e-4) from a = 0.05 to 0.5 against RK4 with 64
+    steps (and RK4 64 against 128) at 128^3, 2,097,152 particles, timed,
+    with ms per force evaluation and K1/K4 launches per force evaluation;
+    held: the Tsit5 / RK4(64) difference in Tsit5's own error norm (each
+    position's over tol (1 + |pos|), RMS over the particles) at most the
+    number of accepted steps (each step's estimate is within 1), and
+    RK4(64) against RK4(128) within 2e-3 cells; the max, 99.9th percentile
+    and RMS in cells printed.  Then a value+grad through Tsit5 (tol 1e-2,
+    24 attempts at most, in the white field), finite, timed (a warm-up,
+    then 2), with its launches and peak memory, and one more profiled."""
+    from montecosmo_tpu_torch.models.bricks import white2lin
+    from montecosmo_tpu_torch.ops import paint as P, pm
+    from montecosmo_tpu_torch.ops.hermitian import rg2cgh
+
+    bg, lin, pos0 = remainder_field(REMAINDER["final"], "cuda")
+    with torch.no_grad():  # warm-up: cuFFT plans and the kernels' first launches at 128^3
+        pm.nbody_tsit5(bg, lin, pos0, 0.05, 0.5, REMAINDER["tsit5_tol"])
+    out, times, per = {}, {}, {}
+    for name in ("tsit5", *REMAINDER["fine_rk4"]):
+        P.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = {}
+        with torch.no_grad():
+            if name == "tsit5":
+                out[name] = pm.nbody_tsit5(bg, lin, pos0, 0.05, 0.5, REMAINDER["fine_tol"],
+                                           stats=stats)
+                evals = stats["force_evaluations"]
+            else:
+                out[name] = pm.nbody_rk4(bg, lin, pos0, 0.05, 0.5, name)
+                evals = 4 * name
+        torch.cuda.synchronize()
+        times[name] = 1e3 * (time.perf_counter() - t0)
+        per[name] = {k: v / evals for k, v in _launched().items() if v}
+        log(f"# 5m 128^3 {'Tsit5 tol %g' % REMAINDER['fine_tol'] if name == 'tsit5' else 'RK4 %d' % name}"
+            f": {times[name]:.3f} ms, {evals} force evaluations, {times[name] / evals:.3f} ms "
+            f"each; launches per force evaluation {per[name]}" + (f"; steps {stats}" if stats else ""))
+        if name == "tsit5":
+            t5_stats, t5_launches = stats, dict(P.LAUNCHES)
+    fine, finer = REMAINDER["fine_rk4"]
+    (pa, va), (pr, vr), (pr2, _) = out["tsit5"], out[fine], out[finer]
+    d = (pa[-1] - pr[-1]).abs()
+    norm = float(((d / (REMAINDER["fine_tol"] * (1 + torch.maximum(pa[-1].abs(), pr[-1].abs()))))
+                  ** 2).mean().sqrt())
+    sub = d.flatten()[::7]
+    log(f"# 5m 128^3 Tsit5 vs RK4 {fine}: |d pos| max {float(d.max()):.4e}, 99.9% "
+        f"{float(torch.quantile(sub[:2**24], 0.999)):.4e}, RMS {float(d.pow(2).mean().sqrt()):.4e} "
+        f"cells; in Tsit5's error norm {norm:.4f} (limit {t5_stats['accepted']}: its accepted "
+        f"steps, each within 1); |d vel| max "
+        f"{float((va[-1] - vr[-1]).abs().max()):.4e}; RK4 {fine} vs {finer}: max "
+        f"{float((pr[-1] - pr2[-1]).abs().max()):.4e} cells (limit 2e-3); max |pos - lattice| "
+        f"{float((pr[-1] - pos0).abs().max()):.3f} cells")
+    assert norm <= t5_stats["accepted"], "5m: Tsit5 strays from RK4 past its own tolerance"
+    assert float((pr[-1] - pr2[-1]).abs().max()) <= 2e-3, "5m: RK4 with 64 steps is not converged"
+    del out, pa, va, pr, vr, pr2, d, sub
+
+    shape, box = (REMAINDER["final"],) * 3, (1000.0,) * 3
+    x = torch.randn(shape, generator=torch.Generator(device="cuda").manual_seed(3),
+                    device="cuda", requires_grad=True)
+    stats = {}
+
+    def value_and_grad():
+        stats.clear()
+        white = rg2cgh(x) * float(np.prod(np.divide(shape, box)) ** 0.5)  # as white_noise
+        pos, _ = pm.nbody_tsit5(bg, white2lin(bg.cosmo, white, shape, box), pos0, 0.05, 0.5,
+                                REMAINDER["grad_tol"], max_steps=REMAINDER["grad_max_steps"],
+                                stats=stats)
+        loss = torch.sin(pos[-1]).sum()
+        return loss, torch.autograd.grad(loss, x)[0]
+
+    walls = []
+    for i in range(3):  # the first a warm-up
+        P.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, g = value_and_grad()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    grad_ms = float(np.median(walls[1:]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    grad_launches = _launched()
+    k8 = P.LAUNCHES.get(("background_tables", "background", 0), 0)
+    k9 = sum(n for (k, _, _), n in P.LAUNCHES.items() if k == "segment_sum")
+    log(f"# 5m 128^3 value+grad through Tsit5 (tol {REMAINDER['grad_tol']}, "
+        f"{REMAINDER['grad_max_steps']} attempts at most): ms {[round(w, 3) for w in walls]} "
+        f"(first: warm-up), steps {stats}, loss {loss.item():.6e}, |grad| max "
+        f"{float(g.abs().max()):.4e}, peak {peak:.2f} GiB; launches {grad_launches}, K8 {k8}, "
+        f"K9 {k9}")
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        value_and_grad()
+        torch.cuda.synchronize()
+    events = prof.key_averages()
+    kernels = [e for e in events if e.device_type.name == "CUDA"]
+    log(f"# 5m the value+grad profiled: device busy "
+        f"{sum(e.self_device_time_total for e in kernels) / 1e3:.3f} ms, "
+        f"{sum(e.count for e in kernels)} device kernels")
+    log(events.table(sort_by="self_cpu_time_total", row_limit=12))
+    log(events.table(sort_by="self_cuda_time_total", row_limit=12))
+    assert torch.isfinite(loss) and torch.isfinite(g).all() and float(g.abs().max()) > 0, \
+        "5m: the gradient through Tsit5 is not finite"
+    assert grad_launches["paint_cic_adjoint"] and grad_launches["read_cic_adjoint"], \
+        "5m: the gradient through Tsit5 did not launch K2 and K5"
+    return {"tsit5_per_force_evaluation": per["tsit5"],
+            "tsit5_per_accepted_step": {
+                k: t5_launches.get((k, "bspline", 2), 0) / t5_stats["accepted"]
+                for k in REMAINDER_KERNELS if t5_launches.get((k, "bspline", 2))},
+            "rk4_per_force_evaluation": per[fine],
+            "tsit5_value_and_grad": grad_launches, "tsit5_value_and_grad_ms": grad_ms,
+            "tsit5_value_and_grad_peak_gib": peak,
+            "ms_per_force_evaluation": {"tsit5": times["tsit5"] / t5_stats["force_evaluations"],
+                                        f"rk4_{fine}": times[fine] / (4 * fine)},
+            "tsit5_steps": t5_stats, "k8_value_and_grad": k8, "k9_value_and_grad": k9}
+
+
+def remainder_report():
+    """5m (c): `python -m montecosmo_tpu_torch.accuracy --final 128` in a
+    subprocess (section 3 at 32^3), its exit code asserted, its lines
+    printed; returns its kernel launches."""
+    cmd = [sys.executable, "-m", "montecosmo_tpu_torch.accuracy", "--final",
+           str(REMAINDER["final"]), "--f64-final", str(REMAINDER["report_f64"])]
+    t0 = time.perf_counter()
+    r = subprocess.run(cmd, cwd=ROOT, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    for line in r.stdout.splitlines():
+        log(f"# 5m report | {line}")
+    log(f"# 5m report: exit code {r.returncode}, {wall:.2f} s wall")
+    assert r.returncode == 0, f"5m: the accuracy report failed: {r.stderr[-2000:]}"
+    launches = json.loads(r.stdout.split("# kernel launches ")[-1].splitlines()[0])
+    return {"launches": launches, "wall_s": wall}
+
+
+def remainder_register(tmp):
+    """5m (d): the verify drive on the port: `register synthetic` at the
+    128^3 cell budget from a 256^3-particle 2LPT mock in a 2000 Mpc/h box
+    (count conservation within 1e-4, ms, K1/K3 launches), the model of that
+    register (FieldLevelModel(register=...)): one value+grad timed; then
+    the SKILL drive's campaign on a 512-cell synthetic register (Kaiser,
+    --self-data, 2 chains, 64 + 64 warmup steps, 2 runs of 4 samples thinned
+    by 2), every run's logdensity finite."""
+    from montecosmo_tpu_torch import register
+    from montecosmo_tpu_torch.infer import build_model, infer
+    from montecosmo_tpu_torch.ops import paint as P
+    from montecosmo_tpu_torch.utils.io import npload
+
+    P.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = register.main(["synthetic", "--cell-budget", str(REMAINDER["final"] ** 3), "--n-ptcl",
+                          str(REMAINDER["register_ptcl"]), "--box-size",
+                          str(REMAINDER["register_box"]), "--out", str(tmp)])
+    torch.cuda.synchronize()
+    reg_ms = 1e3 * (time.perf_counter() - t0)
+    k1 = sum(n for (k, w, o), n in P.LAUNCHES.items() if k.startswith("paint_cic") and o == 2
+             and k != "paint_cic_adjoint")
+    k3 = P.LAUNCHES.get(("nufft_epilogue", "bspline", 2), 0)
+    k4 = P.LAUNCHES.get(("read_cic", "bspline", 1), 0)
+    reg = npload(path)
+    n = REMAINDER["register_ptcl"] ** 3
+    total = float(np.sum(reg["count_mesh"], dtype=np.float64))
+    log(f"# 5m register synthetic ({n} particles, box {REMAINDER['register_box']:g} Mpc/h, "
+        f"cell budget {REMAINDER['final']}^3): final {reg['count_mesh'].shape}, {reg_ms:.3f} ms, "
+        f"K1 {k1}, K3 {k3}, K4 (NGP, the mock's reads) {k4}; count_mesh.sum() {total:.3f} "
+        f"against {n}; launches {dict(P.LAUNCHES)}")
+    assert k1 >= 1 and k3 >= 1, "5m: the register did not go through K1 and K3"
+    np.testing.assert_allclose(total, n, rtol=1e-4)
+
+    m = build_model(path)
+    p = m.reparam({k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True)
+    p["white_mesh_"] = torch.randn(m.init_shape, generator=torch.Generator(
+        device="cuda").manual_seed(0), device="cuda")
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    obs = m.obs_data()
+    walls = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lp = m.logpdf({**leaves, **obs})
+        grads = torch.autograd.grad(lp, list(leaves.values()))
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    log(f"# 5m the register's model (final {m.final_shape}, evolution {m.evolution}): logpdf "
+        f"{lp.item():.6e}, value+grad ms {[round(w, 3) for w in walls]} (first: warm-up)")
+    assert torch.isfinite(lp) and all(bool(torch.isfinite(g).all()) for g in grads), \
+        "5m: the register's model value+grad is not finite"
+    del m, leaves, obs, grads, reg
+
+    small = register.main(["synthetic", *SMOKE_REGISTER, "--out", str(tmp / "smoke")])
+    t0 = time.perf_counter()
+    save_dir, _ = infer(small, save_root=str(tmp / "results"), device="cuda", **SMOKE_CAMPAIGN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = (save_dir / "run.out").read_text()
+    assert "logpdf of fiduc: " in out, "5m: the campaign did not log the fiducial logpdf"
+    fid = out.split("logpdf of fiduc: ")[1].split()[0]
+    lps = [npload(save_dir / "chains" / f"run_{i}.npz")["logdensity"] for i in (1, 2)]
+    log(f"# 5m SKILL drive: register {small.name}, campaign {wall:.2f} s, logpdf of fiduc {fid}, "
+        f"runs' logdensity {[np.round(lp.ravel(), 3).tolist() for lp in lps]}")
+    assert np.isfinite(float(fid)) and all(np.isfinite(lp).all() for lp in lps), \
+        "5m: the SKILL drive's campaign is not finite"
+    return {"register_ms": reg_ms, "launches_register": {"paint_cic": k1, "nufft_epilogue": k3},
+            "campaign_s": wall}
+
+
+def phase_nbody_remainder():
+    """5m: the N-body remainder (scale-factor-time integrators, the accuracy
+    report, the register CLI) on the card.  Returns (the CIC rows' launches
+    on this path by kernel, 5m (b)'s measurements, the report's)."""
+    import tempfile
+
+    t0 = time.perf_counter()
+    remainder_32()
+    log(f"# 5m (a) done in {time.perf_counter() - t0:.1f} s")
+    big = remainder_128()
+    log(f"# 5m (b) done in {time.perf_counter() - t0:.1f} s")
+    report = remainder_report()
+    log(f"# 5m (c) done in {time.perf_counter() - t0:.1f} s")
+    with tempfile.TemporaryDirectory() as tmp:
+        reg = remainder_register(Path(tmp))
+    log(f"# 5m (d) done in {time.perf_counter() - t0:.1f} s")
+    rows = {k: {"design": f"per-particle ({CSRC}paint_cic.cu): this path is unclamped",
+                "tsit5_128_per_force_evaluation": big["tsit5_per_force_evaluation"].get(k, 0),
+                "tsit5_128_per_accepted_step": big["tsit5_per_accepted_step"].get(k, 0),
+                "rk4_128_per_force_evaluation": big["rk4_per_force_evaluation"].get(k, 0),
+                "tsit5_128_value_and_grad": big["tsit5_value_and_grad"].get(k, 0),
+                "accuracy_report_128": report["launches"].get(f"{k}/bspline/2", 0)}
+            for k in REMAINDER_KERNELS}
+    rows["paint_cic"]["register_synthetic_128"] = reg["launches_register"]["paint_cic"]
+    return rows, big, report
+
+
 def _rhat(x):
     from montecosmo_tpu_torch.metrics import gelman_rubin
 
@@ -2855,6 +3179,8 @@ def main():
     done("5k")
     survey = phase_survey()
     done("5l")
+    remainder, remainder_big, remainder_report = phase_nbody_remainder()
+    done("5m")
     for run in PROFILES:
         run()
     kernels = []
@@ -2878,6 +3204,8 @@ def main():
             if kernel != KB and order == 2:
                 kernels[-1]["launches_ap_png"] = {
                     tag: per.get(path_name(n, order), 0) for tag, per in ap_png.items()}
+                if n in remainder:
+                    kernels[-1]["launches_nbody_remainder"] = remainder[n]
                 if n in survey["launches_register"]:
                     # one 128^3-budget register: unclamped paints (the atomic
                     # design) and their nufft epilogues
@@ -2902,12 +3230,21 @@ def main():
                     "likelihood_value_and_grad_ms": lik_ms,
                     "eulerian_launches": eulerian,
                     "path_cotangents_max_rel_err_per_column": K9_PATH,
+                    "launches_nbody_remainder": {
+                        "tsit5_128_value_and_grad": remainder_big["k9_value_and_grad"],
+                        "accuracy_report_128": sum(
+                            n for k, n in remainder_report["launches"].items()
+                            if k.startswith("segment_sum/"))},
                     **res["segment_sum"]})
     kernels.append({"name": "background_tables", "route": "cuda",
                     "source": CSRC + "background_rk4.cu",
                     "replaces": "montecosmo_tpu/ops/background.py:115",
                     "launches": K8_LAUNCHES["lpt"], **res["background_tables"],
                     "launches_ap_png": {tag: K8_LAUNCHES[f"5k {tag}"] / 7 for tag in AP_PNG},
+                    "launches_nbody_remainder": {
+                        "tsit5_128_value_and_grad": remainder_big["k8_value_and_grad"],
+                        "accuracy_report_128": remainder_report["launches"].get(
+                            "background_tables/background/0", 0)},
                     "launches_per_2lpt_value_and_grad": {
                         w: n for w, (n, _, _) in tables.items()},
                     "2lpt_value_and_grad_ms": {w: t for w, (_, _, t) in tables.items()}})

@@ -95,6 +95,16 @@ def add_png(fNL, phi, trans):
     return trans * rfftn(phi)
 
 
+def white_noise(gen: torch.Generator, mesh_shape, box_size):
+    """Unit-power white noise in Fourier space, physical units, drawn from
+    `gen` on its device.
+
+    Parity: bricks.py:70-78 (the draw from a torch.Generator, not a JAX
+    key: the two packages' streams differ)."""
+    white = rg2cgh(torch.randn(tuple(mesh_shape), generator=gen, device=gen.device))
+    return white * float(np.prod(np.divide(mesh_shape, box_size)) ** 0.5)
+
+
 def white2lin(cosmo: Cosmology, white_mesh, init_shape, box_size, kpow=None):
     """White-noise mesh -> linear matter mesh (times sqrt(P)).
 

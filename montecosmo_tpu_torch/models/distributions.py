@@ -4,18 +4,21 @@
 in unconstrained sample space whose push-forward through `std2trunc` is a
 TruncatedNormal / Uniform), the field likelihoods `QuadGaussian`,
 `Poisson`, `TwoQuadGaussian` and the moment-standardized `SinhArcsinh`, and
-`BlockMultivariateNormal` (the powspec observable).  `sample` takes a
-`torch.Generator`; the likelihoods have `cdf` and `log_cdf` (per-voxel
-cumulative densities, `Model.logdf_mesh`).
+`BlockMultivariateNormal` (the powspec observable), and two noise models
+on no model path: the moment-parametrized `SkewNormal` (with Owen's T for
+its cdf and `match_quadratic_gaussian`) and the cubic-in-Gaussian
+`CubGaussian`.  `sample` takes a `torch.Generator`; the likelihoods have
+`cdf` and `log_cdf` (per-voxel cumulative densities, `Model.logdf_mesh`).
 
 Parity: `montecosmo_tpu/models/distributions.py:35-95, 96-143, 144-175,
-179-257, 258-338, 338-470, 674-728`.
+179-257, 258-338, 338-470, 474-650, 674-728`.
 """
 import math
 
 import numpy as np
 import torch
 from numpy.polynomial.hermite_e import hermegauss
+from numpy.polynomial.legendre import leggauss
 
 from montecosmo_tpu_torch.models.truncnorm import ndtr, std2trunc, trunc2std
 from montecosmo_tpu_torch.utils import to_tensor
@@ -318,6 +321,22 @@ class QuadGaussian(Distribution):
     def cdf(self, value):
         return torch.exp(self.log_cdf(value))
 
+    @property
+    def mean(self):
+        return torch.broadcast_to(torch.as_tensor(self.loc), self.batch_shape)
+
+    @property
+    def variance(self):
+        return torch.broadcast_to(torch.as_tensor(self.scale1**2 + 2 * self.scale2**2),
+                                  self.batch_shape)
+
+    @property
+    def third_central_moment(self):
+        # E[(s1 e + s2 (e^2 - 1))^3] with E e^4 = 3, E e^6 = 15
+        return torch.broadcast_to(
+            torch.as_tensor(6.0 * self.scale1**2 * self.scale2 + 8.0 * self.scale2**3),
+            self.batch_shape)
+
 
 def _std_normal_quadrature(deg, like):
     """(nodes, weights) with E_{N(0,1)}[f] ~ sum_i w_i f(z_i) (probabilists'
@@ -430,6 +449,193 @@ class TwoQuadGaussian(Distribution):
 
     def cdf(self, value):
         return torch.exp(self.log_cdf(value))
+
+
+# E|N(0, 1)|: the standardized-mean unit of the skew normal's half-normal part
+_HALF_NORMAL_MEAN = np.sqrt(2.0 / np.pi)
+# |skewness| as delta -> 1 (the attainable supremum)
+_SKEW_SUP = 0.5 * (4.0 - np.pi) * (2.0 / (np.pi - 2.0)) ** 1.5
+_DELTA_CAP = 1.0 - 1e-7
+
+
+def _cbrt(x):
+    return torch.sign(x) * x.abs() ** (1.0 / 3.0)
+
+
+def _like(x, value):
+    """`x` as a tensor on `value`'s device, a number in `value`'s dtype."""
+    if torch.is_tensor(x):
+        return x.to(value.device)
+    return torch.as_tensor(x, dtype=value.dtype, device=value.device)
+
+
+def _owens_t_reduced(h, a, nodes, weights):
+    """Owen's T for 0 <= a <= 1 from its definition T(h, a) = (1/2pi)
+    int_0^a exp(-h^2 (1 + x^2) / 2) / (1 + x^2) dx, the Gauss-Legendre
+    nodes mapped onto [0, a]."""
+    x = a[..., None] * nodes
+    integrand = torch.exp(-0.5 * h[..., None] ** 2 * (1.0 + x * x)) / (1.0 + x * x)
+    return a * (weights * integrand).sum(-1) / (2.0 * np.pi)
+
+
+def _owens_t(h, a, nodes, weights):
+    """Owen's T(h, a) for any real a: odd in a, |a| > 1 folded to 1/|a|
+    through T(h, a) = [Phi(h) + Phi(ah)] / 2 - Phi(h) Phi(ah) - T(ah, 1/a)."""
+    aa = a.abs()
+    fold = aa > 1.0
+    inv = 1.0 / torch.clamp(aa, min=1.0)
+    base = _owens_t_reduced(torch.where(fold, aa * h, h), torch.where(fold, inv, aa),
+                            nodes, weights)
+    ph, pah = ndtr(h), ndtr(aa * h)
+    folded = 0.5 * (ph + pah) - ph * pah - base
+    return torch.sign(a) * torch.where(fold, folded, base)
+
+
+class SkewNormal(Distribution):
+    """Azzalini skew normal parametrized by its own moments (mean, std,
+    skew), so that location and scale decouple from the shape.  The skewness
+    gamma = (4 - pi) / 2 m^3 / (1 - m^2)^(3/2) of the standardized mean
+    m = E|N(0,1)| delta is inverted through r = cbrt(2 gamma / (4 - pi)) =
+    m / sqrt(1 - m^2); |skew| is clipped just inside the supremum ~0.9953.
+    `cdf` needs Owen's T (an `n_owen`-node Gauss-Legendre rule on a reduced
+    domain)."""
+
+    def __init__(self, mean=0.0, std=1.0, skew=0.0, max_skew=_SKEW_SUP * (1.0 - 1e-6),
+                 n_owen=48):
+        self.mean_, self.std, self.skew = mean, std, skew
+        self.max_skew = float(min(max_skew, _SKEW_SUP * (1.0 - 1e-6)))
+        x, w = leggauss(n_owen)  # nodes on [0, 1]
+        self._nodes, self._weights = (x + 1.0) / 2.0, w / 2.0
+
+    @property
+    def batch_shape(self):
+        return _shape(self.mean_, self.std, self.skew)
+
+    def _delta(self, like):
+        g = torch.clamp(_like(self.skew, like), -self.max_skew, self.max_skew)
+        r = _cbrt(2.0 * g / (4.0 - np.pi))   # = m / sqrt(1 - m^2), odd in g
+        m = r * torch.rsqrt(1.0 + r * r)      # the standardized mean
+        return torch.clamp(m / _HALF_NORMAL_MEAN, -_DELTA_CAP, _DELTA_CAP)
+
+    def _direct(self, like):
+        """The direct parameters (xi, omega, alpha) from the moments."""
+        d = self._delta(like)
+        m = _HALF_NORMAL_MEAN * d
+        omega = _like(self.std, like) * torch.rsqrt(1.0 - m * m)
+        return _like(self.mean_, like) - omega * m, omega, d * torch.rsqrt(1.0 - d * d)
+
+    def log_prob(self, value):
+        xi, omega, alpha = self._direct(value)
+        z = (value - xi) / omega
+        return np.log(2.0) - torch.log(omega) + _norm_logpdf(z) + _log_ndtr(alpha * z)
+
+    def sample(self, gen, sample_shape=()):
+        shp = tuple(sample_shape) + self.batch_shape
+        u = _randn(gen, (2,) + shp, self.mean_, self.std, self.skew)
+        xi, omega, _ = self._direct(u)
+        d = self._delta(u)
+        return xi + omega * (d * u[0].abs() + torch.sqrt(1.0 - d * d) * u[1])
+
+    def cdf(self, value):
+        xi, omega, alpha = self._direct(value)
+        z = (value - xi) / omega
+        nodes, weights = (torch.as_tensor(x, dtype=value.dtype, device=value.device)
+                          for x in (self._nodes, self._weights))
+        t = _owens_t(z, torch.broadcast_to(alpha, z.shape), nodes, weights)
+        return torch.clamp(ndtr(z) - 2.0 * t, 0.0, 1.0)
+
+    def log_cdf(self, value):
+        return torch.log(torch.clamp(self.cdf(value), 1e-300, 1.0))
+
+    @property
+    def mean(self):
+        return torch.broadcast_to(torch.as_tensor(self.mean_), self.batch_shape)
+
+    @property
+    def variance(self):
+        return torch.broadcast_to(torch.as_tensor(self.std**2), self.batch_shape)
+
+    @property
+    def skewness(self):
+        return torch.broadcast_to(
+            torch.clamp(torch.as_tensor(self.skew), -self.max_skew, self.max_skew),
+            self.batch_shape)
+
+
+def match_quadratic_gaussian(loc, scale1, scale2):
+    """(mean, std, skew) of the SkewNormal whose first three central
+    moments are those of QuadGaussian(loc, scale1, scale2)."""
+    qd = QuadGaussian(loc, scale1, scale2)
+    std = torch.sqrt(qd.variance)
+    return qd.mean, std, qd.third_central_moment / std**3
+
+
+class CubGaussian(Distribution):
+    """Cubic-Hermite-in-Gaussian noise,
+        obs = loc + s1 eps + s2 (eps^2 - 1) + s3 (eps^3 - 3 eps),
+    its density summed over the real roots of the cubic (trigonometric and
+    Cardano forms); QuadGaussian where |s3| < 1e-12."""
+
+    def __init__(self, loc=0.0, scale1=1.0, scale2=0.0, scale3=0.0):
+        self.loc, self.scale1, self.scale2, self.scale3 = loc, scale1, scale2, scale3
+
+    @property
+    def batch_shape(self):
+        return _shape(self.loc, self.scale1, self.scale2, self.scale3)
+
+    def sample(self, gen, sample_shape=()):
+        eps = _randn(gen, tuple(sample_shape) + self.batch_shape, self.loc, self.scale1)
+        return (self.loc + self.scale1 * eps + self.scale2 * (eps**2 - 1)
+                + self.scale3 * (eps**3 - 3 * eps))
+
+    def log_prob(self, value):
+        """log of the sum over the real roots eps of s3 e^3 + s2 e^2 +
+        (s1 - 3 s3) e - (v - loc + s2) = 0 of phi(eps) / |f'(eps)|; the
+        roots by the trigonometric method on the depressed cubic (three
+        real roots) or Cardano's formula (one)."""
+        s1, s2, s3 = (_like(x, value) for x in (self.scale1, self.scale2, self.scale3))
+        tiny = s3.abs() < 1e-12
+        s3_safe = torch.where(tiny, torch.ones_like(s3), s3)
+
+        # the depressed cubic t^3 + p t + q, e = t - s2 / (3 s3)
+        a2 = s2 / s3_safe
+        a1 = (s1 - 3 * s3) / s3_safe
+        a0 = -(value - self.loc + s2) / s3_safe
+        p = a1 - a2**2 / 3
+        q = 2 * a2**3 / 27 - a2 * a1 / 3 + a0
+        disc = -(4 * p**3 + 27 * q**2)
+
+        def density_at(eps):
+            fp = (s1 - 3 * s3 + 2 * s2 * eps + 3 * s3 * eps**2).abs()
+            return torch.exp(_norm_logpdf(eps)) / torch.clamp(fp, min=1e-12)
+
+        p_neg = torch.clamp(p, max=-1e-12)
+        m = 2 * torch.sqrt(-p_neg / 3)
+        theta = torch.arccos(torch.clamp(3 * q / (p_neg * m), -1.0, 1.0)) / 3
+        dens3 = 0.0
+        for k in range(3):
+            dens3 = dens3 + density_at(m * torch.cos(theta - 2 * np.pi * k / 3) - a2 / 3)
+
+        sq = torch.sqrt(torch.clamp(q**2 / 4 + p**3 / 27, min=1e-300))
+        dens1 = density_at(_cbrt(-q / 2 + sq) + _cbrt(-q / 2 - sq) - a2 / 3)
+
+        dens = torch.where(disc > 0, dens3, dens1)
+        lp_cub = torch.log(torch.clamp(dens, min=1e-300))
+        lp_quad = QuadGaussian(self.loc, s1, s2).log_prob(value)
+        return torch.where(tiny, lp_quad, lp_cub)
+
+    @property
+    def mean(self):
+        return torch.broadcast_to(torch.as_tensor(self.loc), self.batch_shape)
+
+    @property
+    def variance(self):
+        """s1^2 + 2 s2^2 + 6 s3^2: the three Hermite terms are uncorrelated.
+        The JAX package adds 6 s1 s3, which is no term of it (ROADMAP, the
+        kept differences)."""
+        s1, s2, s3 = self.scale1, self.scale2, self.scale3
+        return torch.broadcast_to(torch.as_tensor(s1**2 + 2 * s2**2 + 6 * s3**2),
+                                  self.batch_shape)
 
 
 class BlockMultivariateNormal(Distribution):

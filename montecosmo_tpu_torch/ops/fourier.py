@@ -57,15 +57,38 @@ def rfftk(shape, box_size=None, device="cpu"):
     return _rfftk_cached(shape, box, str(torch.device(device)))
 
 
-def invlaplace_hat(kvec):
-    """-1/k^2, with the zero mode mapped to zero."""
-    kk = sum(ki**2 for ki in kvec)
+def invlaplace_hat(kvec, fd_order=np.inf):
+    """The inverse Laplacian, -1/k^2 (fd_order inf), or the inverse of the
+    2nd- or 4th-order finite-difference Laplacian, whose eigenvalues are
+    -sum_i 2 (1 - cos k_i) and -sum_i (cos 2k_i - 16 cos k_i + 15) / 6; the
+    zero mode maps to zero.
+
+    At fd_order 2 the JAX package takes kk = sum_i 2 (cos k_i - 1), the
+    Laplacian's eigenvalue itself, so its -1/kk has the sign of +1/k^2
+    (repulsive forces); here kk is minus the eigenvalue at every order
+    (ROADMAP, the kept differences)."""
+    if fd_order == 2:
+        kk = sum(2 * (1 - torch.cos(ki)) for ki in kvec)
+    elif fd_order == 4:
+        kk = sum((torch.cos(2 * ki) - 16 * torch.cos(ki) + 15) / 6 for ki in kvec)
+    elif fd_order == np.inf:
+        kk = sum(ki**2 for ki in kvec)
+    else:
+        raise ValueError("fd_order must be 2, 4, or inf.")
     return -safe_div(torch.ones_like(kk), kk)
 
 
-def gradient_hat(kvec, direction: int):
-    """The spatial gradient along `direction`: i*k."""
-    return 1j * kvec[direction]
+def gradient_hat(kvec, direction: int, fd_order=np.inf):
+    """The spatial gradient along `direction`: i k (fd_order inf), or the
+    2nd- or 4th-order central difference, i sin k or i (8 sin k - sin 2k) / 6."""
+    ki = kvec[direction]
+    if fd_order == 2:
+        ki = torch.sin(ki)
+    elif fd_order == 4:
+        ki = (8 * torch.sin(ki) - torch.sin(2 * ki)) / 6
+    elif fd_order != np.inf:
+        raise ValueError("fd_order must be 2, 4, or inf.")
+    return 1j * ki
 
 
 def gaussian_hat(kvec, kcut=np.inf):

@@ -135,8 +135,8 @@ def test_ap_geometry_helpers_match_jax():
         gt = torch.autograd.grad((out * torch.tensor(x["ct"])).sum(), [pt, sp, sq])
         fj = lambda p, a, b: (jbr.scale_pos(p, jnp.asarray(los, jnp.float32), a, b)
                               * x["ct"]).sum()
-        gj = jax.grad(fj, argnums=(0, 1, 2))(jnp.asarray(x["pos"]), jnp.float32(1.03),
-                                             jnp.float32(0.97))
+        gj = jax.jit(jax.grad(fj, argnums=(0, 1, 2)))(jnp.asarray(x["pos"]), jnp.float32(1.03),
+                                                      jnp.float32(0.97))
         _close(out, jbr.scale_pos(jnp.asarray(x["pos"]), jnp.asarray(los, jnp.float32), 1.03,
                                   0.97), 1e-6)
         for a, b in zip(gt, gj):
@@ -172,8 +172,8 @@ def test_ap_param_matches_jax(curved_sky):
 
     oj = jbr.ap_param(jnp.asarray(x["pos"]), LOS, {"alpha_iso": jnp.float32(1.02),
                                                    "alpha_ap": jnp.float32(0.97)}, curved_sky)
-    gj = jax.grad(fj, argnums=(0, 1, 2))(jnp.asarray(x["pos"]), jnp.float32(1.02),
-                                         jnp.float32(0.97))
+    gj = jax.jit(jax.grad(fj, argnums=(0, 1, 2)))(jnp.asarray(x["pos"]), jnp.float32(1.02),
+                                                  jnp.float32(0.97))
     _close(out, oj, 1e-6)
     for a, b in zip(gt, gj):
         _close(torch.zeros(()) if a is None else a, b, 1e-5, 1e-6)

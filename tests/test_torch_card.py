@@ -552,3 +552,35 @@ def test_cut_sky_register_mask_equals_cpu_on_card():
     for k in ("count_mesh", "selec_mesh"):
         np.testing.assert_allclose(card[k], cpu[k], rtol=0,
                                    atol=1e-5 * np.abs(cpu[k]).max(), err_msg=k)
+
+
+@pytest.mark.cuda
+def test_tsit5_on_card_matches_cpu():
+    """nbody_tsit5 at 16^3 (tol 1e-3, 3 snapshots from a = 0.1 to 1, grad_fd
+    4; each force evaluation K1's unclamped paint and K4's read, atomic
+    designs) on the card and on the CPU (their plain versions): the same
+    accepted and rejected steps, the states within 1e-4 of their largest
+    value (skips without a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K1 and K4 are CUDA")
+    from montecosmo_tpu_torch.models.bricks import regular_pos, white2lin, white_noise
+    from montecosmo_tpu_torch.ops.background import Background, get_cosmology
+    from montecosmo_tpu_torch.ops.pm import nbody_tsit5
+
+    shape, box = (16, 16, 16), (64.0,) * 3
+    cosmo = get_cosmology(Omega_m=0.31, sigma8=0.8)
+    lin = white2lin(cosmo, white_noise(torch.Generator().manual_seed(0), shape, box), shape, box)
+    out, stats = {}, {}
+    for dev in ("cuda", "cpu"):
+        stats[dev] = {}
+        tpa.reset_launches()
+        with torch.no_grad():
+            out[dev] = nbody_tsit5(Background.create(cosmo, device=dev), lin.to(dev),
+                                   regular_pos(shape, device=dev), 0.1, 1.0, tol=1e-3,
+                                   snapshots=3, stats=stats[dev])
+        if dev == "cuda":
+            launched = dict(tpa.LAUNCHES)
+    assert stats["cuda"] == stats["cpu"], stats
+    assert launched.get(("paint_cic", "bspline", 2), 0) >= stats["cuda"]["force_evaluations"]
+    for x, ref in zip(out["cuda"], out["cpu"]):
+        torch.testing.assert_close(x.cpu(), ref, rtol=0, atol=1e-4 * float(ref.abs().max()))

@@ -16,7 +16,7 @@ from jax import numpy as jnp
 from montecosmo_tpu.models import bricks as jbr
 
 from montecosmo_tpu_torch.models import bricks as tbr
-from test_torch_likelihoods import model_parity
+from test_torch_likelihoods import jit_vjp, model_parity
 
 torch.set_num_threads(1)
 NAMES = ("b1", "b2", "bs2", "bn2")
@@ -43,8 +43,7 @@ def test_eulerian_bias_matches_jax():
         m = jnp.fft.rfftn(y)
         return jbr.eulerian_bias(m, m, box, dict(zip(NAMES, b)), png)[0]
 
-    oj, vjp = jax.vjp(fj, jnp.asarray(x), *map(jnp.asarray, bias.values()))
-    gj = vjp(jnp.asarray(ct))
+    oj, gj = jit_vjp(fj, (jnp.asarray(x), *map(jnp.asarray, bias.values())), jnp.asarray(ct))
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(oj), rtol=0,
                                atol=1e-5 * np.abs(np.asarray(oj)).max())
     np.testing.assert_allclose(grads[0].numpy(), np.asarray(gj[0]), rtol=0,

@@ -22,7 +22,7 @@ from montecosmo_tpu.ops import background as jbg
 from montecosmo_tpu_torch import FieldLevelModel, default_config, metrics as tmet
 from montecosmo_tpu_torch.models import bricks as tbr
 from montecosmo_tpu_torch.ops import background as tbg
-from test_torch_likelihoods import BASE, model_parity
+from test_torch_likelihoods import BASE, jit_vjp, model_parity
 
 torch.set_num_threads(1)
 SHAPE = (16, 16, 16)
@@ -62,8 +62,7 @@ def test_optim_mu2_delta_matches_jax(curved):
     out = torch.stack(tmet.optim_mu2_delta(torch.fft.rfftn(xt), torch.tensor(los)))
     (gt,) = torch.autograd.grad(out, xt, torch.tensor(ct))
     fj = lambda y: jnp.stack(jmet.optim_mu2_delta(jnp.fft.rfftn(y), jnp.asarray(los)))
-    oj, vjp = jax.vjp(fj, jnp.asarray(x))
-    (gj,) = vjp(jnp.asarray(ct))
+    oj, (gj,) = jit_vjp(fj, (jnp.asarray(x),), jnp.asarray(ct))
     _close(out.detach(), oj, 1e-5)
     _close(gt, gj, 1e-4)
     if not curved:
@@ -113,8 +112,7 @@ def test_kaiser_model_matches_jax(regime):
         return jbr.kaiser_model(cosmo_j, jnp.asarray(a), jnp.fft.rfftn(y), box, b,
                                 los=jnp.asarray(los, jnp.float32), bg=bg_j)
 
-    oj, vjp = jax.vjp(fj, jnp.asarray(x), jnp.float32(1.7))
-    gxj, gbj = vjp(jnp.asarray(ct))
+    oj, (gxj, gbj) = jit_vjp(fj, (jnp.asarray(x), jnp.float32(1.7)), jnp.asarray(ct))
     _close(out.detach(), oj, 1e-5)
     _close(gx, gxj, 1e-4)
     np.testing.assert_allclose(gb.item(), float(gbj), rtol=1e-4)
@@ -139,10 +137,9 @@ def test_kaiser_png_and_ap_are_refused():
     out = tbr.kaiser_model(cosmo_t, 0.5, torch.fft.rfftn(xt), box, 1.7, fNL_bp=ft,
                            png_type="fNL", los=LOS, bg=bg_t)
     gx, gf = torch.autograd.grad(out, (xt, ft), torch.tensor(ct))
-    oj, vjp = jax.vjp(lambda y, f: jbr.kaiser_model(
+    oj, (gxj, gfj) = jit_vjp(lambda y, f: jbr.kaiser_model(
         cosmo_j, 0.5, jnp.fft.rfftn(y), box, 1.7, fNL_bp=f, png_type="fNL", los=LOS, bg=bg_j),
-        jnp.asarray(x), jnp.float32(30.0))
-    gxj, gfj = vjp(jnp.asarray(ct))
+        (jnp.asarray(x), jnp.float32(30.0)), jnp.asarray(ct))
     _close(out.detach(), oj, 1e-5)
     _close(gx, gxj, 1e-4)
     np.testing.assert_allclose(gf.item(), float(gfj), rtol=1e-4)

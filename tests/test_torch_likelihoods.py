@@ -130,6 +130,12 @@ def hold_value_and_grad(lt, g32, g64, lj, gj):
 
 
 # ======================================================================= distributions
+def jit_vjp(fn, args, ct):
+    """(fn(*args), its VJP of the cotangent ct), one jitted program (eager
+    JAX dispatches, and compiles, every primitive of both on its own)."""
+    return jax.jit(lambda *a: (lambda out, pull: (out, pull(ct)))(*jax.vjp(fn, *a)))(*args)
+
+
 def _both(fn_t, fn_j, args, wrt):
     """fn(*args) and the gradient of its sum with respect to args[wrt] in
     both packages (float32)."""
@@ -137,8 +143,10 @@ def _both(fn_t, fn_j, args, wrt):
     out_t = fn_t(*targs)
     grads_t = torch.autograd.grad(out_t.sum(), [targs[i] for i in wrt])
     jargs = [jnp.asarray(a) for a in args]
-    out_j = fn_j(*jargs)
-    grads_j = jax.grad(lambda *a: fn_j(*a).sum(), argnums=tuple(wrt))(*jargs)
+    # one jitted program for the values and the gradient (eager JAX
+    # dispatches, and compiles, every primitive of both on its own)
+    out_j, grads_j = jax.jit(lambda *a: (fn_j(*a), jax.grad(lambda *b: fn_j(*b).sum(),
+                                                            argnums=tuple(wrt))(*a)))(*jargs)
     return out_t.detach().numpy(), np.asarray(out_j), [g.numpy() for g in grads_t], [
         np.asarray(g) for g in grads_j]
 

@@ -153,13 +153,15 @@ def test_logpdf_and_grad_match_jax_16_s_e2():
 
 def test_port_never_imports_jax():
     """A fresh interpreter that imports the port, its samplers, its files
-    (utils.io, utils.geometry), chains, the campaign and its CLI, builds a
-    model, conditions and blocks it and draws the samplers' start leaves
-    jax, the JAX package, h5py and PyYAML out of sys.modules."""
+    (utils.io, utils.geometry, utils.catalogs), chains, the campaign and its
+    CLI, the register and accuracy CLIs, builds a model, conditions and
+    blocks it and draws the samplers' start leaves keeps jax, the JAX
+    package, h5py and PyYAML out of sys.modules."""
     code = ("import sys, torch, montecosmo_tpu_torch as m\n"
             "from montecosmo_tpu_torch.ops import paint, pm, _kernels\n"
             "from montecosmo_tpu_torch import convert, samplers, chains, script, infer\n"
-            "from montecosmo_tpu_torch.utils import io, geometry\n"
+            "from montecosmo_tpu_torch import register, accuracy\n"
+            "from montecosmo_tpu_torch.utils import io, geometry, catalogs\n"
             "c = dict(m.default_config); c.update(final_shape=(8, 8, 8), curved_sky=False,"
             " a_obs=0.5, box_center=(0, 0, 500.0))\n"
             "f = m.FieldLevelModel(**c, device='cpu')\n"

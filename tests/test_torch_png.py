@@ -33,6 +33,8 @@ from montecosmo_tpu.ops import background as jbg, power as jpo
 from montecosmo_tpu_torch.models import bricks as tbr
 from montecosmo_tpu_torch.ops import background as tbg
 
+from test_torch_likelihoods import jit_vjp
+
 torch.set_num_threads(1)
 
 SHAPE, BOX, OM, S8 = (16, 16, 16), np.array([256.0] * 3), 0.29, 0.81
@@ -261,9 +263,9 @@ def test_eulerian_bias_png_terms_match_jax():
                                  dict(zip(("fNL", "fNL_bp", "fNL_bpd"), amps)),
                                  png_type="bias")[0]
 
-    oj, vjp = jax.vjp(fj, jnp.asarray(x), jnp.asarray(ph),
-                      *(jnp.float32(PNG[k]) for k in ("fNL", "fNL_bp", "fNL_bpd")))
-    gj = vjp(jnp.asarray(ct))
+    oj, gj = jit_vjp(fj, (jnp.asarray(x), jnp.asarray(ph),
+                          *(jnp.float32(PNG[k]) for k in ("fNL", "fNL_bp", "fNL_bpd"))),
+                     jnp.asarray(ct))
     _close(out, oj, 0, 1e-5)
     for a, b in zip(gt[:2], gj[:2]):
         _close(a, b, 0, 1e-4)

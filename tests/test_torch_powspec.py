@@ -90,7 +90,7 @@ def test_block_multivariate_normal_matches_jax():
         gt = torch.autograd.grad(out.sum(), args_t)
         fj = lambda v, m, L: getattr(jd.BlockMultivariateNormal(m, L), name)(v)
         oj = fj(*map(jnp.asarray, (value, loc, tril)))
-        gj = jax.grad(lambda *a: fj(*a).sum(), argnums=(0, 1, 2))(
+        gj = jax.jit(jax.grad(lambda *a: fj(*a).sum(), argnums=(0, 1, 2)))(
             *map(jnp.asarray, (value, loc, tril)))
         np.testing.assert_allclose(out.detach().numpy(), np.asarray(oj), rtol=1e-5, atol=1e-6)
         for a, b in zip(gt, gj):
