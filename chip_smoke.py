@@ -174,7 +174,26 @@ Phases, in order; any failure raises and the script exits non-zero:
      `register synthetic` at the 128^3 cell budget from a 256^3-particle
      mock (count conservation 1e-4, ms, K1/K3 launches), its model's
      value+grad, then the SKILL drive's Kaiser campaign on a 512-cell
-     synthetic register (finite logdensity);
+     synthetic register, with the CLI's default observed sites (finite
+     logdensity);
+  5n. (after 5m) the analysis layer: K10 (bispectrum_sums,
+     csrc/bispectrum.cu) against its plain version on the local-quadratic
+     field's shells at 32^3 and 128^3 (the default kedges: 35 bins, 4,347
+     triples at 128^3) within K10_TOL of each triple's sum of |products|,
+     two launches bit for bit, and at 256^3 (72 bins, 34,343 triples) on 64
+     triples drawn from a seed; K10, the plain version and the library
+     FP32 GEMM form timed; metrics.bispectrum card against CPU at 32^3 (the
+     same triples and gate, B within BISPECTRUM_TOL); the main path, a
+     128^3 metrics.bispectrum, its K10 launches counted from 0; on 5l's
+     campaign (kept with 5m's in one temporary directory) make_logdf_mesh
+     on the card (K1, K3, K8, K9 counted from 0; each chain's last sample
+     of run 1, logpdf/logcdf meshes card against CPU within 1e-4 over the
+     cells that 5l holds); on 5m's SKILL campaign make_logdf_mesh, run
+     1's samples card against CPU within 1e-4 over every cell;
+     compare_chains on each; on 5m's chains bdec.qbci and sci card
+     against CPU within 1e-6 with integer weights and with the draws'
+     density weights in float64 (in float32 printed, not held), and a
+     seeded float64 witness; the figures skipped for want of matplotlib;
   5k. (after 5g) the AP and PNG flagships at bench.py's widths: 2LPT with
      Lagrangian bias, ap_auto=True and png_type='fNL'; the Kaiser flat-sky
      light cone with ap_auto=False (the Kaiser mesh read at the particle
@@ -201,7 +220,8 @@ Phases, in order; any failure raises and the script exits non-zero:
      their launches on 5m's path (`launches_nbody_remainder`: per force
      evaluation and per accepted step of Tsit5 and RK4 at 128^3, in a
      value+grad through Tsit5, in the accuracy report, K1 in the synthetic
-     register); K8 with its
+     register); K10 at 128^3 with its launches on 5n's main path and its
+     32^3 and 256^3 rows (`at`); K8 with its
      launches in phase 5's 2LPT run and 5g's counts; K9 with its launches in phase 5's
      2LPT run and per value+grad in every flagship, its times at the chi2a
      site, index_add_ as its library time and index_put_(accumulate) beside
@@ -210,6 +230,7 @@ Phases, in order; any failure raises and the script exits non-zero:
 """
 import json
 import subprocess
+import tempfile
 from collections import Counter
 from contextlib import contextmanager
 import sys
@@ -1996,7 +2017,7 @@ def survey_32(data, rand, tmp):
     assert rel_inner <= 1e-4, "5l: the 32^3 registered models disagree on the catalog's counts"
 
 
-def phase_survey():
+def phase_survey(tmp):
     """5l: the registered-survey campaign at full width.  Catalogs of
     SURVEY's sizes (numpy, seeded); first `survey_32`; then the 128^3-budget
     cut-sky register on the card (default paint settings: CIC, interlace
@@ -2008,9 +2029,8 @@ def phase_survey():
     value+grad of the campaign's model (2 warm-ups, 5 timed) and per
     McLachlan step (every step of the campaign timed), its peak memory,
     and the path's kernels launched (K1, K2, K3 in the route's designs, K8,
-    K9).  Returns the K1/K3 rows' extras."""
-    import tempfile
-
+    K9).  Its files stay under `tmp`.  Returns the K1/K3 rows' extras and
+    the campaign's save dir."""
     from montecosmo_tpu_torch import FieldLevelModel
     from montecosmo_tpu_torch.infer import DEFAULT_OBS, build_model, infer, obs_names_of
     from montecosmo_tpu_torch.ops import paint as P
@@ -2022,120 +2042,120 @@ def phase_survey():
     data, rand = survey_catalog(SURVEY["data"], 0), survey_catalog(SURVEY["randoms"], 1)
     log(f"# 5l catalogs: {SURVEY['data']} data, {SURVEY['randoms']} randoms "
         f"({time.perf_counter() - t0:.2f} s, numpy)")
-    with tempfile.TemporaryDirectory() as tmp:
-        tmp = Path(tmp)
-        survey_32(data, rand, tmp)
+    tmp = Path(tmp) / "survey"
+    tmp.mkdir()
+    survey_32(data, rand, tmp)
 
-        P.reset_launches()
+    P.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    reg = FieldLevelModel.register_catalog(SURVEY["cell_budget"],
+                                           get_cosmology(**SURVEY_COSMO), data, rand)
+    torch.cuda.synchronize()
+    build_ms = 1e3 * (time.perf_counter() - t0)
+    launches = dict(P.LAUNCHES)
+    k1 = sum(n for (k, w, o), n in launches.items() if k.startswith("paint_cic") and o == 2
+             and k != "paint_cic_adjoint")
+    k3 = launches.get(("nufft_epilogue", "bspline", 2), 0)
+    npsave(tmp / "register_survey.npz", reg)
+    count = reg["count_mesh"]
+    final = count.shape
+    m = build_model(tmp / "register_survey.npz")
+    log(f"# 5l register (cell budget {SURVEY['cell_budget']}): final {final} "
+        f"({int(np.prod(final))} cells, footprint {int(reg['mask_mesh'].sum())}), init "
+        f"{m.init_shape}, paint {m.paint_shape}, selection {reg['selec_mesh'].shape}; cell "
+        f"{reg['cell_length']:.4f} Mpc/h; built in {build_ms:.3f} ms with {k1} K1 and {k3} "
+        f"K3 launches {launches}; count_mesh.sum() {float(count.sum(dtype=np.float64)):.3f} "
+        f"against the data's weight {float(data['WEIGHT'].sum()):.1f}")
+    assert k1 >= 3 and k3 >= 2, "5l: the register did not go through K1 and K3"
+    np.testing.assert_allclose(float(count.sum(dtype=np.float64)), SURVEY["data"],
+                               rtol=1e-4)
+    del data, rand
+
+    # the campaign's model: one value+grad timed, then the campaign
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    p = m.reparam({k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True)
+    p["white_mesh_"] = torch.randn(m.init_shape, generator=gen, device="cuda")
+    leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
+    obs = m.obs_data()
+
+    def value_and_grad():
+        for v in leaves.values():
+            v.grad = None
+        m.logpdf({**leaves, **obs}).backward()
+
+    walls = []
+    for i in range(7):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        reg = FieldLevelModel.register_catalog(SURVEY["cell_budget"],
-                                               get_cosmology(**SURVEY_COSMO), data, rand)
+        t = time.perf_counter()
+        value_and_grad()
         torch.cuda.synchronize()
-        build_ms = 1e3 * (time.perf_counter() - t0)
-        launches = dict(P.LAUNCHES)
-        k1 = sum(n for (k, w, o), n in launches.items() if k.startswith("paint_cic") and o == 2
-                 and k != "paint_cic_adjoint")
-        k3 = launches.get(("nufft_epilogue", "bspline", 2), 0)
-        npsave(tmp / "register_survey.npz", reg)
-        count = reg["count_mesh"]
-        final = count.shape
-        m = build_model(tmp / "register_survey.npz")
-        log(f"# 5l register (cell budget {SURVEY['cell_budget']}): final {final} "
-            f"({int(np.prod(final))} cells, footprint {int(reg['mask_mesh'].sum())}), init "
-            f"{m.init_shape}, paint {m.paint_shape}, selection {reg['selec_mesh'].shape}; cell "
-            f"{reg['cell_length']:.4f} Mpc/h; built in {build_ms:.3f} ms with {k1} K1 and {k3} "
-            f"K3 launches {launches}; count_mesh.sum() {float(count.sum(dtype=np.float64)):.3f} "
-            f"against the data's weight {float(data['WEIGHT'].sum()):.1f}")
-        assert k1 >= 3 and k3 >= 2, "5l: the register did not go through K1 and K3"
-        np.testing.assert_allclose(float(count.sum(dtype=np.float64)), SURVEY["data"],
-                                   rtol=1e-4)
-        del data, rand
+        walls.append(1e3 * (time.perf_counter() - t))
+    vg_ms = float(np.median(walls[2:]))
+    log(f"# 5l value+grad of the campaign's model (2LPT, Lagrangian bias, quad-Gaussian, "
+        f"curved-sky light cone, masked, d = {sum(v.numel() for v in p.values())}): ms "
+        f"{[round(w, 3) for w in walls[2:]]} median {vg_ms:.3f}")
+    del m, leaves, obs
 
-        # the campaign's model: one value+grad timed, then the campaign
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        p = m.reparam({k: np.asarray(v) for k, v in m.fiduc.items()}, inv=True)
-        p["white_mesh_"] = torch.randn(m.init_shape, generator=gen, device="cuda")
-        leaves = {k: v.detach().clone().requires_grad_(True) for k, v in p.items()}
-        obs = m.obs_data()
+    steps, step = [], S._mclachlan_step
 
-        def value_and_grad():
-            for v in leaves.values():
-                v.grad = None
-            m.logpdf({**leaves, **obs}).backward()
+    def timed_step(*args, **kwargs):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = step(*args, **kwargs)
+        torch.cuda.synchronize()
+        steps.append(1e3 * (time.perf_counter() - t))
+        return out
 
-        walls = []
-        for i in range(7):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            value_and_grad()
-            torch.cuda.synchronize()
-            walls.append(1e3 * (time.perf_counter() - t))
-        vg_ms = float(np.median(walls[2:]))
-        log(f"# 5l value+grad of the campaign's model (2LPT, Lagrangian bias, quad-Gaussian, "
-            f"curved-sky light cone, masked, d = {sum(v.numel() for v in p.values())}): ms "
-            f"{[round(w, 3) for w in walls[2:]]} median {vg_ms:.3f}")
-        del m, leaves, obs
-
-        steps, step = [], S._mclachlan_step
-
-        def timed_step(*args, **kwargs):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = step(*args, **kwargs)
-            torch.cuda.synchronize()
-            steps.append(1e3 * (time.perf_counter() - t))
-            return out
-
-        kw = dict(CAMPAIGN, self_data=True, sampler="mclmc", device="cuda",
-                  save_root=str(tmp / "results"), obs_names=obs_names_of(None, "quad_gauss", None))
-        S._mclachlan_step = timed_step
-        P.reset_launches()
-        torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
-        try:
-            save_dir, _ = infer(tmp / "register_survey.npz", n_runs=2, **kw)
-            torch.cuda.synchronize()
-            first = time.perf_counter() - t0
-            n_first = len(steps)
-            path = dict(P.LAUNCHES)
-            chains_dir = save_dir / "chains"
-            kept = ["field_warm_state.npz", "full_warm_state.npz", "run_1.npz", "run_2.npz"]
-            mtimes = {f: (chains_dir / f).stat().st_mtime_ns for f in kept}
-            t1 = time.perf_counter()
-            save_dir, chains = infer(tmp / "register_survey.npz", n_runs=3, **kw)
-            torch.cuda.synchronize()
-            resumed = time.perf_counter() - t1
-        finally:
-            S._mclachlan_step = step
-        peak = torch.cuda.max_memory_allocated() / 2**30
-        need = path_kernels(2) + ("background_tables", "segment_sum")
-        made = {k: sum(n for (kk, _, _), n in path.items() if kk == k) for k in need}
-        log(f"# 5l campaign (2 runs): {first:.2f} s, {n_first} McLachlan steps; resumed with 3 "
-            f"runs: {resumed:.2f} s, {len(steps) - n_first} steps; McLachlan step ms median "
-            f"{float(np.median(steps)):.3f} (min {min(steps):.3f}, max {max(steps):.3f}); peak "
-            f"memory {peak:.2f} GiB; path launches {made}")
-        assert all(made.values()), f"5l: kernels of the path never launched: {made}"
-        out = (save_dir / "run.out").read_text()
-        for line in ("Loading field warmup...", "Loading full warmup...", "Resuming at run 3..."):
-            assert line in out, f"5l: the resumed campaign did not log {line!r}"
-        assert out.count("run 3/3") == 1 and "run 1/3" not in out and "run 2/3" not in out
-        assert all((chains_dir / f).stat().st_mtime_ns == t for f, t in mtimes.items()), \
-            "5l: the resumed campaign rewrote a finished phase"
-        assert len(steps) - n_first == CAMPAIGN["n_chains"] * CAMPAIGN["n_samples"] * CAMPAIGN[
-            "thinning"], "5l: the resumed campaign ran more than run 3"
-        for i in (1, 2, 3):
-            lp = npload(chains_dir / f"run_{i}.npz")["logdensity"]
-            assert lp.shape == (CAMPAIGN["n_chains"], CAMPAIGN["n_samples"]) and np.isfinite(
-                lp).all(), f"5l: run {i}'s logdensity is not finite"
-        ess = {k: float(v) for k, v in chains[["*~white_mesh_"]].multi_ess().data.items()}
-        rhat = {k: float(_rhat(v)) for k, v in chains.data.items()
-                if k not in ("white_mesh_", "n_evals")}
-        log(f"# 5l chains {chains.shape}: ESS {ess}; r-hat {rhat}")
-        log(f"# 5l observed sites {sorted(set(DEFAULT_OBS) & set(npload(save_dir / 'obs.npz')))}")
+    kw = dict(CAMPAIGN, self_data=True, sampler="mclmc", device="cuda",
+              save_root=str(tmp / "results"), obs_names=obs_names_of(None, "quad_gauss", None))
+    S._mclachlan_step = timed_step
+    P.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    try:
+        save_dir, _ = infer(tmp / "register_survey.npz", n_runs=2, **kw)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        n_first = len(steps)
+        path = dict(P.LAUNCHES)
+        chains_dir = save_dir / "chains"
+        kept = ["field_warm_state.npz", "full_warm_state.npz", "run_1.npz", "run_2.npz"]
+        mtimes = {f: (chains_dir / f).stat().st_mtime_ns for f in kept}
+        t1 = time.perf_counter()
+        save_dir, chains = infer(tmp / "register_survey.npz", n_runs=3, **kw)
+        torch.cuda.synchronize()
+        resumed = time.perf_counter() - t1
+    finally:
+        S._mclachlan_step = step
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    need = path_kernels(2) + ("background_tables", "segment_sum")
+    made = {k: sum(n for (kk, _, _), n in path.items() if kk == k) for k in need}
+    log(f"# 5l campaign (2 runs): {first:.2f} s, {n_first} McLachlan steps; resumed with 3 "
+        f"runs: {resumed:.2f} s, {len(steps) - n_first} steps; McLachlan step ms median "
+        f"{float(np.median(steps)):.3f} (min {min(steps):.3f}, max {max(steps):.3f}); peak "
+        f"memory {peak:.2f} GiB; path launches {made}")
+    assert all(made.values()), f"5l: kernels of the path never launched: {made}"
+    out = (save_dir / "run.out").read_text()
+    for line in ("Loading field warmup...", "Loading full warmup...", "Resuming at run 3..."):
+        assert line in out, f"5l: the resumed campaign did not log {line!r}"
+    assert out.count("run 3/3") == 1 and "run 1/3" not in out and "run 2/3" not in out
+    assert all((chains_dir / f).stat().st_mtime_ns == t for f, t in mtimes.items()), \
+        "5l: the resumed campaign rewrote a finished phase"
+    assert len(steps) - n_first == CAMPAIGN["n_chains"] * CAMPAIGN["n_samples"] * CAMPAIGN[
+        "thinning"], "5l: the resumed campaign ran more than run 3"
+    for i in (1, 2, 3):
+        lp = npload(chains_dir / f"run_{i}.npz")["logdensity"]
+        assert lp.shape == (CAMPAIGN["n_chains"], CAMPAIGN["n_samples"]) and np.isfinite(
+            lp).all(), f"5l: run {i}'s logdensity is not finite"
+    ess = {k: float(v) for k, v in chains[["*~white_mesh_"]].multi_ess().data.items()}
+    rhat = {k: float(_rhat(v)) for k, v in chains.data.items()
+            if k not in ("white_mesh_", "n_evals")}
+    log(f"# 5l chains {chains.shape}: ESS {ess}; r-hat {rhat}")
+    log(f"# 5l observed sites {sorted(set(DEFAULT_OBS) & set(npload(save_dir / 'obs.npz')))}")
     return {"launches_register": {"paint_cic": k1, "nufft_epilogue": k3},
             "register_ms": build_ms, "campaign_value_and_grad_ms": vg_ms,
-            "campaign_mclachlan_step_ms": float(np.median(steps))}
+            "campaign_mclachlan_step_ms": float(np.median(steps)), "save_dir": save_dir}
 
 
 # ---------------------------------------------------------------- phase 5m
@@ -2352,7 +2372,7 @@ def remainder_register(tmp):
     --self-data, 2 chains, 64 + 64 warmup steps, 2 runs of 4 samples thinned
     by 2), every run's logdensity finite."""
     from montecosmo_tpu_torch import register
-    from montecosmo_tpu_torch.infer import build_model, infer
+    from montecosmo_tpu_torch.infer import build_model, infer, obs_names_of
     from montecosmo_tpu_torch.ops import paint as P
     from montecosmo_tpu_torch.utils.io import npload
 
@@ -2400,7 +2420,10 @@ def remainder_register(tmp):
 
     small = register.main(["synthetic", *SMOKE_REGISTER, "--out", str(tmp / "smoke")])
     t0 = time.perf_counter()
-    save_dir, _ = infer(small, save_root=str(tmp / "results"), device="cuda", **SMOKE_CAMPAIGN)
+    # the CLI's observed sites (its default --obs), so that obs.npz holds the
+    # counts that 5n's analysis reads
+    save_dir, _ = infer(small, save_root=str(tmp / "results"), device="cuda",
+                        obs_names=obs_names_of(None, "quad_gauss", None), **SMOKE_CAMPAIGN)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     out = (save_dir / "run.out").read_text()
@@ -2412,15 +2435,14 @@ def remainder_register(tmp):
     assert np.isfinite(float(fid)) and all(np.isfinite(lp).all() for lp in lps), \
         "5m: the SKILL drive's campaign is not finite"
     return {"register_ms": reg_ms, "launches_register": {"paint_cic": k1, "nufft_epilogue": k3},
-            "campaign_s": wall}
+            "campaign_s": wall, "save_dir": save_dir}
 
 
-def phase_nbody_remainder():
+def phase_nbody_remainder(tmp):
     """5m: the N-body remainder (scale-factor-time integrators, the accuracy
-    report, the register CLI) on the card.  Returns (the CIC rows' launches
-    on this path by kernel, 5m (b)'s measurements, the report's)."""
-    import tempfile
-
+    report, the register CLI) on the card, its files under `tmp`.  Returns
+    (the CIC rows' launches on this path by kernel, 5m (b)'s measurements,
+    the report's, the SKILL campaign's save dir)."""
     t0 = time.perf_counter()
     remainder_32()
     log(f"# 5m (a) done in {time.perf_counter() - t0:.1f} s")
@@ -2428,8 +2450,7 @@ def phase_nbody_remainder():
     log(f"# 5m (b) done in {time.perf_counter() - t0:.1f} s")
     report = remainder_report()
     log(f"# 5m (c) done in {time.perf_counter() - t0:.1f} s")
-    with tempfile.TemporaryDirectory() as tmp:
-        reg = remainder_register(Path(tmp))
+    reg = remainder_register(Path(tmp))
     log(f"# 5m (d) done in {time.perf_counter() - t0:.1f} s")
     rows = {k: {"design": f"per-particle ({CSRC}paint_cic.cu): this path is unclamped",
                 "tsit5_128_per_force_evaluation": big["tsit5_per_force_evaluation"].get(k, 0),
@@ -2439,7 +2460,283 @@ def phase_nbody_remainder():
                 "accuracy_report_128": report["launches"].get(f"{k}/bspline/2", 0)}
             for k in REMAINDER_KERNELS}
     rows["paint_cic"]["register_synthetic_128"] = reg["launches_register"]["paint_cic"]
-    return rows, big, report
+    return rows, big, report, reg["save_dir"]
+
+
+# ---------------------------------------------------------------- phase 5n
+# the analysis layer: the bispectrum (K10), bdec, make_logdf_mesh and
+# compare_chains on the campaign 5m leaves.  K10_TOL: max |K10 - plain| over
+# each triple's float64 sum of |products| (both sum float64 products, in
+# another order)
+K10_TOL = 1e-9
+BISPECTRUM_TOL = 1e-4  # card B against CPU B over max |B| (tests/test_torch_bispectrum.py)
+K10_NAMES = (("bispectrum_sums", "partials", 0), ("bispectrum_sums", "reduce", 0))
+
+
+def local_quadratic(n, seed, device="cuda"):
+    """tests/test_bispectrum.py's local-quadratic field (fnl 0.05) at n^3,
+    drawn on the CPU from a seeded generator."""
+    g = torch.randn((n,) * 3, generator=torch.Generator().manual_seed(seed))
+    return (g + 0.05 * (g**2 - (g**2).mean())).to(device)
+
+
+def k10_inputs(n, box):
+    """(F, U, triples (T, 3) int32, bins) of the bispectrum of the
+    local-quadratic field at n^3 on the card (the default kedges), as
+    metrics.bispectrum forms them."""
+    from montecosmo_tpu_torch import metrics as M
+
+    F, U, tri, plan = M._bispectrum_inputs(local_quadratic(n, n), (box,) * 3)
+    return F, U, tri, plan["nb"]
+
+
+def k10_bound(F, tri):
+    """(bound ms, bound_by): each field read once, the triples read, the
+    (T, 2) float64 sums written; 4 T + 2 P operations a cell: a triple's
+    F_l and U_l each one FMA (2 operations) onto the pair products F_i F_j
+    and U_i U_j, which cost one multiplication each for every one of the P
+    distinct pairs (i, j), at the float32 rate."""
+    bins, n = F.shape
+    t = tri.shape[0]
+    pairs = len(set(map(tuple, tri[:, :2].tolist())))
+    return bound(2 * bins * n * 4 + t * 12 + t * 16, float(n) * (4 * t + 2 * pairs))
+
+
+def library_triples(F, U, tri):
+    """The dense library form of the same sums: for every l, the FP32 GEMM
+    (X * X_l) X^T of all B^2 ordered pairs (TF32 off), read at the triples."""
+    out = []
+    for X in (F, U):
+        full = torch.stack([(X * X[l]) @ X.T for l in range(X.shape[0])], -1)
+        out.append(full[tri[:, 0].long(), tri[:, 1].long(), tri[:, 2].long()])
+    return torch.stack(out, -1)
+
+
+def check_k10(n, box, tag, reps, sample=None):
+    """K10 at n^3 (the default kedges) against its plain version: within
+    K10_TOL of each triple's sum of |products| (on `sample` triples drawn
+    from a seed when given), two launches bit for bit; K10, the plain
+    version (on the same triples) and the library GEMM timed with CUDA
+    events.  Returns the row's numbers."""
+    from montecosmo_tpu_torch.ops import bispectrum as BS
+
+    F, U, tri, bins = k10_inputs(n, box)
+    t = tri.shape[0]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = BS.bispectrum_triples_kernel(F, U, tri)
+    again = BS.bispectrum_triples_kernel(F, U, tri)
+    torch.cuda.synchronize()
+    assert torch.equal(out, again), f"5n {tag}: two K10 launches differ"
+    rows = torch.arange(t, device="cuda")
+    if sample is not None:
+        rows = torch.sort(torch.randperm(t, generator=torch.Generator().manual_seed(5))[
+            :sample]).values.to("cuda")
+    pick, out_pick = tri[rows], out[rows]
+    plain = lambda: BS.bispectrum_triples_plain(F, U, pick)
+    ref, mag = BS.bispectrum_triples_plain(F, U, pick, with_abs=True)
+    err = float(((out_pick - ref).abs() / mag.clamp(min=1e-300)).max())
+    abs_err = float((out_pick - ref).abs().max())
+    ms = cuda_ms(lambda: BS.bispectrum_triples_kernel(F, U, tri), reps, 1)
+    plain_ms = cuda_ms(plain, 1, 1)
+    lib_reps = 1 if n > 128 else 3
+    lib = library_triples(F, U, tri)
+    lib_err = float(((lib.double() - out).abs() / (out.abs().max(0).values)).max())
+    library_ms = cuda_ms(lambda: library_triples(F, U, tri), lib_reps, 1)
+    bms, by = k10_bound(F, tri)
+    log(f"# 5n (a) K10 {tag}: B = {bins}, T = {t}, N = {n}^3; max |K10 - plain| {abs_err:.3e} = "
+        f"{err:.3e} of the triples' sum of |products| (tol {K10_TOL:g}; "
+        f"{pick.shape[0]} triples held){' ' if sample is None else ' drawn from seed 5; '}"
+        f"bit for bit twice; K10 {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms ({pick.shape[0]} triples), library GEMM {library_ms:.4f} ms (FP32, "
+        f"TF32 off; its float32 sums {lib_err:.2e} of the largest off K10); bound {bms:.4f} ms "
+        f"({by}); plan {BS.bispectrum_plan(n ** 3, bins, t, sms)}")
+    assert err <= K10_TOL, f"5n {tag}: K10 off its plain version by {err:.3e}"
+    del F, U
+    return {"B": bins, "T": t, "max_abs_err": abs_err, "max_rel_err_of_abs_sum": err, "ms": ms,
+            "plain_ms": plain_ms,
+            "plain_triples": int(pick.shape[0]), "library_ms": library_ms, "bound_ms": bms,
+            "bound_by": by}
+
+
+def _figure_lines(lines):
+    return [" ".join(map(str, a)) for a in lines if "skipped" in " ".join(map(str, a))]
+
+
+def bdec_card_vs_cpu(x, w):
+    """max |card - CPU| of bdec.qbci and sci at the 68% and 95% levels
+    over the draws x (n, ...) weighted by w (n or x's shape), and how many
+    columns of x differ by more than 1e-6."""
+    from montecosmo_tpu_torch import bdec
+
+    out = {}
+    for k in ("qbci", "sci"):
+        fn = getattr(bdec, k)
+        d = (fn(torch.as_tensor(x, device="cuda"), [0.68, 0.95], 0,
+                torch.as_tensor(w, device="cuda")).cpu()
+             - fn(torch.as_tensor(x), [0.68, 0.95], 0, torch.as_tensor(w))).abs()
+        out[k] = (float(d.max()), int((d.reshape(2, -1, 2).amax((0, 2)) > 1e-6).sum()))
+    return out
+
+
+def bdec_witness(draws=16, sets=4096, span=37.0):
+    """bdec card against CPU on `sets` seeded sets of `draws` normal draws
+    whose weights exp(-span u), u uniform, spread as a campaign's density
+    weights do (1e-16..1 at span 37), in float64 and in float32."""
+    rng = np.random.default_rng(11)
+    x = rng.standard_normal((draws, sets))
+    w = np.exp(-span * rng.uniform(size=(draws, sets)))
+    return {dt.__name__: bdec_card_vs_cpu(x.astype(dt), w.astype(dt))
+            for dt in (np.float64, np.float32)}
+
+
+def phase_analysis(survey_dir, skill_dir):
+    """5n: the analysis layer.  (a) K10 against its plain version at 32^3
+    and 128^3 (and at 256^3 on 64 triples); (b) metrics.bispectrum card
+    against CPU at 32^3; the main path: metrics.bispectrum of a 128^3
+    field through K10, its launches counted from 0; (c) on the chains of
+    5l's registered-survey campaign in `survey_dir`: make_logdf_mesh on
+    the card (K1, K3, K8 and K9 counted from 0; the last sample of run 1
+    of each chain, card against CPU within 1e-4 of the largest entry over
+    the cells whose selection is at least EDGE of its mean, as 5l holds
+    them, that edge at most MAX_EDGE of the footprint); on 5m's SKILL
+    campaign in `skill_dir` make_logdf_mesh, run 1's samples card against
+    CPU within 1e-4 over every cell; compare_chains on each; on 5m's
+    chains bdec.qbci and sci card against CPU within 1e-6 with integer weights
+    and with the draws' density weights in float64 (float32 printed), and
+    `bdec_witness` (float64 held); (d) the figures skipped for want of
+    matplotlib."""
+    from montecosmo_tpu_torch import FieldLevelModel, metrics as M, script
+    from montecosmo_tpu_torch.chains import Chains
+    from montecosmo_tpu_torch.ops import paint as P
+
+    t0 = time.perf_counter()
+    rows = {"32": check_k10(32, 64.0, "32^3", 10), "128": check_k10(128, 1000.0, "128^3", 5)}
+    rows["256"] = check_k10(256, 2000.0, "256^3", 1, sample=64)
+    torch.cuda.empty_cache()
+    log(f"# 5n (a) done in {time.perf_counter() - t0:.1f} s")
+
+    field = local_quadratic(32, 3)
+    kc, tc, bc, cc = M.bispectrum(field, box_size=(64.0,) * 3)
+    kh, th, bh, ch = M.bispectrum(field.cpu(), box_size=(64.0,) * 3)
+    bc, bh = bc.cpu().numpy(), bh.numpy()
+    b_err = float(np.abs(bc - bh).max() / np.abs(bh).max())
+    log(f"# 5n (b) bispectrum 32^3 card vs CPU: {len(tc)} triples, the same triples "
+        f"{np.array_equal(tc, th)}, gate {np.array_equal(bc != 0, bh != 0)}, max |dB| / max |B| "
+        f"{b_err:.3e} (tol {BISPECTRUM_TOL:g})")
+    assert np.array_equal(tc, th) and np.array_equal(cc, ch) and np.allclose(kc, kh)
+    assert np.array_equal(bc != 0, bh != 0) and b_err <= BISPECTRUM_TOL, "5n (b): card B off CPU"
+
+    # the main path: a user's bispectrum of the flagship's 128^3 final mesh
+    field = local_quadratic(128, 4)
+    P.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    kmean, tri, bs, _ = M.bispectrum(field, box_size=(1000.0,) * 3)
+    torch.cuda.synchronize()
+    wall = 1e3 * (time.perf_counter() - t1)
+    main_launches = {k: P.LAUNCHES.get(k, 0) for k in K10_NAMES}
+    log(f"# 5n main path: metrics.bispectrum at 128^3 ({len(tri)} triples) {wall:.3f} ms wall "
+        f"(first call), B finite {bool(torch.isfinite(bs).all())}, nonzero "
+        f"{int((bs != 0).sum())}; K10 launches {main_launches}")
+    assert all(main_launches.values()), "5n: the bispectrum did not go through K10"
+    assert bool(torch.isfinite(bs).all()) and bs.shape == (len(tri),)
+    del field
+
+    lines = []
+    collect = lambda *a: lines.append(a)
+    P.reset_launches()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    lpdf, lcdf = script.make_logdf_mesh(survey_dir, device="cuda", log=collect)
+    torch.cuda.synchronize()
+    logdf_s = time.perf_counter() - t1
+    logdf_launches = {f"{k}/{w}/{o}": v for (k, w, o), v in P.LAUNCHES.items()}
+    # K1 in either design
+    made = {k: sum(v for (kk, _, _), v in P.LAUNCHES.items() if kk in (k, k + "_tiled"))
+            for k in ("paint_cic", "nufft_epilogue", "background_tables", "segment_sum")}
+    t1 = time.perf_counter()
+    # run 1 thinned to its last sample: 2 forwards on the CPU
+    lpdf_cpu, lcdf_cpu = script.make_logdf_mesh(
+        survey_dir, start=1, end=1, thinning=CAMPAIGN["n_samples"], prefix="cpu_",
+        device="cpu", log=lambda *a: None)
+    cpu_s = time.perf_counter() - t1
+    last = CAMPAIGN["n_samples"] - 1
+    # the cells are held as 5l holds them: those whose selection is at
+    # least EDGE of its mean (the masked cells, in logdf_mesh's order)
+    selec = FieldLevelModel.load(Path(survey_dir) / "model.yaml",
+                                 device="cpu")._selec_final.abs().numpy()
+    inner = selec >= EDGE * selec.mean()
+    share_edge = 1 - inner.mean()
+    errs = {}
+    for name, a, b in (("logpdf", lpdf, lpdf_cpu), ("logcdf", lcdf, lcdf_cpu)):
+        a, b = a[:, last].astype(np.float64), b[:, 0].astype(np.float64)
+        d = np.abs(a - b)
+        errs[name] = {"inner": float(d[:, inner].max() / np.abs(b[:, inner]).max()),
+                      "every": float(d.max() / np.abs(b).max()),
+                      "edge_share_of_difference": float(d[:, ~inner].sum() / max(d.sum(), 1e-300)),
+                      "sum": float(np.abs(a.sum() - b.sum()) / abs(b.sum()))}
+    log(f"# 5n (c) make_logdf_mesh on 5l's campaign on the card: shape {lpdf.shape}, "
+        f"{logdf_s:.2f} s ({lpdf.shape[0] * lpdf.shape[1]} forwards), finite "
+        f"{bool(np.isfinite(lpdf).all() and np.isfinite(lcdf).all())}; samples (c, {last}) "
+        f"card vs CPU, max |difference| / max |value| over the {int(inner.sum())} cells whose "
+        f"selection is at least {EDGE} of its mean (tol 1e-4), over every cell, the other "
+        f"{int((~inner).sum())} cells' ({share_edge:.4f} of the footprint, limit {MAX_EDGE}) "
+        f"share of the difference, and the sums' relative difference: {errs} (the CPU's 2 "
+        f"forwards {cpu_s:.2f} s); launches {logdf_launches}")
+    assert np.isfinite(lpdf).all() and np.isfinite(lcdf).all()
+    assert lpdf.shape == lcdf.shape and lpdf.shape[:2] == (
+        CAMPAIGN["n_chains"], 3 * CAMPAIGN["n_samples"]) and lpdf.shape[2:] == selec.shape
+    assert share_edge <= MAX_EDGE, "5n (c): the footprint's edge is more of it than MAX_EDGE"
+    assert max(e["inner"] for e in errs.values()) <= 1e-4, \
+        "5n (c): the logpdf mesh on the card is off the CPU's"
+    assert all(made[k] for k in ("paint_cic", "nufft_epilogue", "background_tables")), \
+        f"5n (c): make_logdf_mesh's forwards did not go through K1, K3 and K8: {made}"
+    # 5m's SKILL campaign (8^3 Kaiser, no mask): run 1's samples over every cell
+    skill = script.make_logdf_mesh(skill_dir, device="cuda", log=collect)
+    skill_cpu = script.make_logdf_mesh(skill_dir, start=1, end=1, prefix="cpu_", device="cpu",
+                                       log=lambda *a: None)
+    n1 = skill_cpu[0].shape[1]
+    skill_err = max(float(np.abs(a[:, :n1] - b).max() / np.abs(b).max())
+                    for a, b in zip(skill, skill_cpu))
+    log(f"# 5n (c) make_logdf_mesh on 5m's campaign: shape {skill[0].shape}; run 1's samples "
+        f"card vs CPU {skill_err:.3e} of the largest over every cell (tol 1e-4)")
+    assert all(np.isfinite(m).all() for m in skill) and skill_err <= 1e-4, \
+        "5n (c): the logpdf mesh of 5m's campaign on the card is off the CPU's"
+    t1 = time.perf_counter()
+    for d in (survey_dir, skill_dir):
+        kpow_ref, kptcs = script.compare_chains([d, d], ["a", "b"], d, device="cuda",
+                                                log=collect)
+        assert np.isfinite(kpow_ref[1]).all() and all(np.isfinite(v[1]).all()
+                                                      for v in kptcs.values())
+    log(f"# 5n (c) compare_chains on 5l's and 5m's campaigns: {time.perf_counter() - t1:.2f} s, "
+        f"kptc of {sorted(kptcs)}")
+
+    chains = Chains.load(Path(skill_dir) / "chains" / "chains.npz")
+    names = [k for k, v in chains.data.items()
+             if np.ndim(v) == 2 and k not in ("n_evals", "logdensity")]
+    x = np.stack([np.asarray(chains.data[k], np.float64).reshape(-1) for k in names], -1)
+    lp = np.asarray(chains.data["logdensity"], np.float64).reshape(-1)
+    dens = np.exp(lp - lp.max())
+    # integer weights 1, 2, 3, ...: float32 cumulative sums exact on both devices
+    ints = (1 + np.arange(x.shape[0]) % 3).astype(np.float32)
+    bd_err = bdec_card_vs_cpu(x.astype(np.float32), ints)
+    bd64 = bdec_card_vs_cpu(x, dens)
+    bd32 = bdec_card_vs_cpu(x.astype(np.float32), dens.astype(np.float32))
+    witness = bdec_witness()
+    log(f"# 5n (c) bdec on 5m's chains ({x.shape[0]} draws of {names}): card vs CPU (max, "
+        f"columns off by more than 1e-6), integer weights float32 {bd_err} (tol 1e-6); density "
+        f"weights (exp(logdensity - max), {dens.min():.3e}..1) float64 {bd64} (tol 1e-6), "
+        f"float32 {bd32} (not held); 4096 seeded sets of 16 draws weighted over 1e-16..1: "
+        f"{witness} (float64 tol 1e-6, float32 not held)")
+    out = (Path(survey_dir) / "run.out").read_text().splitlines() + (
+        Path(skill_dir) / "run.out").read_text().splitlines()
+    skipped = _figure_lines(lines) + [ln for ln in out if "skipped" in ln]
+    log(f"# 5n (d) figures skipped for want of matplotlib ({len(skipped)}): {skipped}")
+    assert max(e for e, _ in bd_err.values()) <= 1e-6, "5n (c): bdec on the card is off the CPU's"
+    assert max(e for r in (bd64, witness["float64"]) for e, _ in r.values()) <= 1e-6, \
+        "5n (c): float64 bdec on the card is off the CPU's"
+    log(f"# 5n done in {time.perf_counter() - t0:.1f} s")
+    return rows, main_launches
 
 
 def _rhat(x):
@@ -3177,10 +3474,13 @@ def main():
     done("5g")
     ap_png = phase_ap_png()
     done("5k")
-    survey = phase_survey()
-    done("5l")
-    remainder, remainder_big, remainder_report = phase_nbody_remainder()
-    done("5m")
+    with tempfile.TemporaryDirectory() as tmp:
+        survey = phase_survey(tmp)
+        done("5l")
+        remainder, remainder_big, remainder_report, save_dir = phase_nbody_remainder(tmp)
+        done("5m")
+        k10, k10_launches = phase_analysis(survey["save_dir"], save_dir)
+        done("5n")
     for run in PROFILES:
         run()
     kernels = []
@@ -3248,6 +3548,16 @@ def main():
                     "launches_per_2lpt_value_and_grad": {
                         w: n for w, (n, _, _) in tables.items()},
                     "2lpt_value_and_grad_ms": {w: t for w, (_, _, t) in tables.items()}})
+    k10_row = k10["128"]
+    kernels.append({"name": "bispectrum_sums", "route": "cuda", "source": CSRC + "bispectrum.cu",
+                    "replaces": "montecosmo_tpu/metrics.py:179",
+                    "design": "cells in shared-memory tiles (float64), a warp's triples with the "
+                              "pair products in registers, per-CTA partials summed in order",
+                    "launches": sum(k10_launches.values()),
+                    **{k: k10_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms",
+                                               "bound_by", "library_ms")},
+                    "library": "FP32 GEMM (X * X_l) X^T for every l, TF32 off",
+                    "at": {size: row for size, row in k10.items()}})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

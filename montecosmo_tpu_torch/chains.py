@@ -16,9 +16,11 @@ applied run by run, thin/flatten/prune/stackby/choice, and the moments and
 ESS ('n_evals' is summed, never averaged).  Leaves are numpy arrays
 (chains live on the host).
 
-Parity: `montecosmo_tpu/chains.py:35-475`, without `to_getdist` and `plot`
-(getdist and matplotlib are not dependencies of the port) nor
-`splitrans`/`cumtrans`/`ravel` and the MSE metrics.
+`to_getdist` needs getdist and `plot` matplotlib (`montecosmo_tpu_torch.plot`);
+where they are missing each raises an ImportError that names it.
+
+Parity: `montecosmo_tpu/chains.py:35-475`, without `splitrans`/`cumtrans`/
+`ravel` and the MSE metrics.
 """
 import os
 from collections import UserDict
@@ -339,6 +341,23 @@ class Chains(Samples):
         return out
 
     # ------------------------------------------------------------------ reporting
+    def to_getdist(self, label=None):
+        """Export to a getdist MCSamples (where getdist is installed; else
+        use `to_arrays` with `plot.corner_plot`)."""
+        try:
+            from getdist import MCSamples
+        except ImportError as e:
+            raise ImportError(
+                "getdist is not installed; use Chains.to_arrays() with "
+                "montecosmo_tpu_torch.plot.corner_plot for native corner plots") from e
+        samples, names, labels = self.to_arrays(label)
+        return MCSamples(samples=samples, names=names, labels=labels, label=label)
+
+    def plot(self, names=None, batch_ndim=2, grid=True, log=False):
+        """A grid of per-chain trace plots (`plot.plot_chains`)."""
+        from montecosmo_tpu_torch.plot import plot_chains
+        return plot_chains(self, names=names, batch_ndim=batch_ndim, grid=grid, log=log)
+
     def to_arrays(self, label=None):
         """Flattened (samples, names, labels) for corner plotting."""
         samples, names, labels = [], [], []

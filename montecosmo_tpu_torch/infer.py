@@ -27,7 +27,9 @@ import numpy as np
 import torch
 
 from montecosmo_tpu_torch.models.model import FieldLevelModel, default_config
-from montecosmo_tpu_torch.script import field_warmup, full_run, full_warmup, make_chains
+from montecosmo_tpu_torch.script import (
+    field_warmup, full_run, full_warmup, make_chains, plot_field_warmup,
+)
 from montecosmo_tpu_torch.utils import to_tensor
 from montecosmo_tpu_torch.utils.io import npload, npsave
 
@@ -166,9 +168,10 @@ def _campaign(model, save_dir, chains_dir, self_data, overwrite, obs_names, n_ch
 
     state = None
     if "white_mesh" not in obs:
-        state, _, _ = field_warmup(model, chains_dir, n_steps=n_steps_field,
-                                   desired_energy_var=dev_field, n_chains=n_chains,
-                                   overwrite=overwrite)
+        state, _, params_start = field_warmup(model, chains_dir, n_steps=n_steps_field,
+                                              desired_energy_var=dev_field, n_chains=n_chains,
+                                              overwrite=overwrite)
+        plot_field_warmup(model, params_start, state, save_dir)
     state, config = full_warmup(model, obs, state, chains_dir, n_steps=n_steps_full,
                                 desired_energy_var=dev_full, n_chains=n_chains,
                                 tune_mass=tune_mass, overwrite=overwrite, sampler=sampler)

@@ -1,7 +1,8 @@
-"""Summary statistics on the port's model paths: the multipole power
-spectrum (the `powspec` observable), the curved-sky mu^2 operator (the
-Kaiser evolution on the curved sky), transfer and coherence against a
-reference mesh, and the chains' diagnostics (ESS, Gelman-Rubin).
+"""Summary statistics: the multipole power spectrum (the `powspec`
+observable), the bispectrum, transfer and coherence against a reference
+mesh, the binned MSEs and distributions, error bars, the Kaiser multipoles,
+the curved-sky mu^2 operators, the window's Wigner 3j coefficients, and the
+chains' diagnostics (ESS, Gelman-Rubin).
 
 The spectrum's plan is host numpy, built once per geometry (`spectrum_plan`,
 cached with its device tensors by `_plan`): the bin of every rfft mode and
@@ -10,22 +11,37 @@ the (2 ell + 1) Legendre weight, the per-bin mode count and the units.  On
 the device the estimator is then one segment sum of |delta_k|^2 times those
 weights, K9 (`ops/segment.py::segment_sum`), whose backward is its gather.
 
+The bispectrum (`bispectrum`) filters the rfft mesh into its k-shells with
+`torch.fft` (cuFFT on the card), one inverse transform a shell for the
+field and one for unit amplitudes, and takes every closed triangle's sums
+over the cells in one kernel, K10 (`ops/bispectrum.py`).  The value
+binning (`bin_and_aggregate` and what calls it), the angular
+distribution, the error bars, `real_sph_harm` and the Wigner coefficients
+are host numpy, as in the JAX package.
+
 Parity: `montecosmo_tpu/metrics.py:27-186` (kbin_edges, _kmu_grid,
-spectrum_plan, _segment_reduce, _spectrum, spectrum) and `:462-494`
-(_y2_cartesian, optim_mu2_delta), `:250-278` (transfer, coherence,
-powtranscoh) and `:545-606` (effective_sample_size, gelman_rubin, geomean,
-harmean, multi_ess, multi_gr).  The plan is the JAX package's numpy,
-copied (the port imports nothing of it).
+spectrum_plan, _segment_reduce, _spectrum, spectrum), `:179` (bispectrum),
+`:250-278` (transfer, coherence, powtranscoh), `:280-412`
+(bin_and_aggregate, mse_radius, mse_value, mse_wave, distr_radial,
+distr_angular, mean_errorbar, var_errorbar), `:415` (kaiser_formula),
+`:436-494` (real_sph_harm, naive_mu2_delta, _y2_cartesian,
+optim_mu2_delta), `:501-543` (_wigner3j_zero_sq, wigner3j_square) and
+`:545-606` (effective_sample_size, gelman_rubin, geomean, harmean,
+multi_ess, multi_gr).  The plan is the JAX package's numpy, copied (the
+port imports nothing of it).
 """
+import math
 from functools import lru_cache
 
 import numpy as np
 import torch
-from scipy.special import legendre
+from scipy.special import factorial, legendre, lpmv
 
+from montecosmo_tpu_torch.ops.bispectrum import bispectrum_triples
 from montecosmo_tpu_torch.ops.fourier import bspline_hat, irfftn, rfftk, rfftn
 from montecosmo_tpu_torch.ops.hermitian import ch2rshape
 from montecosmo_tpu_torch.ops.segment import segment_sum
+from montecosmo_tpu_torch.utils.io import to_np
 from montecosmo_tpu_torch.utils.safe import safe_div
 
 
@@ -211,6 +227,90 @@ def spectrum(mesh0, mesh1=None, box_size=None, box_center=(0.0, 0.0, 0.0), ells=
     return kmean, pows
 
 
+def _closed_triples(kedges, kmean, open_triangles):
+    """Bin triples i <= j <= l that can close a triangle: k_i + k_j >= k_l
+    at the bin means, or (`open_triangles`) at the bin edges."""
+    n_bins = len(kedges) - 1
+    lo, hi = kedges[:-1], kedges[1:]
+    triples = []
+    for i in range(n_bins):
+        for j in range(i, n_bins):
+            for l in range(j, n_bins):
+                closes = (hi[i] + hi[j] >= lo[l]) if open_triangles \
+                    else (kmean[i] + kmean[j] >= kmean[l])
+                if closes:
+                    triples.append((i, j, l))
+    return np.asarray(triples, np.int32).reshape(-1, 3)
+
+
+SHELL_CHUNK = 8  # k-shells inverse-transformed together by `_shell_fields`
+
+
+def _shell_fields(meshk, seg, n_bins, mesh_shape, unit=False):
+    """(n_bins, N) real fields, each the inverse rfft of `meshk` (or, with
+    `unit`, of ones) restricted to one k-shell of `seg`; SHELL_CHUNK shells
+    are transformed together."""
+    out = []
+    for b0 in range(0, n_bins, SHELL_CHUNK):
+        bins = torch.arange(b0, min(b0 + SHELL_CHUNK, n_bins), device=seg.device)
+        mask = (seg == bins.reshape(-1, 1, 1, 1)).to(meshk.real.dtype)
+        spec = mask.to(meshk.dtype) if unit else meshk * mask
+        out.append(torch.fft.irfftn(spec, s=tuple(mesh_shape), dim=(-3, -2, -1)).reshape(
+            len(bins), -1))
+    return torch.cat(out)
+
+
+def _bispectrum_inputs(mesh, box_size=None, kedges=None, open_triangles=False,
+                       los=(0.0, 0.0, 0.0)):
+    """What K10 takes for the bispectrum of `mesh` (real, or its rfft):
+    (F, U, triples, plan).  F and U are the (B, N) shell-filtered and
+    unit-amplitude fields, triples the (T, 3) int32 closed triples, sorted
+    by (i, j, l), on the mesh's device; plan the spectrum plan of the
+    shells."""
+    if not mesh.is_complex():
+        mesh_shape = np.array(mesh.shape)
+        mesh = rfftn(mesh)
+    else:
+        mesh_shape = np.array(ch2rshape(mesh.shape))
+    box_size = mesh_shape if box_size is None else np.asarray(box_size)
+    plan, seg, _, _, _ = _plan(tuple(mesh_shape), box_size, kedges, (0,), False,
+                               np.asarray(los, float), mesh.device)
+    seg = seg.reshape(mesh.shape)
+    F = _shell_fields(mesh, seg, plan["nb"], mesh_shape)
+    U = _shell_fields(mesh, seg, plan["nb"], mesh_shape, unit=True)
+    triples = _closed_triples(plan["kedges"], plan["kmean"], open_triangles)
+    return F, U, torch.as_tensor(triples, device=mesh.device), plan
+
+
+def bispectrum(mesh, box_size=None, kedges=None, open_triangles=False, los=(0.0, 0.0, 0.0)):
+    """The FFT binned bispectrum monopole (Scoccimarro estimator).  For
+    every bin triple (i <= j <= l) that can close a triangle,
+
+        B(i, j, l) = V^2 / N^9 * mean_x[F_i F_j F_l] / mean_x[I_i I_j I_l],
+
+    F_b the inverse rfft of the mesh restricted to bin b, I_b the same of
+    unit amplitudes (its triple mean times N^3 counts the closed triangles;
+    a triple with less than half a triangle is 0).  The triple sums are K10
+    on the card.  `open_triangles` keeps the triples whose bin edges, not
+    centres, close.
+
+    V^2 / N^9 is taken in floats: the JAX package's integer N^3 wraps past
+    int64 from 2^21 cells (128^3) on.
+
+    Returns (kmean, triples (n_tri, 3) int32 bin indices, B (n_tri,) in the
+    mesh's real dtype, modes per bin)."""
+    fs, ones, triples, plan = _bispectrum_inputs(mesh, box_size, kedges, open_triangles, los)
+    sums = bispectrum_triples(fs, ones, triples)
+
+    n_cells = float(fs.shape[1])
+    volume = n_cells if box_size is None else float(np.prod(box_size, dtype=float))
+    norm = volume**2 / n_cells**3
+    num, den = sums[:, 0] / n_cells, sums[:, 1] / n_cells
+    n_tri = den * n_cells**3
+    bs = torch.where(n_tri > 0.5, norm * safe_div(num, den), torch.zeros_like(num))
+    return plan["kmean"], triples.cpu().numpy(), bs.to(fs.dtype), plan["nmodes"]
+
+
 def transfer(mesh0, mesh1, box_size, kedges=None, include_corners=True):
     """(k, (P1/P0)^1/2) per k-bin."""
     ks, pow0 = spectrum(mesh0, box_size=box_size, kedges=kedges, include_corners=include_corners)
@@ -236,7 +336,173 @@ def powtranscoh(mesh0, mesh1, box_size, kedges=None, include_corners=True):
     return ks, pow1, (pow1 / pow0) ** 0.5, pow01 / (pow0 * pow1) ** 0.5
 
 
+# ----------------------------------------------------------------------- value binning
+def bin_and_aggregate(targets, values, vedges, min_count=1, aggr_fn=None):
+    """Bin `targets` by `values` and aggregate per bin (the mean by
+    default); with `min_count` None, `vedges` are quantiles.  Host numpy.
+    Returns (counts, value means, aggregated targets)."""
+    targets = to_np(targets).reshape(-1)
+    values = to_np(values).reshape(-1)
+    assert len(targets) == len(values), "targets and values must have same length."
+
+    if isinstance(vedges, (int, float)):
+        vmin, vmax = (0.0, 1.0) if min_count is None else (values.min(), values.max())
+        n_vedges = vedges if isinstance(vedges, int) else max(int((vmax - vmin) / vedges), 1)
+        dv = (vmax - vmin) / n_vedges
+        vedges = np.linspace(vmin, vmax, n_vedges, endpoint=False) + dv / 2
+    if min_count is None:
+        vedges = np.quantile(values, q=vedges)
+        min_count = 1
+
+    n_bins = len(vedges) + 1
+    dig = np.digitize(values, vedges)
+    vcount = np.bincount(dig, minlength=n_bins)[1:-1]
+    keep = vcount >= min_count
+    vcount = vcount[keep]
+    vmean = np.bincount(dig, weights=values, minlength=n_bins)[1:-1][keep] / vcount
+    if aggr_fn is None:
+        taggr = np.bincount(dig, weights=targets, minlength=n_bins)[1:-1][keep] / vcount
+    else:
+        taggr = np.array([aggr_fn(targets[dig == i]) for i in range(1, n_bins - 1)])[keep]
+    return vcount, vmean, taggr
+
+
+def mse_radius(mesh0, mesh1, rmesh, cell_length, redges=None, aggr_fn=None):
+    """The MSE between two meshes binned by radius, in (Mpc/h)^3."""
+    if redges is None:
+        redges = 3**0.5 * cell_length  # the least dr of connected shells
+    se = (to_np(mesh0) - to_np(mesh1)) ** 2 * cell_length**3
+    return bin_and_aggregate(se, rmesh, redges, aggr_fn=aggr_fn)
+
+
+def mse_value(mesh0, mesh1, cell_length, vedges, min_count=None, aggr_fn=None):
+    """The MSE between two meshes binned by the value of mesh0, in
+    (Mpc/h)^3."""
+    se = (to_np(mesh0) - to_np(mesh1)) ** 2 * cell_length**3
+    return bin_and_aggregate(se, mesh0, vedges, min_count=min_count, aggr_fn=aggr_fn)
+
+
+def mse_wave(mesh0, mesh1, box_size, kedges=None, include_corners=True):
+    """The MSE between two meshes binned by wavenumber (the power of their
+    difference): (kcount, kmean, P)."""
+    return _spectrum(mesh1 - mesh0, box_size=box_size, kedges=kedges,
+                     include_corners=include_corners)
+
+
+def distr_radial(mesh, rmesh, cell_length, redges=None, aggr_fn=None):
+    """The radial distribution of a mesh, in (h/Mpc)^3."""
+    if redges is None:
+        redges = 3**0.5 * cell_length
+    rcount, rmean, maggr = bin_and_aggregate(mesh, rmesh, redges, aggr_fn=aggr_fn)
+    return rcount, rmean, maggr / cell_length**3
+
+
+def distr_angular(mesh, pos_mesh, n_costheta=12, n_phi=24, min_count=1, aggr_fn=None):
+    """The angular distribution of a mesh per steradian: cells binned by
+    their direction from the observer on an equal-area (cos theta, phi)
+    grid (each bin 4 pi / n_bins sr), the mesh summed per bin (or
+    `aggr_fn`).  `pos_mesh` (..., 3) are observer-centred positions.
+    Returns (counts, (costheta centres, phi centres), aggregate) for the
+    bins of at least `min_count` cells, costheta-major."""
+    mesh = to_np(mesh).reshape(-1)
+    pos = to_np(pos_mesh).reshape(-1, 3)
+    assert len(mesh) == len(pos), "mesh and pos_mesh must match."
+
+    r = np.maximum(np.sqrt((pos**2).sum(-1)), 1e-30)
+    cost = np.clip(pos[:, 2] / r, -1.0, 1.0)
+    phi = np.arctan2(pos[:, 1], pos[:, 0])
+    ic = np.minimum(((cost + 1.0) / 2.0 * n_costheta).astype(int), n_costheta - 1)
+    ip = np.minimum(((phi + np.pi) / (2 * np.pi) * n_phi).astype(int), n_phi - 1)
+    dig = ic * n_phi + ip
+    n_bins = n_costheta * n_phi
+
+    count = np.bincount(dig, minlength=n_bins)
+    keep = count >= min_count
+    solid = 4.0 * np.pi / n_bins
+    if aggr_fn is None:
+        aggr = np.bincount(dig, weights=mesh, minlength=n_bins) / solid
+    else:
+        aggr = np.array([aggr_fn(mesh[dig == i]) if keep[i] else 0.0 for i in range(n_bins)])
+    cost_c = -1.0 + (np.arange(n_costheta) + 0.5) * 2.0 / n_costheta
+    phi_c = -np.pi + (np.arange(n_phi) + 0.5) * 2.0 * np.pi / n_phi
+    centers = (np.repeat(cost_c, n_phi)[keep], np.tile(phi_c, n_costheta)[keep])
+    return count[keep], centers, aggr[keep]
+
+
+# ----------------------------------------------------------------------- error bars
+def mean_errorbar(count, std, confidence=0.95, gaussian_approx=False):
+    """(lo, hi) error bar of a sample mean (Student t, or Gaussian)."""
+    from scipy.stats import norm, t
+    count, std = np.asarray(count), to_np(std)
+    if not gaussian_approx:
+        df = count - 1
+        lo, hi = t(df=df).interval(confidence)
+        return np.stack((-std / df**0.5 * lo, std / df**0.5 * hi))
+    hi = norm.interval(confidence)[1] * std / count**0.5
+    return np.stack((hi, hi))
+
+
+def var_errorbar(count, var, confidence=0.95, gaussian_approx=False):
+    """(lo, hi) error bar of a sample variance (chi^2, or Gaussian)."""
+    from scipy.stats import chi2, norm
+    count, var = np.asarray(count), to_np(var)
+    if not gaussian_approx:
+        lo, hi = chi2(df=count).interval(confidence)
+        lo, hi = var * count / hi, var * count / lo
+        return np.stack((var - lo, hi - var))
+    hi = var * (2 / count) ** 0.5 * norm.interval(confidence)[1]
+    return np.stack((hi, hi))
+
+
+# ----------------------------------------------------------------------- Kaiser multipoles
+_KAISER = {0: lambda b: 1 + b * 2 / 3 + b**2 / 5,
+           2: lambda b: b * 4 / 3 + b**2 * 4 / 7,
+           4: lambda b: b**2 * 8 / 35}
+
+
+def kaiser_formula(bg, a, lin_kpow, b1E, ells=0):
+    """The analytic Kaiser multipoles P_ell(k) (ell in 0, 2, 4) of Eulerian
+    bias b1E at scale factor `a` on the background `bg`, from the linear
+    spectrum (k, P_lin(k)) at a = 1: (k, P (..., n_ell, n_k))."""
+    ells = np.atleast_1d(np.asarray(ells))
+    a = torch.as_tensor(a, dtype=torch.float32, device=bg.g_tab.device)
+    beta = bg.a2f(a) / b1E
+    k, pows = lin_kpow
+    pows = torch.as_tensor(pows, device=a.device) * bg.a2g(a) ** 2
+    weights = []
+    for ell in ells:
+        if int(ell) not in _KAISER:
+            raise NotImplementedError(f"ell={ell} not in (0, 2, 4)")
+        weights.append(b1E**2 * _KAISER[int(ell)](beta))
+    return k, torch.movedim(pows[..., None] * torch.stack(weights, -1), -1, -2)
+
+
 # ----------------------------------------------------------------------- curved-sky mu^2
+def real_sph_harm(l, m, theta, phi):
+    """The real spherical harmonic Y(l, m) at colatitude theta, longitude
+    phi (host numpy, scipy's associated Legendre functions)."""
+    m_abs = abs(m)
+    norm = ((2 * l + 1) / (4 * np.pi) * factorial(l - m_abs) / factorial(l + m_abs)) ** 0.5
+    asso = lpmv(m_abs, l, np.cos(theta))
+    if m > 0:
+        return 2**0.5 * norm * asso * np.cos(m * phi)
+    if m < 0:
+        return 2**0.5 * norm * asso * np.sin(m_abs * phi)
+    return norm * asso
+
+
+def naive_mu2_delta(mesh, los):
+    """The (k.los/|k|)^2-weighted field by two successive mu projections
+    (eight FFTs): `mesh` an rfft mesh, `los` (..., 3) per cell."""
+    mesh_shape = ch2rshape(mesh.shape)
+    kvec = rfftk(mesh_shape, device=mesh.device)
+    kmesh = sum(ki**2 for ki in kvec) ** 0.5
+    mu_delta = torch.stack([irfftn(safe_div(kvec[i] * mesh, kmesh)) for i in range(3)], -1)
+    mu_delta = rfftn((mu_delta * los).sum(-1))
+    mu2_delta = torch.stack([irfftn(safe_div(kvec[i] * mu_delta, kmesh)) for i in range(3)], -1)
+    return (mu2_delta * los).sum(-1)
+
+
 def _y2_cartesian(u):
     """The five real l = 2 spherical harmonics of a unit vector field
     (..., 3), in closed cartesian form."""
@@ -268,6 +534,40 @@ def optim_mu2_delta(mesh, los):
     for yl, ykm in zip(ylos, yk):
         mu2_delta = mu2_delta + 8 * np.pi / 15 * yl * irfftn(ykm * mesh)
     return delta, mu2_delta
+
+
+# ----------------------------------------------------------------------- window convolution
+def _wigner3j_zero_sq(l1, l2, l3):
+    """The exact squared Wigner 3j symbol (l1 l2 l3; 0 0 0)^2 as a Fraction
+    (Edmonds 1957 eq. 3.7.17); zero when l1 + l2 + l3 is odd or the
+    triangle inequality fails."""
+    from fractions import Fraction
+
+    total = l1 + l2 + l3
+    if total % 2 or not abs(l1 - l2) <= l3 <= l1 + l2:
+        return Fraction(0)
+    g = total // 2
+    f = math.factorial
+    D = Fraction(f(2 * (g - l1)) * f(2 * (g - l2)) * f(2 * (g - l3)), f(2 * g + 1))
+    binom = Fraction(f(g), f(g - l1) * f(g - l2) * f(g - l3))
+    return D * binom * binom
+
+
+def wigner3j_square(ellout, ellin, prefactor=True):
+    """The Legendre-product coefficients of the window convolution,
+    P_ellout P_ellin = sum_L (2L+1) (ellout ellin L; 000)^2 P_L, with the
+    (2 ellout + 1)/(2L+1) window-matrix prefactor by default, exact in
+    rational arithmetic.  Returns (L values ascending, coefficients)."""
+    from fractions import Fraction
+
+    ells, coeffs = [], []
+    for L in range(abs(ellout - ellin), ellout + ellin + 1, 2):
+        c = (2 * L + 1) * _wigner3j_zero_sq(ellout, ellin, L)
+        if prefactor:
+            c *= Fraction(2 * ellout + 1, 2 * L + 1)
+        ells.append(L)
+        coeffs.append(float(c))
+    return ells, coeffs
 
 
 # ----------------------------------------------------------------------- chain diagnostics

@@ -24,7 +24,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 BUILD_INFO = {"seconds": None, "log": ""}
 # kernel launches per (kernel, window, order): each wrapper adds one where it
-# launches (ops/paint.py, ops/background.py, ops/segment.py)
+# launches (ops/paint.py, ops/background.py, ops/segment.py, ops/bispectrum.py)
 LAUNCHES = Counter()
 _LIB = None
 
@@ -119,6 +119,8 @@ def cuda_library(rebuild=False):
     lib.fp64_chain.restype = _I
     lib.segment_sum.argtypes = [_P, _P, _L, _I, _L, _I, _I, _P, _P, _P, _P]
     lib.segment_sum.restype = _I
+    lib.bispectrum_sums.argtypes = [_P, _P, _L, _I, _P, _I, _I, _L, _I, _P, _P, _P]
+    lib.bispectrum_sums.restype = _I
     _LIB = lib
     return lib
 

@@ -64,6 +64,13 @@ class Cosmology(NamedTuple):
         return 1.0 - self.Omega_m - self.Omega_k
 
 
+# Planck 2015 XIII (arXiv:1502.01589) Table 4 last column
+def Planck15(**kw) -> Cosmology:
+    return Cosmology(**{**dict(Omega_c=0.2589, Omega_b=0.04860, h=0.6774,
+                               n_s=0.9667, sigma8=0.8159, Omega_k=0.0,
+                               w0=-1.0, wa=0.0), **kw})
+
+
 # Planck 2018 VI (arXiv:1807.06209) Table 2 last column
 def Planck18(**kw) -> Cosmology:
     return Cosmology(**{**dict(Omega_c=0.2607, Omega_b=0.0490, h=0.6766,
@@ -426,3 +433,11 @@ class Background(NamedTuple):
 
     def chi2a(self, chi):
         return uniform_interp(chi, 0.0, CHI_GRID_MAX / (CHI_STEPS - 1), self.a_chi_tab)
+
+    def k2ell(self, a, k):
+        """Wavenumber -> multipole, by Limber."""
+        return self.a2chi(a) * k - 0.5
+
+    def ell2k(self, a, ell):
+        """Multipole -> wavenumber, by Limber."""
+        return (ell + 0.5) / self.a2chi(a)

@@ -5,7 +5,7 @@ Kernel factories return broadcast-shaped float32 tensors ((N,1,1), (1,N,1),
 (1,1,N/2+1)), so `sum(ki**2 for ki in kvec)` broadcasts to the rfft mesh.
 The transforms are `torch.fft` (cuFFT on the card) with the "backward" norm.
 
-Parity: `montecosmo_tpu/ops/fourier.py:48-275`.  `lazy_kvec` and the pencil
+Parity: `montecosmo_tpu/ops/fourier.py:48-275` (with `fftk`, :90).  `lazy_kvec` and the pencil
 island are compiler and sharding workarounds of the JAX package and have no
 counterpart here.
 """
@@ -55,6 +55,21 @@ def rfftk(shape, box_size=None, device="cpu"):
     box = None if box_size is None else tuple(float(b) for b in np.broadcast_to(
         box_size, (len(shape),)))
     return _rfftk_cached(shape, box, str(torch.device(device)))
+
+
+def fftk(shape, box_size=None, dtype=torch.float32, device="cpu"):
+    """Broadcast-shaped wavevectors for the full `fftn`: cell units by
+    default, h/Mpc when `box_size` is given."""
+    dim = len(shape)
+    scales = dim * (2 * np.pi,) if box_size is None else tuple(
+        2 * np.pi * s / b for s, b in zip(shape, box_size))
+    kvec = ()
+    for ax, (s, sc) in enumerate(zip(shape, scales)):
+        bshape = [1] * dim
+        bshape[ax] = -1
+        k = (np.fft.fftfreq(s) * sc).astype(np.float32).reshape(bshape)
+        kvec += (torch.as_tensor(k, device=device).to(dtype),)
+    return kvec
 
 
 def invlaplace_hat(kvec, fd_order=np.inf):

@@ -5,7 +5,7 @@ tensor distributed exactly like `rfftn` of a white-noise field; `cgh2rg` is its
 inverse.  Both are slices, flips and concatenations (contiguous copies).
 
 Parity: `montecosmo_tpu/ops/hermitian.py:34-47, 143-413` (same packing, same
-four norms).  `constrain_mesh` (a sharding hint) has no counterpart here.
+four norms; `boxreshape` :388).  `constrain_mesh` (a sharding hint) has no counterpart here.
 """
 import numpy as np
 import torch
@@ -208,6 +208,19 @@ def chreshape(mesh, shape):
             out = _set_index(out, ax, neg, half)
             out = _set_index(out, ax, pos, half)
     return out * scale
+
+
+def boxreshape(mesh, shape):
+    """Real-space centred pad or crop of a mesh to `shape` (even extents)."""
+    shape = np.asarray(shape)
+    ms = np.asarray(mesh.shape)
+    assert np.all(shape % 2 == 0) and np.all(ms % 2 == 0), "dimension lengths must be even."
+    half_down = np.maximum(ms - shape, 0) // 2
+    mesh = mesh[tuple(slice(int(h), None if h == 0 else -int(h)) for h in half_down)]
+    half_up = np.maximum(shape - np.asarray(mesh.shape), 0) // 2
+    # torch.nn.functional.pad takes the last axis first
+    pad = [int(p) for h in half_up[::-1] for p in (h, h)]
+    return torch.nn.functional.pad(mesh, pad)
 
 
 def mesh2masked(mesh, mask=None):

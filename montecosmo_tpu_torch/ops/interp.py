@@ -1,8 +1,9 @@
 """Linear interpolation on uniform grids (index arithmetic) and on general
 sorted nodes (`interp`, the counterpart of `jnp.interp`).
 
-Parity: `montecosmo_tpu/ops/interp.py:20-108` (with `is_uniform` and
-`log_uniform_interp_fn`, the lookup of tabulated register spectra); `interp` follows
+Parity: `montecosmo_tpu/ops/interp.py:20-108` (with `is_uniform`,
+`log_uniform_interp_fn`, the lookup of tabulated register spectra, and
+`resample_uniform`); `interp` follows
 `jnp.interp`'s semantics (clamp to the end values, differentiable in the
 query, the nodes and the values).
 """
@@ -112,3 +113,18 @@ def log_uniform_interp_fn(ks, ys, left=0.0, right=0.0, n_min=256):
         logk0, dlogk = float(tu[0]), float(tu[1] - tu[0])
     return lambda x: uniform_interp(x, logk0, dlogk, tab, left=left, right=right, logx=True,
                                     xtab=nodes)
+
+
+def resample_uniform(x, y, n=None, logx=False, device="cpu"):
+    """Resample a concrete (x, y) table onto a uniform grid over the same
+    range (in log x with `logx`): (x0, dx, ytab) for `uniform_interp`, the
+    table float32 on `device`.  Host numpy: for fixed tables only."""
+    x = np.asarray(x, float)
+    y = np.asarray(y, float)
+    if n is None:
+        n = max(2 * x.size, 64)
+    t = np.log(x) if logx else x
+    tu = np.linspace(t[0], t[-1], n)
+    yu = np.interp(tu, t, y)
+    return float(tu[0]), float(tu[1] - tu[0]), torch.as_tensor(yu, dtype=torch.float32,
+                                                                device=device)

@@ -34,18 +34,20 @@ from montecosmo_tpu_torch.ops.power import lin_power
 from montecosmo_tpu_torch.utils.io import npsave
 
 
-def compute_lin_kpow(cosmo, device="cpu"):
-    """(k, P(k) / sigma8^2) at z = 0 as a (2, 256) float32 array: the model
+def compute_lin_kpow(cosmo, device="cuda"):
+    """(k, P(k) / sigma8^2) at z = 0 as a (2, 256) float32 array, computed
+    on `device` (the card by default; `device="cpu"` on the CPU): the model
     scales it by the sampled sigma8^2."""
     ks, pows = lin_power(cosmo._replace(sigma8=1.0), device=device)
     return torch.stack((ks, pows)).cpu().numpy()
 
 
 def build_init(init_shape, cosmo, box_size, real_ic=None, seed=42, lin_kpow=None,
-               device="cpu"):
+               device="cuda"):
     """The register's initial conditions: lin_kpow, and the real IC mesh
     whitened at `init_shape` (`white_mesh`) or, without one, a unit-power
-    white draw (`white_fake`, from a torch.Generator seeded with `seed`)."""
+    white draw (`white_fake`, from a torch.Generator seeded with `seed`),
+    computed on `device` (the card by default)."""
     if lin_kpow is None:
         lin_kpow = compute_lin_kpow(cosmo, device)
     init = {"lin_kpow": lin_kpow}

@@ -12,7 +12,18 @@ Phase 3 `full_run`     : n_runs x n_samples thinned samples, each run saved
                          the last state with fresh randomness per run.
 `make_chains`          : load the runs, reparametrise, the transfer and
                          coherence of the white mesh, save chains.npz and
-                         chains_.npz, print the summary.
+                         chains_.npz, print the summary, draw the triangle,
+                         kptc, powspec and chains_ figures.
+`make_logdf_mesh`      : the per-voxel posterior-predictive (logpdf,
+                         logcdf) meshes over the thinned chains.
+`compare_chains`       : the triangle and kptc figures of several
+                         campaigns side by side.
+`plot_field_warmup`    : the field warmup's power, transfer and coherence.
+
+Every number behind a figure is computed on the model's device; the
+figures need matplotlib (`montecosmo_tpu_torch.plot`).  Where it is missing
+(the card's machine) each figure prints one line naming it and the run
+goes on, as the JAX script's skipped triangle plot does.
 
 Every phase looks for its output files and loads them instead of
 recomputing.  Files are the port's own (`utils.io.npsave`: `.npz` trees of
@@ -21,13 +32,13 @@ carry a leading chain axis, as the JAX package's.
 
 Parity: `montecosmo_tpu/script.py:257` (`_nuts_blocks`), `:270`
 (`_segmented_nuts_warmup`), `:534` (field_warmup), `:617`
-(`_laplace_seed`), `:665` (full_warmup), `:818` (full_run) and `:1070`
-(make_chains, without its figures).  Not ported: the TPU chunking of long
-loops (`_segmented_warmup`, `MAX_STEPS_PER_CALL`, mid-run checkpoints),
-the host-driven NUTS transition and the `MONTECOSMO_*` environment
-variables; the dense-mass cap is the argument `dense_max`.  Not ported yet:
-`make_logdf_mesh`, `compare_chains` and the figures (ROADMAP Queue A item
-6).
+(`_laplace_seed`), `:665` (full_warmup), `:818` (full_run), `:570`
+(plot_field_warmup), `:1070` (make_chains), `:1189` (make_logdf_mesh) and
+`:1223` (compare_chains).  Not ported: the TPU chunking of long loops
+(`_segmented_warmup`, `MAX_STEPS_PER_CALL`, mid-run checkpoints), the
+host-driven NUTS transition, the `MONTECOSMO_*` environment variables and
+`_host_backend` (post-processing stays on the model's device); the
+dense-mass cap is the argument `dense_max`.
 """
 import os
 from functools import partial
@@ -42,7 +53,8 @@ from montecosmo_tpu_torch.samplers.mclmc import (
     IntegratorState, MCLMCAdaptationState, _ravel, mams_run, mams_warmup, mclmc_run,
     mclmc_warmup,
 )
-from montecosmo_tpu_torch.utils.io import npload, npsave
+from montecosmo_tpu_torch.utils import to_tensor
+from montecosmo_tpu_torch.utils.io import npload, npsave, to_np
 
 
 def _nuts_blocks(names):
@@ -519,27 +531,124 @@ def full_run(model, state, config, chains_dir, n_samples, n_runs, n_chains, thin
 
 
 # ---------------------------------------------------------------------------
-# Chains post-processing
+# Figures and chains post-processing
 # ---------------------------------------------------------------------------
+def _figure(name, path, draw, log=print, tolerant=False):
+    """Draw one figure and save it to `path` (300 dpi): `draw(plot, plt)`
+    with `montecosmo_tpu_torch.plot` and pyplot.  Where matplotlib is
+    missing, print one line naming the figure and go on; with `tolerant`,
+    so too where the drawing fails (a KDE of degenerate samples).  Returns
+    the path, or None when the figure was skipped."""
+    try:
+        import matplotlib.pyplot as plt
+        from montecosmo_tpu_torch import plot
+    except ImportError as e:
+        log(f"WARNING: {name} skipped ({type(e).__name__}: {e})")
+        return None
+    try:
+        draw(plot, plt)
+        plt.savefig(path, dpi=300)
+        return path
+    except Exception as e:
+        if not tolerant:
+            raise
+        log(f"WARNING: {name} skipped ({type(e).__name__}: {e})")
+        return None
+    finally:
+        plt.close()
+
+
+def _tree_np(tree):
+    return tuple(to_np(x) for x in tree)
+
+
+def _kptc_rows(kptc):
+    """A chains' 'kptc_{name}' entry (*batch, 4, n_k) as the four (n,
+    n_k) arrays (k, P, transfer, coherence), the batch axes flattened."""
+    kptc = np.asarray(kptc)
+    return tuple(np.moveaxis(kptc.reshape(-1, *kptc.shape[-2:]), 1, 0))
+
+
+def _median_rows(kptcs):
+    return tuple(np.median(x, 0) for x in kptcs)
+
+
+def plot_field_warmup(model, params_start, state, save_dir, prob=(0.68, 0.95), log=print):
+    """The power, transfer and coherence of the field warmup's chains at
+    their start and end against the true initial field (`model.white_mesh`),
+    saved as field_warm.png.  Returns the numbers it draws: (kptcs_start,
+    kptcs_warm, kpow_true), each chain's (k, P, transfer, coherence) stacked
+    on a leading chain axis."""
+    save_dir = Path(save_dir)
+    white_mesh = model.white_mesh
+
+    def kptcs(positions):
+        n_chains = next(iter(positions.values())).shape[0]
+        with torch.no_grad():
+            rows = [_tree_np(model.powtranscoh(white_mesh, model.reparam(_chain(positions, c))[
+                "white_mesh"])) for c in range(n_chains)]
+        return tuple(np.stack(x) for x in zip(*rows))
+
+    kptcs_start = kptcs(params_start)
+    kptcs_warm = kptcs(state.position)
+    with torch.no_grad():
+        kpow_true = _tree_np(model.spectrum(white_mesh))
+    # whitened initial conditions: the theoretical reference is flat unit power
+    kpow_fid = kptcs_warm[0][0], np.ones_like(kptcs_warm[0][0])
+    selec_mean = float(np.mean(to_np(model.selec_mesh)))
+
+    def draw(plot, plt):
+        plt.figure(figsize=(12, 4), layout="constrained")
+        for rows, label in ((kptcs_start, "start"), (kptcs_warm, "warm")):
+            plot.plot_powtranscoh(*rows, fill=prob)
+            plot.plot_powtranscoh(*_median_rows(rows), label=label)
+        plt.subplot(131)
+        plot.plot_pow(*kpow_true, "k:", label="true")
+        plot.plot_pow(*kpow_fid, "k--", alpha=0.5, label="fiducial")
+        plt.legend()
+        plt.subplot(132)
+        plt.axhline(1.0, linestyle=":", color="k", alpha=0.5)
+        plot.plot_trans(kpow_true[0], (kpow_fid[1] / kpow_true[1]) ** 0.5, "k--", alpha=0.5,
+                        label="fiducial")
+        plt.subplot(133)
+        plt.axhline(selec_mean, linestyle=":", color="k", alpha=0.5)
+
+    _figure("field warmup plot", save_dir / "field_warm.png", draw, log)
+    return kptcs_start, kptcs_warm, kpow_true
+
+
+def _white_mesh(model, save_dir):
+    """The campaign's true initial field: the register's, else the one a
+    self-data campaign drew (truth.npz), else None."""
+    if model.white_mesh is None and (Path(save_dir) / "truth.npz").exists():
+        return npload(Path(save_dir) / "truth.npz")["white_mesh"]
+    return model.white_mesh
+
+
 def make_chains(save_dir, start=1, end=100, thinning=1, prefix="", device="cuda", log=print):
     """Load the runs of `save_dir`/chains, reparametrise them to base space,
     add the transfer and coherence of the white mesh against the
     register's or the self-data campaign's truth.npz (when the field is
     inferred), keep 10 values of each field,
     and save `{prefix}chains.npz`; the same in sample space as
-    `{prefix}chains_.npz`, whose summary is printed.  The model comes from
-    `save_dir`/model.yaml, the observed sites from obs.npz.  Returns the
-    sample-space chains."""
+    `{prefix}chains_.npz`, whose summary is printed.  Figures:
+    `{prefix}triangle.png` (the base latents, the fiducial marked),
+    `{prefix}powspec.png` (an observed power spectrum and its errors),
+    `{prefix}kptc.png` (the white mesh's posterior against the truth and
+    the observed counts) and `{prefix}chains_.png` (the sample-space
+    traces).  The model comes from `save_dir`/model.yaml, the observed
+    sites from obs.npz.  Returns the sample-space chains."""
     from montecosmo_tpu_torch.models.model import FieldLevelModel
+    from montecosmo_tpu_torch.ops.fourier import irfftn, rfftn
+    from montecosmo_tpu_torch.ops.hermitian import chreshape, r2chshape
 
     save_dir = Path(save_dir)
     chains_dir = save_dir / "chains"
     model = FieldLevelModel.load(save_dir / "model.yaml", device=device)
     obs = npload(save_dir / "obs.npz")
-    white_mesh = model.white_mesh
-    if white_mesh is None and (save_dir / "truth.npz").exists():
-        white_mesh = npload(save_dir / "truth.npz")["white_mesh"]
+    white_mesh = _white_mesh(model, save_dir)
     infer_init = "white_mesh" not in obs and white_mesh is not None
+    markers = {k: float(v) for k, v in model.fiduc.items() if np.ndim(v) == 0}
     model.substitute(obs, from_base=True)
 
     thin = partial(Chains.thin, thinning=thinning)
@@ -551,8 +660,133 @@ def make_chains(save_dir, start=1, end=100, thinning=1, prefix="", device="cuda"
     chains.save(chains_dir / f"{prefix}chains.npz")
     log({k: v for k, v in chains.shape.items()}, "\n")
 
+    sel = chains.prune()[list(model.groups) + (["~white_mesh"] if infer_init else [])]
+    _figure("triangle plot", save_dir / f"{prefix}triangle.png",
+            lambda plot, plt: plot.corner_plot(sel, markers=markers), log, tolerant=True)
+
+    if "powspec" in obs:
+        st = model._powspec_static()
+        _figure("powspec panel", save_dir / f"{prefix}powspec.png",
+                lambda plot, plt: plot.plot_powspec_ppc(st["kmean"], obs["powspec"],
+                                                        tril=st["tril"], poles=tuple(model.poles)),
+                log, tolerant=True)
+
+    # the IC-recovery panel compares with an observed count MESH
+    if infer_init and "count_mesh" in obs:
+        with torch.no_grad():
+            wm = to_tensor(white_mesh, model.device)
+            mesh_obs = rfftn(model.count2delta(to_tensor(obs["count_mesh"], model.device)))
+            mesh_obs = irfftn(chreshape(mesh_obs, r2chshape(model.init_shape)))
+            kptc_obs = _tree_np(model.powtranscoh(wm, mesh_obs))
+            kpow_ref = _tree_np(model.spectrum(wm))
+        kpow_fid = kptc_obs[0], np.ones_like(kptc_obs[0])
+        kptcs = _kptc_rows(chains["kptc_white_mesh"])
+        selec_mean = float(np.mean(to_np(model.selec_mesh)))
+
+        def draw_kptc(plot, plt):
+            plt.figure(figsize=(12, 4), layout="constrained")
+            plt.subplot(131)
+            plot.plot_pow(*kpow_ref, "k:", label="true")
+            plot.plot_pow(*kpow_fid, "k--", alpha=0.5, label="fiducial")
+            plt.subplot(132)
+            plt.axhline(1.0, linestyle=":", color="k", alpha=0.5)
+            plot.plot_trans(kpow_ref[0], (kpow_fid[1] / kpow_ref[1]) ** 0.5, "k--", alpha=0.5,
+                            label="fiducial")
+            plt.subplot(133)
+            plt.axhline(selec_mean, linestyle=":", color="k", alpha=0.5)
+            plot.plot_coh(kptc_obs[0], kptc_obs[3], "k--", alpha=0.5, label="obs")
+            plot.plot_powtranscoh(*kptcs, fill=(0.68, 0.95), color=plot.SetDark2(0))
+            plot.plot_powtranscoh(*_median_rows(kptcs), color=plot.SetDark2(0), label="post")
+            plt.subplot(131)
+            plt.legend()
+
+        _figure("kptc plot", save_dir / f"{prefix}kptc.png", draw_kptc, log)
+
     chains = model.load_runs(chains_dir, start, end, transforms=[thin, pick], batch_ndim=2)
     chains.save(chains_dir / f"{prefix}chains_.npz")
     log({k: v for k, v in chains.shape.items()}, "\n")
     chains.print_summary()
+
+    def draw_chains(plot, plt):
+        plt.figure(figsize=(12, 12))
+        chains.prune().flatten().plot(list(model.groups_) + ["logdensity"])
+
+    _figure("chains plot", save_dir / f"{prefix}chains_.png", draw_chains, log)
     return chains
+
+
+def make_logdf_mesh(save_dir, start=1, end=100, thinning=1, prefix="", site="count_mesh",
+                    device="cuda", log=print):
+    """The per-voxel posterior-predictive (logpdf, logcdf) meshes of `site`
+    over the thinned chains of `save_dir`, goodness-of-fit maps: one
+    `Model.logdf_mesh` forward a (chain, sample) on `device`, saved to
+    chains/{prefix}logdf_mesh.npz.  Returns (logpdf_mesh, logcdf_mesh),
+    numpy (chain, sample, *mesh)."""
+    from montecosmo_tpu_torch.models.model import FieldLevelModel
+
+    save_dir = Path(save_dir)
+    chains_dir = save_dir / "chains"
+    model = FieldLevelModel.load(save_dir / "model.yaml", device=device)
+    obs = npload(save_dir / "obs.npz")
+    model.reset()
+    model.substitute(obs, from_base=True)
+    model.block()
+
+    chains = model.load_runs(chains_dir, start, end,
+                             transforms=[partial(Chains.thin, thinning=thinning)], batch_ndim=2)
+    samp_names = set().union(*model.groups_.values())
+    params = {k: chains.data[k] for k in samp_names if k in chains.data}
+    log(f"logdf_mesh on { {k: np.shape(v) for k, v in params.items()} }")
+
+    def logdf(p):
+        logpdf_mesh, logcdf_mesh = model.logdf_mesh(p, site=site)
+        return {"logpdf_mesh": logpdf_mesh, "logcdf_mesh": logcdf_mesh}
+
+    with torch.no_grad():
+        out = model._batched(logdf, params, 2)
+    npsave(chains_dir / f"{prefix}logdf_mesh.npz", out)
+    log(f"saved {prefix}logdf_mesh.npz: shape {tuple(out['logpdf_mesh'].shape)}\n")
+    return out["logpdf_mesh"], out["logcdf_mesh"]
+
+
+def compare_chains(load_dirs, labels, save_dir="./", device="cuda", log=print):
+    """The corner plot of several campaigns' base chains (chains.npz)
+    side by side, triangle_{labels}.png, and their white meshes' power,
+    transfer and coherence against the last campaign's true initial field,
+    kptc_{labels}.png.  Returns the numbers the second draws: (kpow_ref,
+    {label: (k, P, transfer, coherence) rows})."""
+    from montecosmo_tpu_torch.models.model import FieldLevelModel
+
+    save_dir = Path(save_dir)
+    chainss, sels = [], []
+    for load_dir in load_dirs:
+        load_dir = Path(load_dir)
+        model = FieldLevelModel.load(load_dir / "model.yaml", device=device)
+        chains = Chains.load(load_dir / "chains" / "chains.npz")
+        log("\n", {k: v for k, v in chains.shape.items()})
+        sels.append(chains.prune()[list(model.groups) + ["~white_mesh"]])
+        chainss.append(chains)
+    tag = "_".join(labels)[:200]
+    _figure("comparison triangle plot", save_dir / f"triangle_{tag}.png",
+            lambda plot, plt: plot.corner_plot(sels, labels=labels), log)
+
+    with torch.no_grad():
+        kpow_ref = _tree_np(model.spectrum(to_tensor(_white_mesh(model, load_dir),
+                                                     model.device)))
+    kptcs = {label: _kptc_rows(chains["kptc_white_mesh"]) for chains, label in
+             zip(chainss, labels) if "kptc_white_mesh" in chains.data}
+
+    def draw(plot, plt):
+        plt.figure(figsize=(12, 4), layout="constrained")
+        plt.subplot(131)
+        plot.plot_pow(*kpow_ref, "k:", label="true")
+        for i, label in enumerate(labels):
+            if label in kptcs:
+                plot.plot_powtranscoh(*kptcs[label], fill=0.68, color=plot.SetDark2(i))
+                plot.plot_powtranscoh(*_median_rows(kptcs[label]), color=plot.SetDark2(i),
+                                      label=label)
+        plt.subplot(131)
+        plt.legend()
+
+    _figure("comparison kptc plot", save_dir / f"kptc_{tag}.png", draw, log)
+    return kpow_ref, kptcs

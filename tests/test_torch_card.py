@@ -584,3 +584,33 @@ def test_tsit5_on_card_matches_cpu():
     assert launched.get(("paint_cic", "bspline", 2), 0) >= stats["cuda"]["force_evaluations"]
     for x, ref in zip(out["cuda"], out["cpu"]):
         torch.testing.assert_close(x.cpu(), ref, rtol=0, atol=1e-4 * float(ref.abs().max()))
+
+
+@pytest.mark.cuda
+def test_bispectrum_sums_match_plain_and_repeat_on_card():
+    """K10 (bispectrum_sums) against its plain version on the shells of a
+    32^3 local-quadratic field (the default kedges), within 1e-9 of each
+    triple's float64 sum of |products| (both sum the same float64
+    products, in another order); two launches equal bit for bit; and
+    metrics.bispectrum on the card launches it twice (partials, then their
+    ordered sum) and equals the CPU's within 1e-4 of max |B| (skips
+    without a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K10 is CUDA")
+    from montecosmo_tpu_torch import metrics as M
+    from montecosmo_tpu_torch.ops import bispectrum as BS
+
+    g = torch.randn((32, 32, 32), generator=torch.Generator().manual_seed(3))
+    field = g + 0.05 * (g**2 - (g**2).mean())
+    F, U, tri, _ = M._bispectrum_inputs(field.cuda(), (64.0,) * 3)
+    out = BS.bispectrum_triples_kernel(F, U, tri)
+    assert torch.equal(out, BS.bispectrum_triples_kernel(F, U, tri))
+    ref, mag = BS.bispectrum_triples_plain(F, U, tri, with_abs=True)
+    assert float(((out - ref).abs() / mag).max()) <= 1e-9
+    tpa.reset_launches()
+    _, t_card, b_card, _ = M.bispectrum(field.cuda(), box_size=(64.0,) * 3)
+    assert dict(tpa.LAUNCHES) == {("bispectrum_sums", "partials", 0): 1,
+                                  ("bispectrum_sums", "reduce", 0): 1}
+    _, t_cpu, b_cpu, _ = M.bispectrum(field, box_size=(64.0,) * 3)
+    np.testing.assert_array_equal(t_card, t_cpu)
+    torch.testing.assert_close(b_card.cpu(), b_cpu, rtol=0, atol=1e-4 * float(b_cpu.abs().max()))

@@ -6,7 +6,8 @@ values), block (default and hide=), trace, seed, reset, potential, force,
 `kaiser_post` start, count2delta, and one McLachlan step of the conditioned,
 blocked model from the same state.
 
-One JAX model serves the module, and its value+grad is compiled once: JAX
+One JAX model serves the module, and its value+grad is compiled once, in
+float64, and shared with test_torch_model.py (the same configuration): JAX
 sites are listed from an abstract trace (jax.eval_shape), values from
 jitted calls.
 """
@@ -19,6 +20,7 @@ from jax import numpy as jnp, random as jr
 
 from montecosmo_tpu.samplers import mclmc as J
 from montecosmo_tpu_torch import FieldLevelModel, default_config
+from test_torch_model import jax_value_and_grad_16
 from montecosmo_tpu_torch.models.bricks import count2delta, kaiser_posterior
 from montecosmo_tpu_torch.samplers import mclmc as T
 
@@ -65,18 +67,19 @@ def f64(p):
 
 @pytest.fixture(scope="module")
 def conditioned(pair):
-    """The JAX value+grad of the conditioned, blocked model's logpdf in
-    float64, compiled (and so bound to that model) here; call it under
-    jax.enable_x64.  Off s_e2 = 0 the JAX package's float32 gradient in
-    s_e2_ is ill-conditioned (1.86 relative off at a step from the test's
-    point; test_torch_quadgauss.py), its float64 one is not."""
+    """The JAX value+grad of the conditioned model's logpdf in float64: the
+    package's logpdf with the counts substituted, test_torch_model.py's
+    program of this configuration (compiled once for both files); call it
+    under jax.enable_x64.  Off s_e2 = 0 the JAX package's float32 gradient
+    in s_e2_ is ill-conditioned (1.86 relative off at a step from the
+    test's point; test_torch_quadgauss.py), its float64 one is not."""
     jm, tm, p, count = pair
-    with jax.enable_x64(True):
-        condition(jm)
-        vg = jax.jit(jax.value_and_grad(jm.logpdf))
-        jax.block_until_ready(vg(f64(p)))
     jm.reset()
-    return vg
+    program = jax_value_and_grad_16(jm, CONF, x64=True)
+    with jax.enable_x64(True):
+        obs = {"count_mesh": jnp.asarray(count, jnp.float64)}
+        jax.block_until_ready(program(f64(p), obs))
+    return lambda x: program(x, obs)
 
 
 def jax_sites(jm, fn=None):

@@ -136,6 +136,11 @@ def jit_vjp(fn, args, ct):
     return jax.jit(lambda *a: (lambda out, pull: (out, pull(ct)))(*jax.vjp(fn, *a)))(*args)
 
 
+# the jitted JAX side of `_both`, per (function, wrt): calls of one
+# function on other arrays of the same shapes reuse its compiled program
+_BOTH_PROGRAMS = {}
+
+
 def _both(fn_t, fn_j, args, wrt):
     """fn(*args) and the gradient of its sum with respect to args[wrt] in
     both packages (float32)."""
@@ -145,8 +150,11 @@ def _both(fn_t, fn_j, args, wrt):
     jargs = [jnp.asarray(a) for a in args]
     # one jitted program for the values and the gradient (eager JAX
     # dispatches, and compiles, every primitive of both on its own)
-    out_j, grads_j = jax.jit(lambda *a: (fn_j(*a), jax.grad(lambda *b: fn_j(*b).sum(),
-                                                            argnums=tuple(wrt))(*a)))(*jargs)
+    key = (fn_j, tuple(wrt))
+    if key not in _BOTH_PROGRAMS:
+        _BOTH_PROGRAMS[key] = jax.jit(lambda *a: (fn_j(*a), jax.grad(
+            lambda *b: fn_j(*b).sum(), argnums=tuple(wrt))(*a)))
+    out_j, grads_j = _BOTH_PROGRAMS[key](*jargs)
     return out_t.detach().numpy(), np.asarray(out_j), [g.numpy() for g in grads_t], [
         np.asarray(g) for g in grads_j]
 
@@ -186,13 +194,14 @@ def test_normal_and_quad_gaussian_cdfs_match_jax():
         _close(ot, oj, 1e-5)
         for a, b in zip(gt, gj):
             _close(a, b, 1e-4)
-    for s2 in (0.3, -0.2, 0.0):
-        s2s = np.full(300, s2, np.float32)
-        for name in ("cdf", "log_cdf"):
-            ot, oj, gt, gj = _both(
-                lambda v, m, a, b: getattr(td.QuadGaussian(m, a, b), name)(v),
-                lambda v, m, a, b: getattr(jd.QuadGaussian(m, a, b), name)(v),
-                (value, loc, s1, s2s), (0, 1, 2, 3))
+    # scale2 is an array argument: one compiled JAX program a name serves
+    # the three curvatures
+    for name in ("cdf", "log_cdf"):
+        fn_t = lambda v, m, a, b: getattr(td.QuadGaussian(m, a, b), name)(v)  # noqa: E731
+        fn_j = lambda v, m, a, b: getattr(jd.QuadGaussian(m, a, b), name)(v)  # noqa: E731
+        for s2 in (0.3, -0.2, 0.0):
+            s2s = np.full(300, s2, np.float32)
+            ot, oj, gt, gj = _both(fn_t, fn_j, (value, loc, s1, s2s), (0, 1, 2, 3))
             finite = np.isfinite(oj)
             np.testing.assert_array_equal(np.isfinite(ot), finite)
             _close(ot[finite], oj[finite], 1e-5)

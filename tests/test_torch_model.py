@@ -65,11 +65,26 @@ def test_golden_forward_lpt_32():
 
 # the JAX value_and_grad of each configuration, compiled once per process
 # (the latents and the counts are its arguments): the two 16^3 2LPT tests
-# share one
+# share one, in float64, with test_torch_handlers.py
 JAX_VALUE_AND_GRAD = {}
 
 
-def logpdf_and_grad_16(evolution, s_e2=None, **updates):
+def jax_value_and_grad_16(jm, conf, x64=False):
+    """The JAX package's jitted value_and_grad of jm.logpdf({**q, **o})
+    (latents q, observation o) of configuration `conf`, cached per process
+    under (conf, x64): traced at its first call, so `jm` must then be
+    unconditioned; with `x64`, call it under jax.enable_x64.  At o = the
+    counts it is the conditioned model's logpdf, which
+    test_torch_handlers.py holds the port's handlers against."""
+    import jax
+
+    key = (repr(sorted((k, v) for k, v in conf.items())), x64)
+    if key not in JAX_VALUE_AND_GRAD:
+        JAX_VALUE_AND_GRAD[key] = jax.jit(jax.value_and_grad(lambda q, o: jm.logpdf({**q, **o})))
+    return JAX_VALUE_AND_GRAD[key]
+
+
+def logpdf_and_grad_16(evolution, s_e2=None, x64=False, **updates):
     """logpdf value and gradient (white_mesh_ and every scalar latent) at the
     __graft_entry__._small_model(final=16, evolution) configuration with
     `updates`, same numpy inputs and the same count_mesh for both packages.
@@ -84,6 +99,8 @@ def logpdf_and_grad_16(evolution, s_e2=None, **updates):
     |s1 / (2 s2)|: 1-3% from float64), and the port's, written without that
     cancellation (tests/test_torch_quadgauss.py), is held instead against
     the port's own model run in float64 on the CPU, at the same tolerance.
+    With `x64` the JAX side runs in float64 (the JAX model built in
+    float32, its program traced and run under jax.enable_x64).
     """
     import jax
     from jax import numpy as jnp
@@ -118,15 +135,16 @@ def logpdf_and_grad_16(evolution, s_e2=None, **updates):
     lt = tm.logpdf({**tp, "count_mesh": torch.as_tensor(count)})
     lt.backward()
 
-    key = repr(sorted((k, v) for k, v in conf.items()))
-    if key not in JAX_VALUE_AND_GRAD:
-        JAX_VALUE_AND_GRAD[key] = jax.jit(jax.value_and_grad(lambda q, o: jm.logpdf({**q, **o})))
-    lj, gj = JAX_VALUE_AND_GRAD[key]({k: jnp.asarray(v) for k, v in p.items()},
-                                     {"count_mesh": jnp.asarray(count)})
+    dtype = jnp.float64 if x64 else jnp.float32
+    with jax.enable_x64(x64):
+        lj, gj = jax_value_and_grad_16(jm, conf, x64)(
+            {k: jnp.asarray(v, dtype) for k, v in p.items()},
+            {"count_mesh": jnp.asarray(count, dtype)})
+        lj, gj = float(lj), {k: np.asarray(g) for k, g in gj.items()}
 
     assert np.isfinite(lt.item()) and abs(lt.item() - float(lj)) <= 1e-5 * abs(float(lj))
     assert set(gj) == set(tp)
-    ref = {k: np.asarray(g) for k, g in gj.items()}
+    ref = dict(gj)
     if s_e2 is not None:
         t64 = {k: torch.tensor(np.asarray(v, np.float64), requires_grad=True) for k, v in p.items()}
         tm.logpdf({**t64, "count_mesh": torch.as_tensor(count, dtype=torch.float64)}).backward()
@@ -134,33 +152,39 @@ def logpdf_and_grad_16(evolution, s_e2=None, **updates):
         # measured at s_e2 = 0.03: port float32 -1.226501, float64 -1.226494,
         # JAX float32 -1.238844 (1.0% off)
         print(f"gradient in s_e2_: port float32 {tp['s_e2_'].grad.item():.6f}, float64 "
-              f"{ref['s_e2_'].item():.6f}; JAX float32 {float(gj['s_e2_']):.6f}")
+              f"{ref['s_e2_'].item():.6f}; JAX {'float64' if x64 else 'float32'} "
+              f"{float(gj['s_e2_']):.6f}")
     for k, gk in ref.items():
         np.testing.assert_allclose(tp[k].grad.numpy(), gk, rtol=1e-3,
                                    atol=1e-4 * max(np.abs(gk).max(), 1e-30), err_msg=k)
 
 
 def test_logpdf_and_grad_match_jax_16():
-    logpdf_and_grad_16("lpt")
+    """The JAX side in float64 (its program shared with
+    test_torch_handlers.py)."""
+    logpdf_and_grad_16("lpt", x64=True)
 
 
 def test_logpdf_and_grad_match_jax_16_s_e2():
     """The same at s_e2 = 0.03 (|scale2 / scale1| ~ 0.03), the quad-Gaussian
     likelihood's own branch: the s_e2_ gradient against the port in
     float64."""
-    logpdf_and_grad_16("lpt", s_e2=0.03)
+    logpdf_and_grad_16("lpt", s_e2=0.03, x64=True)
 
 
 def test_port_never_imports_jax():
     """A fresh interpreter that imports the port, its samplers, its files
     (utils.io, utils.geometry, utils.catalogs), chains, the campaign and its
-    CLI, the register and accuracy CLIs, builds a model, conditions and
-    blocks it and draws the samplers' start leaves keeps jax, the JAX
-    package, h5py and PyYAML out of sys.modules."""
+    CLI, the register and accuracy CLIs, the analysis layer (metrics, the
+    bispectrum's K10 wrapper, bdec, and plot with matplotlib present),
+    builds a model, conditions and blocks it and draws the samplers' start
+    leaves keeps jax, the JAX package, h5py and PyYAML out of
+    sys.modules."""
     code = ("import sys, torch, montecosmo_tpu_torch as m\n"
             "from montecosmo_tpu_torch.ops import paint, pm, _kernels\n"
             "from montecosmo_tpu_torch import convert, samplers, chains, script, infer\n"
-            "from montecosmo_tpu_torch import register, accuracy\n"
+            "from montecosmo_tpu_torch import register, accuracy, metrics, bdec, plot\n"
+            "from montecosmo_tpu_torch.ops import bispectrum\n"
             "from montecosmo_tpu_torch.utils import io, geometry, catalogs\n"
             "c = dict(m.default_config); c.update(final_shape=(8, 8, 8), curved_sky=False,"
             " a_obs=0.5, box_center=(0, 0, 500.0))\n"

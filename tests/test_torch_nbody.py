@@ -8,6 +8,8 @@ Tolerances are float32 ones, as in test_torch_ops.py: a few ulps for
 elementwise chains, ~1e-5 relative for sums over a mesh; N-body states
 carry the FFT and read rounding of every step (1e-4).
 """
+from functools import lru_cache
+
 import numpy as np
 import pytest
 import torch
@@ -147,12 +149,9 @@ def _nbody_inputs(final=16, box=128.0, seed=25):
     return shape, (box,) * 3, _lin_field(shape, (box,) * 3, seed)
 
 
-@pytest.mark.parametrize("snapshots", [None, 3])
-def test_nbody_bf_matches_jax(snapshots):
-    """nbody_bf (pos, vel) at 16^3 after 3 steps to a=1, with the model's
-    lattice_shape and sites_shape and a bound max_disp=1 that the clamp
-    crosses; with snapshots=3 the stacked states.  Gradient of a random
-    linear functional of the result w.r.t. the linear field and Omega_m."""
+def _nbody_bf_case(snapshots):
+    """(kw, the linear field (real), the random functional's pos/vel
+    weights) of test_nbody_bf_matches_jax's case `snapshots`."""
     shape, box, lin = _nbody_inputs()
     lin = np.fft.irfftn(lin, shape, axes=(0, 1, 2)).astype(np.float32)  # real input: one gradient convention
     kw = dict(a0=0.0, a1=1.0, n_steps=3, snapshots=snapshots, lattice_shape=shape,
@@ -161,14 +160,42 @@ def test_nbody_bf_matches_jax(snapshots):
     n_snap = 1 if snapshots is None else snapshots
     rp, rv = (rng.standard_normal((n_snap, int(np.prod(shape)), 3)).astype(np.float32)
               for _ in range(2))
+    return kw, lin, rp, rv
 
-    def jfun(m, om):
-        bg = jbg.Background.create(jbg.get_cosmology(Omega_m=om, sigma8=0.8))
-        pos, vel = jpm.nbody_bf(bg, jnp.fft.rfftn(m), jbr.regular_pos(shape), **kw)
-        return (pos * rp).sum() + (vel * rv).sum(), (pos, vel)
 
-    (_, (pj, vj)), (gmj, goj) = jax.jit(jax.value_and_grad(jfun, (0, 1), has_aux=True))(
+@lru_cache(maxsize=None)
+def _jax_nbody_bf():
+    """The JAX results of both cases of test_nbody_bf_matches_jax, value
+    and gradient, in one compiled program."""
+    shape = _nbody_inputs()[0]
+
+    def case(snapshots):
+        kw, _, rp, rv = _nbody_bf_case(snapshots)
+
+        def jfun(m, om):
+            bg = jbg.Background.create(jbg.get_cosmology(Omega_m=om, sigma8=0.8))
+            pos, vel = jpm.nbody_bf(bg, jnp.fft.rfftn(m), jbr.regular_pos(shape), **kw)
+            return (pos * rp).sum() + (vel * rv).sum(), (pos, vel)
+
+        return jax.value_and_grad(jfun, (0, 1), has_aux=True)
+
+    cases = {s: case(s) for s in (None, 3)}
+    lin = _nbody_bf_case(None)[1]
+    out = jax.jit(lambda m, om: {str(s): f(m, om) for s, f in cases.items()})(
         jnp.asarray(lin), jnp.float32(0.31))
+    return jax.tree_util.tree_map(np.asarray, out)
+
+
+@pytest.mark.parametrize("snapshots", [None, 3])
+def test_nbody_bf_matches_jax(snapshots):
+    """nbody_bf (pos, vel) at 16^3 after 3 steps to a=1, with the model's
+    lattice_shape and sites_shape and a bound max_disp=1 that the clamp
+    crosses; with snapshots=3 the stacked states.  Gradient of a random
+    linear functional of the result w.r.t. the linear field and Omega_m.
+    The JAX side of both cases is one compiled program."""
+    shape = _nbody_inputs()[0]
+    kw, lin, rp, rv = _nbody_bf_case(snapshots)
+    (_, (pj, vj)), (gmj, goj) = _jax_nbody_bf()[str(snapshots)]
 
     mt, omt = T(lin, True), T(np.float32(0.31), True)
     bg = tbg.Background.create(tbg.get_cosmology(Omega_m=omt, sigma8=torch.tensor(0.8)))

@@ -316,13 +316,16 @@ def test_distributions_log_prob_and_grads():
     rng = np.random.default_rng(13)
     loc = rng.uniform(0.5, 2.0, 64).astype(np.float32)
     val = (loc + 0.4 * rng.standard_normal(64)).astype(np.float32)
+    # scale2 an argument: one compiled JAX program serves both
+    vg = jax.jit(jax.value_and_grad(lambda s, s2: jdi.QuadGaussian(
+        jnp.asarray(loc), s, s2).log_prob(jnp.asarray(val)).sum()))
     for s2 in (0.0, 0.08):
         s1 = T(np.float32(0.7), True)
         lt = tdi.QuadGaussian(T(loc), s1, s2).log_prob(T(val)).sum()
         lt.backward()
-        fj = lambda s: jdi.QuadGaussian(jnp.asarray(loc), s, s2).log_prob(jnp.asarray(val)).sum()
-        close(lt, fj(jnp.float32(0.7)))
-        close(s1.grad, jax.jit(jax.grad(fj))(jnp.float32(0.7)), 1e-4)
+        vj, gj = vg(jnp.float32(0.7), jnp.float32(s2))
+        close(lt, vj)
+        close(s1.grad, gj, 1e-4)
     # DetruncTruncNorm (the bounded latents) is held against JAX through the
     # model's logpdf gradient in test_torch_model.py
     x = np.array([-3.0, -0.5, 0.0, 0.4, 2.0], np.float32)
