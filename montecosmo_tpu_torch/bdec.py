@@ -30,22 +30,30 @@ def _t(x, like=None):
     return x if torch.is_tensor(x) else torch.as_tensor(np.asarray(x))
 
 
-def cumulative_trapezoid(y, x=None, dx=1.0, axis=-1, initial=None):
-    """The cumulative composite-trapezoid integral of y(x) along `axis`;
-    `x` 1-D (shared) or shaped like `y`; `initial` is prepended so that the
-    output keeps y's length."""
-    yy = torch.movedim(_t(y), axis, -1)
+def _cumulative_trapezoid64(yy, x, dx, axis, initial):
+    """`cumulative_trapezoid` along the last axis of `yy` (x moved there
+    too), its running sum in float64."""
     mids = 0.5 * (yy[..., 1:] + yy[..., :-1])
     if x is None:
         steps = dx
     else:
         x = _t(x)
         steps = torch.diff(x if x.ndim == 1 else torch.movedim(x, axis, -1), dim=-1)
-    out = torch.cumsum(steps * mids, dim=-1)
+    out = torch.cumsum(steps * mids, dim=-1, dtype=torch.float64)
     if initial is not None:
         lead = torch.full((*out.shape[:-1], 1), initial, dtype=out.dtype, device=out.device)
         out = torch.cat([lead, out], -1)
-    return torch.movedim(out, -1, axis)
+    return out
+
+
+def cumulative_trapezoid(y, x=None, dx=1.0, axis=-1, initial=None):
+    """The cumulative composite-trapezoid integral of y(x) along `axis`;
+    `x` 1-D (shared) or shaped like `y`; `initial` is prepended so that the
+    output keeps y's length.  The running sum is carried in float64 and
+    cast back to y's dtype (see `_cdf_knots`)."""
+    yy = torch.movedim(_t(y), axis, -1)
+    out = _cumulative_trapezoid64(yy, x, dx, axis, initial)
+    return torch.movedim(out.to(yy.dtype), -1, axis)
 
 
 # ------------------------------------------------------------------ CDF knots
@@ -72,15 +80,22 @@ def _sorted_knots(x, weights, axis):
 
 def _cdf_knots(xs, ws, ord):
     """The normalised CDF at the sorted knots (last axis), and the weights
-    normalised by the same total (the order-2 density)."""
+    normalised by the same total (the order-2 density).
+
+    The running sums and the normalisation are carried in float64 and cast
+    back to the weights' dtype: a float32 `cumsum` adds in another order on
+    the card than on the CPU, and the rounding of a CDF knot can move a
+    smallest interval's left end (`sci`'s argmin) from one sample to the
+    next.  Rounded from float64, the knots agree on both devices, and the
+    rest is elementwise."""
     if ord == 1:
-        raw = torch.cumsum(ws, dim=-1)
+        raw = torch.cumsum(ws, dim=-1, dtype=torch.float64)
     elif ord == 2:
-        raw = cumulative_trapezoid(ws, xs, axis=-1, initial=0.0)
+        raw = _cumulative_trapezoid64(ws, xs, 1.0, -1, 0.0)
     else:
         raise NotImplementedError("only CDF interpolation orders 1 and 2")
     total = raw[..., -1:]
-    return safe_div(raw, total), safe_div(ws, total)
+    return safe_div(raw, total).to(ws.dtype), safe_div(ws.double(), total).to(ws.dtype)
 
 
 def _inv_cdf(p, xs, cdf, ws, ord):

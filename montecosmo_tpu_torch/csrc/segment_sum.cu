@@ -11,145 +11,154 @@
 // lookup (ops/segment.py::take_rows) and the power spectrum's binning.
 //
 // The result is the same bit for bit from launch to launch: no float is
-// ever added in an order that depends on scheduling.  The rule:
-//   1. a thread sums its own contiguous run of queries in order, in
-//      float64 registers, one column at a time, restarting at each change
-//      of id (light-cone lookups come in lattice order, so runs are long);
-//   2. at a run's end the sum is rounded once to a fixed-point integer,
-//      v 2^s, and added with integer atomics: into the CTA's table in
-//      shared memory (32-bit words with their carries), then, once per
-//      CTA and entry, into a device-memory accumulator (64-bit words).
-//      Integer addition is associative, so the final integers do not
-//      depend on the order of the adds;
-//   3. a last pass turns each integer back into a float, v 2^-s.
-// The scale 2^s is a power of two from max |src| and N: with max |src| <
-// 2^em and N < 2^en, s = 62 - em - en (float: 64-bit fixed point, two
-// words) or 126 - em - en (float64: 128-bit, four words), so no sum of N
-// values overflows.  max |src| comes from a first pass (atomicMax on the
-// bits of |x|, which order as the values do), read on the device: nothing
-// syncs with the host.  A non-finite src makes every output NaN.
-// Precision: each run's sum is rounded once, to 2^-s, which is
-// max|src| N 2^-62 or finer (float32 src; 2^-126 for float64).
+// added in an order that depends on scheduling.  One launch:
+//   1. Warp w of CTA b takes a contiguous range of queries (the plan's
+//      per_warp) in batches of U rounds of 32: lane q reads query base + q
+//      of each round, so a warp's loads of src and idx are coalesced, and
+//      the next batch loads while this one is summed.  A round whose 32
+//      ids are one row adds to a run carried over whole rounds, each lane
+//      its own float64 sum (an xor butterfly ends it).  In any other round
+//      a lane compares its id with its neighbour's (__shfl_up_sync) and a
+//      segmented warp scan sums each run of equal ids in float64 (a fixed
+//      tree, cut short once every lane has reached the head of its run),
+//      so the run's last lane holds its sum.
+//   2. Each run's sum is rounded once to a fixed-point integer, v 2^s, and
+//      added to the CTA's table in shared memory with 32-bit integer
+//      atomics and their carries (64-bit words for float32 src, 128-bit
+//      for float64).  Integer addition is associative, so the table does
+//      not depend on the order of the adds.  The scale 2^s is the CTA's
+//      own: before each batch the CTA's warps agree (two __syncthreads) on
+//      the largest exponent of the values met so far, e, and s = kMag - e
+//      - log2(the CTA's queries), so no sum can overflow; when e grows the
+//      table is shifted right (rounded) to the new scale, and rows met for
+//      the first time are zeroed.  The sequence of scales is fixed by the
+//      data and the plan.
+//   3. The CTA turns its table into float64, v 2^-s, over the rows it
+//      touched and writes them, with that row range, to scratch.  A ticket
+//      counter picks the last CTA of each group of kGroup to finish: it
+//      sums the group's partials in a pairwise (tree) order over the CTAs,
+//      every member's load in flight at once; the last group to finish sums
+//      the groups the same way and writes out, 0 where no query fell.  The
+//      counters wrap to 0 by themselves (atomicInc), so nothing is zeroed
+//      before a launch.
+// Precision: each run's sum is rounded once, to 2^-s: a 2^-62 (float32
+// src) or 2^-126 (float64) share of the CTA's largest value times its
+// queries; then float64 sums of the CTAs' partials, rounded once to src's
+// dtype.  A non-finite value makes its CTA's rows NaN.
 //
-// What bounds it on an H100: bytes.  The queries are read once (src, N C
-// floats, and idx) and the output written once; besides, the max pass
-// reads src again, and each CTA adds each row it touched to the
-// accumulator once (8 or 16 bytes an entry).  The shared table holds
-// rows x columns x words 32-bit words; up to kSmemBytes a launch, so a
-// larger table is taken in row chunks (each launch skips the ids outside
-// its rows), and more than kMaxCols columns in column chunks.
+// What bounds it on an H100: bytes.  src (N C values) and idx are read
+// once and out written once; each CTA also writes its touched rows' float64
+// partials and the group finishers read them back (R C 8 bytes a CTA at
+// most).  One launch a call while the CTA's table (R C words) fits; wider
+// tables are taken in row chunks and more than kMaxCols columns in column
+// chunks, a launch each, each launch dropping the ids outside its rows.
 //
 // Plain C interface, loaded with ctypes; segment_sum returns
 // cudaGetLastError() after its launches.
+#include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kMaxCols = 8;                 // columns a launch carries in registers
-constexpr int kMinPerThread = 16;           // queries a thread takes at least
-constexpr int kSmemBytes = 96 * 1024;       // the shared table's budget a launch
-constexpr int kBlocksPerSm = 4;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 8;     // warps a CTA
+constexpr int kMaxCols = 8;   // columns a launch carries in registers
+constexpr int kGroup = 16;    // CTAs a group finisher sums
+constexpr int kTop = 32;      // groups the last finisher sums in one tree
+constexpr int kMaxGroups = 64;  // groups a launch may have (ops/segment.py checks)
+constexpr int kNone = -2000;  // the exponent before any nonzero value
 
+// Queries a lane loads ahead, by the columns it carries: 16 values in
+// registers whatever the width, so that each warp keeps loads in flight.
+template <int CM>
+struct Unroll {
+  static constexpr int value = 16 / CM;
+};
+
+// The fixed point of src's type: W 32-bit words an entry, |sum| 2^s below
+// 2^kMag.  `bits` is |x|'s bit pattern (which orders as |x| does), and
+// `exponent` of the largest bits the e with |x| < 2^e: INT_MAX when it is
+// not finite, kNone for 0.
 template <typename T>
-struct Traits;
+struct Fixed;
 
 template <>
-struct Traits<float> {
-  using Bits = unsigned int;
-  static constexpr int kWords = 2;        // 64-bit fixed point
-  static constexpr int kMagnitude = 62;   // |sum| 2^s < 2^62
-  static __device__ Bits abs_bits(float x) { return __float_as_uint(fabsf(x)); }
-  static __device__ double value(Bits b) { return (double)__uint_as_float(b); }
+struct Fixed<float> {
+  static constexpr int W = 2, kMag = 62;
+  static __device__ unsigned long long bits(float x) { return __float_as_uint(x) & 0x7fffffffu; }
+  static __device__ int exponent(unsigned long long m) {
+    const int b = (int)(m >> 23);
+    return b == 0xff ? INT_MAX : (m == 0ull ? kNone : (b == 0 ? -126 : b - 126));
+  }
 };
 
 template <>
-struct Traits<double> {
-  using Bits = unsigned long long;
-  static constexpr int kWords = 4;        // 128-bit fixed point
-  static constexpr int kMagnitude = 126;  // |sum| 2^s < 2^126
-  static __device__ Bits abs_bits(double x) { return (Bits)__double_as_longlong(fabs(x)); }
-  static __device__ double value(Bits b) { return __longlong_as_double((long long)b); }
+struct Fixed<double> {
+  static constexpr int W = 4, kMag = 126;
+  static __device__ unsigned long long bits(double x) {
+    return (unsigned long long)__double_as_longlong(x) & 0x7fffffffffffffffull;
+  }
+  static __device__ int exponent(unsigned long long m) {
+    const int b = (int)(m >> 52);
+    return b == 0x7ff ? INT_MAX : (m == 0ull ? kNone : (b == 0 ? -1022 : b - 1022));
+  }
 };
 
-// max |src| over n values, as the bits of a non-negative float: a block's
-// tree in shared memory, then one atomicMax a block.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    abs_max_kernel(const T* __restrict__ src, long long n, typename Traits<T>::Bits* out) {
-  using Bits = typename Traits<T>::Bits;
-  __shared__ Bits part[kThreads];
-  Bits m = 0;
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long k = (long long)blockIdx.x * kThreads + threadIdx.x; k < n; k += stride) {
-    const Bits b = Traits<T>::abs_bits(src[k]);
-    m = b > m ? b : m;
-  }
-  part[threadIdx.x] = m;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s && part[threadIdx.x + s] > part[threadIdx.x])
-      part[threadIdx.x] = part[threadIdx.x + s];
-    __syncthreads();
-  }
-  if (threadIdx.x == 0 && part[0] != 0) atomicMax(out, part[0]);
+// v 2^s: a product by 2^s where that is a normal double, else ldexp.
+__device__ __forceinline__ double scaled(double v, int s) {
+  return s >= -1022 && s <= 1023 ? v * __longlong_as_double((long long)(s + 1023) << 52)
+                                 : ldexp(v, s);
 }
 
-// The fixed-point shift s of n values of at most max |src| (false when that
-// is not finite).
-template <typename T>
-__device__ inline bool shift_of(const typename Traits<T>::Bits* maxbits, long long n, int* s) {
-  const double m = Traits<T>::value(*maxbits);
-  if (!isfinite(m)) return false;
-  int em = 0, en = 0;
-  frexp(m, &em);
-  frexp((double)n, &en);
-  *s = Traits<T>::kMagnitude - em - en;
-  return true;
+// The pairwise sum of N values (N a power of two) in a fixed tree: the
+// members that add nothing hold 0, so the order of the additions depends
+// on N alone.
+template <int N>
+__device__ __forceinline__ double tree_sum(double (&v)[N]) {
+#pragma unroll
+  for (int w = N / 2; w >= 1; w /= 2) {
+#pragma unroll
+    for (int i = 0; i < w; ++i) v[i] = v[2 * i] + v[2 * i + 1];
+  }
+  return v[0];
 }
 
-// v 2^s rounded to the nearest integer, as W 32-bit words of its two's
-// complement, the lowest first.
+// The CTA's table keeps word j of entry e = c rows + r at tab[j E + e], so
+// lanes that add to random rows spread over the banks.
+
+// tab[e] += v 2^s, v 2^s rounded to the nearest integer, W words of its
+// two's complement, the lowest first, each with a 32-bit atomic whose
+// returned value gives the carry into the next: the words hold the exact
+// sum mod 2^(32 W) whatever the order of the adds.
 template <int W>
-__device__ inline void to_fixed(double v, int s, unsigned (&w)[W]);
-
-template <>
-__device__ inline void to_fixed<2>(double v, int s, unsigned (&w)[2]) {
-  const unsigned long long u = (unsigned long long)__double2ll_rn(ldexp(v, s));
-  w[0] = (unsigned)u;
-  w[1] = (unsigned)(u >> 32);
-}
-
-template <>
-__device__ inline void to_fixed<4>(double v, int s, unsigned (&w)[4]) {
-  const double y = rint(ldexp(v, s));
-  const double a = fabs(y);
-  const double hi = floor(ldexp(a, -64));
-  unsigned long long h = (unsigned long long)hi;
-  unsigned long long l = (unsigned long long)(a - ldexp(hi, 64));  // exact: a's low bits
-  if (y < 0) {
-    l = ~l + 1ull;
-    h = ~h + (l == 0ull ? 1ull : 0ull);
+__device__ __forceinline__ void add_fixed(unsigned* tab, int E, int e, double v, int s) {
+  unsigned w[W];
+  if constexpr (W == 2) {
+    const unsigned long long u = (unsigned long long)__double2ll_rn(scaled(v, s));
+    w[0] = (unsigned)u;
+    w[1] = (unsigned)(u >> 32);
+  } else {
+    const double y = rint(scaled(v, s));
+    const double a = fabs(y);
+    const double hi = floor(ldexp(a, -64));
+    unsigned long long h = (unsigned long long)hi;
+    unsigned long long l = (unsigned long long)(a - ldexp(hi, 64));  // exact: a's low bits
+    if (y < 0) {
+      l = ~l + 1ull;
+      h = ~h + (l == 0ull ? 1ull : 0ull);
+    }
+    w[0] = (unsigned)l;
+    w[1] = (unsigned)(l >> 32);
+    w[2] = (unsigned)h;
+    w[3] = (unsigned)(h >> 32);
   }
-  w[0] = (unsigned)l;
-  w[1] = (unsigned)(l >> 32);
-  w[2] = (unsigned)h;
-  w[3] = (unsigned)(h >> 32);
-}
-
-// dst += w over W 32-bit words in shared memory, with 32-bit integer
-// atomics (native on shared memory, 64-bit ones are not): each word's
-// carry out comes from the value the atomic returns, so the W words hold
-// the exact sum mod 2^(32 W) whatever the order of the adds.
-template <int W>
-__device__ inline void add_fixed(unsigned* dst, const unsigned (&w)[W]) {
   unsigned carry = 0u;
 #pragma unroll
   for (int j = 0; j < W; ++j) {
     const unsigned add = w[j] + carry;            // mod 2^32
     const unsigned wrap = add < w[j] ? 1u : 0u;   // w[j] = 2^32 - 1 plus a carry
     if (add != 0u) {
-      const unsigned old = atomicAdd(dst + j, add);
+      const unsigned old = atomicAdd(tab + j * E + e, add);
       carry = wrap | (old + add < old ? 1u : 0u);
     } else {
       carry = wrap;
@@ -157,180 +166,393 @@ __device__ inline void add_fixed(unsigned* dst, const unsigned (&w)[W]) {
   }
 }
 
-// The sums of the current run, column by column, into the CTA's table.
-template <typename T>
-__device__ inline void flush_run(unsigned* tile, long long r, int nc, int s,
-                                 const double (&run)[kMaxCols]) {
-  constexpr int W = Traits<T>::kWords;
+// Entry e as a signed (32 W)-bit integer.
+template <int W>
+__device__ __forceinline__ __int128 read_fixed(const unsigned* tab, int E, int e) {
+  unsigned __int128 u = 0;
 #pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) {
-    if (c < nc && run[c] != 0.0) {
-      unsigned w[W];
-      to_fixed<W>(run[c], s, w);
-      add_fixed<W>(tile + (r * nc + c) * W, w);
-    }
+  for (int j = W - 1; j >= 0; --j) u = (u << 32) | tab[j * E + e];
+  if constexpr (W == 2) return (__int128)(long long)(unsigned long long)u;
+  return (__int128)u;
+}
+
+// Entry e as a float64, v 2^-s.
+template <int W>
+__device__ __forceinline__ double fixed_value(const unsigned* tab, int E, int e, int s) {
+  const __int128 x = read_fixed<W>(tab, E, e);
+  const bool neg = x < 0;
+  const unsigned __int128 a = neg ? (unsigned __int128)(-x) : (unsigned __int128)x;
+  const double v = ldexp((double)(unsigned long long)(a >> 64), 64) +
+                   (double)(unsigned long long)a;
+  return ldexp(neg ? -v : v, -s);
+}
+
+// Entry e shifted right by d > 0 bits, rounded half up: the same sum at
+// the scale 2^(s - d).
+template <int W>
+__device__ __forceinline__ void shift_fixed(unsigned* tab, int E, int e, int d) {
+  __int128 x = read_fixed<W>(tab, E, e);
+  x = d >= 32 * W - 1 ? (__int128)0 : (x + ((__int128)1 << (d - 1))) >> d;
+  const unsigned __int128 u = (unsigned __int128)x;
+#pragma unroll
+  for (int j = 0; j < W; ++j) tab[j * E + e] = (unsigned)(u >> (32 * j));
+}
+
+// Group finisher: the sums of `members` (<= kGroup) partials of E entries
+// each, partial m at part + m E, whose row ranges are in range[2 m],
+// range[2 m + 1], in a fixed pairwise tree over the member slots, over the
+// rows [lo, hi] of their union.  The members' loads are issued together
+// (rows outside a range are loaded and dropped: the scratch there holds
+// whatever it held).
+__device__ void sum_members(const double* part, const int* range, int members, int rows,
+                            int nc, int lo, int hi, double* dst) {
+  const int span = lo <= hi ? hi - lo + 1 : 0;
+  for (int k = threadIdx.x; k < span * nc; k += blockDim.x) {
+    const int c = k / span, r = lo + k % span;
+    const long long e = (long long)c * rows + r;
+    double v[kGroup];
+#pragma unroll
+    for (int m = 0; m < kGroup; ++m)
+      v[m] = m < members ? __ldcg(part + m * (long long)rows * nc + e) : 0.0;
+#pragma unroll
+    for (int m = 0; m < kGroup; ++m)
+      if (!(m < members && range[2 * m] <= r && r <= range[2 * m + 1])) v[m] = 0.0;
+    dst[e] = tree_sum(v);
   }
 }
 
-// One row and column chunk: rows [row0, row0 + rows), columns [c0, c0 +
-// nc) of the (R, ld) output.  A CTA takes per_block consecutive queries,
-// each thread a contiguous part of them; the CTA's table of fixed-point
-// sums is then added to the device-memory accumulator acc (W / 2 64-bit
-// words an entry).
-template <typename T, typename I>
-__global__ void __launch_bounds__(kThreads)
-    segment_sum_kernel(const T* __restrict__ src, const I* __restrict__ idx, long long n, int ld,
-                       int c0, int nc, long long row0, int rows, long long per_block,
-                       const typename Traits<T>::Bits* __restrict__ maxbits,
-                       unsigned long long* __restrict__ acc) {
-  constexpr int W = Traits<T>::kWords;
-  extern __shared__ unsigned tile[];
-  int s = 0;
-  if (!shift_of<T>(maxbits, n, &s)) return;  // the last pass writes NaN
-  const int words = rows * nc * W;
-  for (int k = threadIdx.x; k < words; k += kThreads) tile[k] = 0u;
-  __syncthreads();
-
-  const long long begin = (long long)blockIdx.x * per_block;
-  const long long end = min(n, begin + per_block);
-  const long long per_thread = (per_block + kThreads - 1) / kThreads;
-  const long long q0 = begin + (long long)threadIdx.x * per_thread;
-  const long long q1 = min(end, q0 + per_thread);
-  double run[kMaxCols];
-#pragma unroll
-  for (int c = 0; c < kMaxCols; ++c) run[c] = 0.0;
-  long long cur = -1;  // the chunk row of the current run, -1 outside the chunk
-  for (long long q = q0; q < q1; ++q) {
-    long long r = (long long)idx[q] - row0;
-    if (r < 0 || r >= rows) r = -1;
-    if (r != cur) {
-      if (cur >= 0) flush_run<T>(tile, cur, nc, s, run);
-#pragma unroll
-      for (int c = 0; c < kMaxCols; ++c) run[c] = 0.0;
-      cur = r;
+// The union of `members` row ranges in shared memory (lo > hi when all
+// are empty).
+__device__ int2 union_range(const int* range, int members) {
+  int lo = INT_MAX, hi = -1;
+  for (int m = 0; m < members; ++m) {
+    if (range[2 * m] <= range[2 * m + 1]) {
+      lo = min(lo, range[2 * m]);
+      hi = max(hi, range[2 * m + 1]);
     }
-    if (cur >= 0) {
+  }
+  return make_int2(lo, hi);
+}
+
+// One batch of U x 32 queries of a warp into registers: lane q takes
+// queries base + 32 u + q (coalesced); id -1 past q1.  The values load
+// whatever the ids (no load waits on another).
+template <typename T, typename I, int CM>
+__device__ __forceinline__ void load_batch(const T* __restrict__ src, const I* __restrict__ idx,
+                                           long long base, long long q1, int ld, int c0, int nc,
+                                           long long (&id)[Unroll<CM>::value],
+                                           T (&v)[Unroll<CM>::value][CM]) {
+  const int lane = threadIdx.x % 32;
+#pragma unroll
+  for (int u = 0; u < Unroll<CM>::value; ++u) {
+    const long long q = base + 32 * u + lane;
+    id[u] = -1;
+#pragma unroll
+    for (int c = 0; c < CM; ++c) v[u][c] = T(0);
+    if (q < q1) {
+      id[u] = (long long)__ldg(idx + q);
       const T* row = src + q * ld + c0;
 #pragma unroll
-      for (int c = 0; c < kMaxCols; ++c)
-        if (c < nc) run[c] += (double)row[c];
+      for (int c = 0; c < CM; ++c)
+        if (c < nc) v[u][c] = __ldg(row + c);
     }
   }
-  if (cur >= 0) flush_run<T>(tile, cur, nc, s, run);
+}
+
+// The end of a carried run (a run that filled whole rounds of 32): its
+// lanes' sums by an xor butterfly, lane 0's added, then no run is carried.
+template <int W, int CM>
+__device__ __forceinline__ void end_carry(unsigned* tab, int rows, int nc, int s, int& carry,
+                                          double (&cacc)[CM]) {
+  if (carry < 0) return;
+#pragma unroll
+  for (int c = 0; c < CM; ++c) {
+    for (int o = 16; o > 0; o >>= 1) cacc[c] += __shfl_xor_sync(kFull, cacc[c], o);
+  }
+  if (threadIdx.x % 32 == 0) {
+#pragma unroll
+    for (int c = 0; c < CM; ++c)
+      if (c < nc) add_fixed<W>(tab, rows * nc, c * rows + carry, cacc[c], s);
+  }
+#pragma unroll
+  for (int c = 0; c < CM; ++c) cacc[c] = 0.0;
+  carry = -1;
+}
+
+// One launch: rows [row0, row0 + rows), columns [c0, c0 + nc) of the (R,
+// ld) output.  Scratch: partial (ctas + groups) x nc rows doubles, range
+// (ctas + groups) x 2 ints; counters 1 + groups words that are 0 between
+// launches.
+template <typename T, typename I, int CM>
+__global__ void __launch_bounds__(32 * kWarps, 2)
+    segment_sum_kernel(const T* __restrict__ src, const I* __restrict__ idx, long long n, int ld,
+                       int c0, int nc, long long row0, int rows, long long per_warp,
+                       double* __restrict__ partial, int* __restrict__ ranges,
+                       unsigned* __restrict__ counters, T* __restrict__ out) {
+  constexpr int U = Unroll<CM>::value;
+  constexpr int W = Fixed<T>::W;
+  extern __shared__ unsigned tab[];  // W x E words
+  __shared__ int wexp[kWarps], wlo[kWarps], whi[kWarps];
+  __shared__ int wrange[2 * kGroup];
+  __shared__ int gr_ranges[2 * kMaxGroups];
+  __shared__ int last;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int E = rows * nc;
+  const int ctas = gridDim.x, groups = (ctas + kGroup - 1) / kGroup;
+
+  // 1-2: the warps' queries, a batch of U x 32 each at a time, the next
+  // batch loading while this one is summed
+  int lo = INT_MAX, hi = -1;  // the rows the CTA has zeroed (uniform)
+  int e_max = kNone;          // the largest exponent met (uniform)
+  int en = 0;                 // 2^en > the CTA's queries
+  while ((1ll << en) <= kWarps * per_warp) ++en;
+  int s = 0;                  // the table's scale 2^s
+  int carry = -1;             // the row of a run that fills whole rounds of 32 (uniform)
+  double cacc[CM];            // its sums so far, one a lane (lane order is fixed)
+#pragma unroll
+  for (int c = 0; c < CM; ++c) cacc[c] = 0.0;
+  const long long q0 = ((long long)blockIdx.x * kWarps + warp) * per_warp;
+  const long long q1 = min(n, q0 + per_warp);
+  long long nid[U];
+  T nv[U][CM];
+  load_batch<T, I, CM>(src, idx, q0, q1, ld, c0, nc, nid, nv);
+  for (long long base = q0; base < q0 + per_warp; base += 32 * U) {
+    int key[U];  // each id as its row in the chunk, -1 when it is dropped
+    double v[U][CM];
+    unsigned long long mb = 0ull;  // the largest |x| of the kept values, as bits
+    int kmin = INT_MAX, kmax = -1;
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const long long r = nid[u] - row0;
+      key[u] = nid[u] >= 0 && r >= 0 && r < rows ? (int)r : -1;
+#pragma unroll
+      for (int c = 0; c < CM; ++c) {
+        v[u][c] = (double)nv[u][c];
+        if (key[u] >= 0) mb = max(mb, Fixed<T>::bits(nv[u][c]));
+      }
+      if (key[u] >= 0) {
+        kmin = min(kmin, key[u]);
+        kmax = max(kmax, key[u]);
+      }
+    }
+    int ex = Fixed<T>::exponent(mb);
+    if (base + 32 * U < q0 + per_warp)  // past q1 it loads no query
+      load_batch<T, I, CM>(src, idx, base + 32 * U, q1, ld, c0, nc, nid, nv);
+
+    // the CTA agrees on its scale and rows: rescale and zero, then add
+    ex = __reduce_max_sync(kFull, ex);
+    kmin = __reduce_min_sync(kFull, kmin);
+    kmax = __reduce_max_sync(kFull, kmax);
+    if (lane == 0) {
+      wexp[warp] = ex;
+      wlo[warp] = kmin;
+      whi[warp] = kmax;
+    }
+    __syncthreads();
+    int bex = e_max, blo = lo, bhi = hi;
+    for (int w = 0; w < kWarps; ++w) {
+      bex = max(bex, wexp[w]);
+      if (wlo[w] <= whi[w]) {
+        blo = min(blo, wlo[w]);
+        bhi = max(bhi, whi[w]);
+      }
+    }
+    if (bex > e_max && bex != INT_MAX && e_max != kNone && lo <= hi) {
+      const int span = hi - lo + 1;
+      for (int k = threadIdx.x; k < span * nc; k += blockDim.x)
+        shift_fixed<W>(tab, E, (k / span) * rows + lo + k % span, bex - e_max);
+    }
+    if (blo < lo || bhi > hi) {
+      const bool none = lo > hi;
+      const int a1 = none ? bhi + 1 : lo, b0 = none ? bhi + 1 : hi + 1;
+      for (int c = 0; c < nc; ++c) {
+        for (int r = blo + threadIdx.x; r < a1; r += blockDim.x)
+          for (int j = 0; j < W; ++j) tab[j * E + c * rows + r] = 0u;
+        for (int r = b0 + threadIdx.x; r <= bhi; r += blockDim.x)
+          for (int j = 0; j < W; ++j) tab[j * E + c * rows + r] = 0u;
+      }
+    }
+    e_max = bex;
+    lo = blo;
+    hi = bhi;
+    s = Fixed<T>::kMag - e_max - en;
+    __syncthreads();
+    if (e_max == INT_MAX) continue;  // a non-finite value: no more adds
+
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int k = key[u];
+      const int k0 = __shfl_sync(kFull, k, 0);
+      if (__all_sync(kFull, k == k0) && k0 >= 0) {
+        // one run fills the round: each lane adds its value to its own sum
+        if (k0 != carry) {
+          end_carry<W, CM>(tab, rows, nc, s, carry, cacc);
+          carry = k0;
+        }
+#pragma unroll
+        for (int c = 0; c < CM; ++c) cacc[c] += v[u][c];
+        continue;
+      }
+      end_carry<W, CM>(tab, rows, nc, s, carry, cacc);
+      const int kprev = __shfl_up_sync(kFull, k, 1);
+      const int knext = __shfl_down_sync(kFull, k, 1);
+      // the segmented inclusive scan, (f, v) <- (f_prev | f, f ? v : v_prev
+      // + v), until every lane has reached the head of its run
+      int f = (lane == 0 || kprev != k) ? 1 : 0;
+#pragma unroll
+      for (int d = 1; d < 32; d <<= 1) {
+        if (__all_sync(kFull, f)) break;
+        const int fp = __shfl_up_sync(kFull, f, d);
+        double vp[CM];
+#pragma unroll
+        for (int c = 0; c < CM; ++c) vp[c] = __shfl_up_sync(kFull, v[u][c], d);
+        if (lane >= d) {
+          if (!f) {
+#pragma unroll
+            for (int c = 0; c < CM; ++c) v[u][c] = vp[c] + v[u][c];
+          }
+          f |= fp;
+        }
+      }
+      if (k >= 0 && (lane == 31 || knext != k)) {
+#pragma unroll
+        for (int c = 0; c < CM; ++c)
+          if (c < nc) add_fixed<W>(tab, E, c * rows + k, v[u][c], s);
+      }
+    }
+  }
+  if (e_max != INT_MAX) end_carry<W, CM>(tab, rows, nc, s, carry, cacc);
   __syncthreads();
 
-  for (int k = threadIdx.x; k < rows * nc; k += kThreads) {
-    const unsigned* t = tile + k * W;
-    const unsigned long long lo = (unsigned long long)t[0] | ((unsigned long long)t[1] << 32);
-    unsigned long long* a = acc + ((row0 + k / nc) * ld + c0 + k % nc) * (W / 2);
-    if constexpr (W == 2) {
-      if (lo != 0ull) atomicAdd(a, lo);
-    } else {
-      const unsigned long long hi = (unsigned long long)t[2] | ((unsigned long long)t[3] << 32);
-      if ((lo | hi) != 0ull) {
-        const unsigned long long old = lo != 0ull ? atomicAdd(a, lo) : 0ull;
-        const unsigned long long up = hi + (old + lo < old ? 1ull : 0ull);
-        if (up != 0ull) atomicAdd(a + 1, up);
-      }
-    }
-  }
-}
-
-// acc's integers back to floats: out[e] = acc[e] 2^-s (NaN for a
-// non-finite src).
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fixed_to_float_kernel(const unsigned long long* __restrict__ acc, long long n_out, long long n,
-                          const typename Traits<T>::Bits* __restrict__ maxbits,
-                          T* __restrict__ out) {
-  constexpr int W = Traits<T>::kWords;
-  int s = 0;
-  const bool finite = shift_of<T>(maxbits, n, &s);
+  // 3: the CTA's partial over the rows it touched, as float64
+  double* mine = partial + (size_t)blockIdx.x * E;
+  const int span = lo <= hi ? hi - lo + 1 : 0;
   const double qnan = __longlong_as_double(0x7ff8000000000000LL);
-  const long long stride = (long long)gridDim.x * kThreads;
-  for (long long e = (long long)blockIdx.x * kThreads + threadIdx.x; e < n_out; e += stride) {
-    double v;
-    if constexpr (W == 2) {
-      v = (double)(long long)acc[e];
-    } else {
-      unsigned long long l = acc[2 * e], h = acc[2 * e + 1];
-      const bool neg = (long long)h < 0;
-      if (neg) {
-        l = ~l + 1ull;
-        h = ~h + (l == 0ull ? 1ull : 0ull);
-      }
-      v = ldexp((double)h, 64) + (double)l;
-      if (neg) v = -v;
+  for (int k = threadIdx.x; k < span * nc; k += blockDim.x) {
+    const int e = (k / span) * rows + lo + k % span;
+    mine[e] = e_max == INT_MAX ? qnan : fixed_value<W>(tab, E, e, s);
+  }
+  if (threadIdx.x == 0) {
+    ranges[2 * blockIdx.x] = lo;
+    ranges[2 * blockIdx.x + 1] = hi;
+  }
+  __threadfence();
+  __syncthreads();
+
+  // the last CTA of the group sums the group
+  const int g = blockIdx.x / kGroup, first = g * kGroup, members = min(kGroup, ctas - first);
+  if (threadIdx.x == 0) last = atomicInc(counters + 1 + g, members - 1) == members - 1;
+  __syncthreads();
+  if (!last) return;
+  if (threadIdx.x < 2 * members) wrange[threadIdx.x] = __ldcg(ranges + 2 * first + threadIdx.x);
+  __syncthreads();
+  const int2 gr = union_range(wrange, members);
+  sum_members(partial + (size_t)first * E, wrange, members, rows, nc, gr.x, gr.y,
+              partial + (size_t)(ctas + g) * E);
+  if (threadIdx.x == 0) {
+    ranges[2 * (ctas + g)] = gr.x;
+    ranges[2 * (ctas + g) + 1] = gr.y;
+  }
+  __threadfence();
+  __syncthreads();
+
+  // the last group sums the groups, kGroup at a time, and writes out
+  if (threadIdx.x == 0) last = atomicInc(counters, groups - 1) == groups - 1;
+  __syncthreads();
+  if (!last) return;
+  const double* gpart = partial + (size_t)ctas * E;
+  if (threadIdx.x < 2 * groups) gr_ranges[threadIdx.x] = __ldcg(ranges + 2 * ctas + threadIdx.x);
+  __syncthreads();
+  for (int k = threadIdx.x; k < E; k += blockDim.x) {
+    const int c = k / rows, r = k % rows;
+    double total = 0.0;  // kTop groups at a time, the trees' sums in order
+    for (int m0 = 0; m0 < groups; m0 += kTop) {
+      double v[kTop];
+#pragma unroll
+      for (int m = 0; m < kTop; ++m)
+        v[m] = m0 + m < groups ? __ldcg(gpart + (size_t)(m0 + m) * E + k) : 0.0;
+#pragma unroll
+      for (int m = 0; m < kTop; ++m)
+        if (!(m0 + m < groups && gr_ranges[2 * (m0 + m)] <= r && r <= gr_ranges[2 * (m0 + m) + 1]))
+          v[m] = 0.0;
+      total = m0 == 0 ? tree_sum(v) : total + tree_sum(v);
     }
-    out[e] = (T)(finite ? ldexp(v, -s) : qnan);
+    out[(row0 + r) * ld + c0 + c] = (T)total;
   }
 }
 
-int sm_count() {
-  static int sms = 0;
-  if (sms == 0) {
-    int dev = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+template <typename T, typename I, int CM>
+int launch_chunk(const T* src, const I* idx, long long n, int ld, int c0, int nc, long long r0,
+                 int rows, int ctas, long long per_warp, double* partial, int* ranges,
+                 unsigned* counters, T* out, cudaStream_t stream) {
+  const size_t smem = (size_t)Fixed<T>::W * rows * nc * sizeof(unsigned);
+  static size_t granted = 48 * 1024;
+  if (smem > granted) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        segment_sum_kernel<T, I, CM>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    granted = smem;
   }
-  return sms;
+  segment_sum_kernel<T, I, CM><<<ctas, 32 * kWarps, smem, stream>>>(
+      src, idx, n, ld, c0, nc, r0, rows, per_warp, partial, ranges, counters, out);
+  return (int)cudaGetLastError();
 }
-
-long long cdiv(long long a, long long b) { return (a + b - 1) / b; }
-long long lmin(long long a, long long b) { return a < b ? a : b; }
-long long lmax(long long a, long long b) { return a > b ? a : b; }
 
 template <typename T, typename I>
-int launch(const void* src, const void* idx, long long n, int ld, long long R, void* maxbits,
-           void* acc, void* out, cudaStream_t stream) {
-  using Bits = typename Traits<T>::Bits;
-  constexpr int W = Traits<T>::kWords;
-  static bool attr = false;
-  if (!attr) {
-    cudaFuncSetAttribute(segment_sum_kernel<T, I>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                         kSmemBytes);
-    attr = true;
-  }
-  const int sms = sm_count();
+int launch(const void* src, const void* idx, long long n, int ld, long long R,
+           long long row_chunk, int ctas, long long per_warp_cols[4], void* partial,
+           void* ranges, void* counters, void* out, cudaStream_t stream) {
   const T* s = static_cast<const T*>(src);
-  const long long total = n * ld;
-  const int gmax = (int)lmin((long long)kBlocksPerSm * sms, cdiv(total, kThreads));
-  abs_max_kernel<T><<<gmax, kThreads, 0, stream>>>(s, total, static_cast<Bits*>(maxbits));
-
-  const int blocks = (int)lmax(
-      1, lmin((long long)kBlocksPerSm * sms, cdiv(n, (long long)kThreads * kMinPerThread)));
-  const long long per_block = cdiv(n, blocks);
-  const int entries = kSmemBytes / (4 * W);
+  const I* i = static_cast<const I*>(idx);
+  double* p = static_cast<double*>(partial);
+  int* rg = static_cast<int*>(ranges);
+  unsigned* cnt = static_cast<unsigned*>(counters);
+  T* o = static_cast<T*>(out);
   for (int c0 = 0; c0 < ld; c0 += kMaxCols) {
     const int nc = ld - c0 < kMaxCols ? ld - c0 : kMaxCols;
-    const long long rows_per = entries / nc;
-    for (long long r0 = 0; r0 < R; r0 += rows_per) {
-      const int rows = (int)lmin(rows_per, R - r0);
-      segment_sum_kernel<T, I><<<blocks, kThreads, (size_t)rows * nc * W * 4, stream>>>(
-          s, static_cast<const I*>(idx), n, ld, c0, nc, r0, rows, per_block,
-          static_cast<const Bits*>(maxbits), static_cast<unsigned long long*>(acc));
+    for (long long r0 = 0; r0 < R; r0 += row_chunk) {
+      const int rows = (int)(R - r0 < row_chunk ? R - r0 : row_chunk);
+      int err;
+      if (nc == 1)
+        err = launch_chunk<T, I, 1>(s, i, n, ld, c0, nc, r0, rows, ctas, per_warp_cols[0], p, rg,
+                                    cnt, o, stream);
+      else if (nc == 2)
+        err = launch_chunk<T, I, 2>(s, i, n, ld, c0, nc, r0, rows, ctas, per_warp_cols[1], p, rg,
+                                    cnt, o, stream);
+      else if (nc <= 4)
+        err = launch_chunk<T, I, 4>(s, i, n, ld, c0, nc, r0, rows, ctas, per_warp_cols[2], p, rg,
+                                    cnt, o, stream);
+      else
+        err = launch_chunk<T, I, 8>(s, i, n, ld, c0, nc, r0, rows, ctas, per_warp_cols[3], p, rg,
+                                    cnt, o, stream);
+      if (err != 0) return err;
     }
   }
-  const long long n_out = R * ld;
-  const int gout = (int)lmax(1, lmin((long long)kBlocksPerSm * sms, cdiv(n_out, kThreads)));
-  fixed_to_float_kernel<T><<<gout, kThreads, 0, stream>>>(
-      static_cast<const unsigned long long*>(acc), n_out, n, static_cast<const Bits*>(maxbits),
-      static_cast<T*>(out));
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // src (n, ld) float32 or float64 (f64), idx (n,) int32 or int64 (idx64);
-// maxbits one zeroed word (uint32 for float32, uint64 for float64); acc
-// R ld zeroed 64-bit words (float32) or 2 R ld (float64); out (R, ld).
+// the plan (ops/segment.py::segment_plan): row_chunk rows a launch, ctas
+// CTAs of 8 warps a launch, per_warp queries a warp for a launch of 1, 2,
+// <= 4 and <= 8 columns; partial and ranges the scratch of one launch
+// ((ctas + ceil(ctas / 16)) row_chunk min(ld, 8) doubles, twice as many
+// ints), counters 1 + ceil(ctas / 16) words, 0 between launches; out
+// (R, ld).
 extern "C" int segment_sum(const void* src, const void* idx, long long n, int ld, long long R,
-                           int f64, int idx64, void* maxbits, void* acc, void* out,
-                           void* stream) {
+                           int f64, int idx64, long long row_chunk, int ctas, long long pw1,
+                           long long pw2, long long pw4, long long pw8, void* partial,
+                           void* ranges, void* counters, void* out, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
+  long long pw[4] = {pw1, pw2, pw4, pw8};
   if (f64)
-    return idx64 ? launch<double, long long>(src, idx, n, ld, R, maxbits, acc, out, s)
-                 : launch<double, int>(src, idx, n, ld, R, maxbits, acc, out, s);
-  return idx64 ? launch<float, long long>(src, idx, n, ld, R, maxbits, acc, out, s)
-               : launch<float, int>(src, idx, n, ld, R, maxbits, acc, out, s);
+    return idx64 ? launch<double, long long>(src, idx, n, ld, R, row_chunk, ctas, pw, partial,
+                                             ranges, counters, out, s)
+                 : launch<double, int>(src, idx, n, ld, R, row_chunk, ctas, pw, partial, ranges,
+                                       counters, out, s);
+  return idx64 ? launch<float, long long>(src, idx, n, ld, R, row_chunk, ctas, pw, partial,
+                                          ranges, counters, out, s)
+               : launch<float, int>(src, idx, n, ld, R, row_chunk, ctas, pw, partial, ranges,
+                                    counters, out, s);
 }

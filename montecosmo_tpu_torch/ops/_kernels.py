@@ -117,9 +117,11 @@ def cuda_library(rebuild=False):
     lib.background_tables.restype = _I
     lib.fp64_chain.argtypes = [_L, _D, _P, _P]
     lib.fp64_chain.restype = _I
-    lib.segment_sum.argtypes = [_P, _P, _L, _I, _L, _I, _I, _P, _P, _P, _P]
+    lib.segment_sum.argtypes = [_P, _P, _L, _I, _L, _I, _I, _L, _I, _L, _L, _L, _L, _P, _P, _P,
+                                _P, _P]
     lib.segment_sum.restype = _I
-    lib.bispectrum_sums.argtypes = [_P, _P, _L, _I, _P, _I, _I, _L, _I, _P, _P, _P]
+    lib.bispectrum_sums.argtypes = [_P, _P, _L, _I, _I, _I, _I, _P, _P, _I, _I, _L, _I, _P, _P,
+                                    _P]
     lib.bispectrum_sums.restype = _I
     _LIB = lib
     return lib

@@ -5,10 +5,13 @@ j, l), (S_F[t], S_U[t]) = (sum_x F_i F_j F_l, sum_x U_i U_j U_l) in
 float64, from B shell-filtered fields F (B, N) and B unit-amplitude fields
 U (B, N), float32.  `metrics.bispectrum` divides the one by the other.
 
-On the card it is K10 (`csrc/bispectrum.cu`): each field is read once, a
-warp walks its triples with the pair products in registers, the products
-are taken in float64 and the partial sums added in a fixed order, so the
-result is the same bit for bit from launch to launch.  On the CPU it is its
+On the card it is K10 (`csrc/bispectrum.cu`): for each l the sums are the
+Gram matrix of the rows of F * F_l against the rows of F, so K10 takes them
+in 16 x 8 blocks of (i, j) on the FP64 tensor cores (mma.sync m16n8k8), a
+warp a strip of up to SLOTS l's of one block, over the cells of its CTA;
+`bispectrum_plan` lays the blocks and strips out on the host.  Products
+and sums are float64, added in an order the plan fixes, so the result is
+the same bit for bit from launch to launch.  On the CPU it is its
 plain version, `bispectrum_triples_plain`, which gathers the rows of a
 chunk of triples and sums their products in float64.  The bispectrum is
 never differentiated (neither is the JAX package's): asking for a gradient
@@ -19,43 +22,101 @@ Parity: the triple products of `montecosmo_tpu/metrics.py:179`
 fields).
 """
 import ctypes
+from functools import lru_cache
 
+import numpy as np
 import torch
 
 from montecosmo_tpu_torch.ops._kernels import LAUNCHES
 
-TRIPLES_PER_CTA = 2048     # csrc/bispectrum.cu kTriples
+SLOTS = 6                  # csrc/bispectrum.cu kSlots: l's a warp's strip holds
+BLOCK = (16, 8)            # a block's rows i and columns j (the MMA's m and n)
+WARPS = 8                  # csrc/bispectrum.cu kWarps: strips a CTA
+PAD = 4                    # csrc/bispectrum.cu kPad: a float64 tile row's padding
 SMEM_LIMIT = 232448        # the shared memory one CTA may use on sm_90
-MAX_BINS = 390             # the most fields a tile of 32 cells holds (C = 32)
-WAVES = 4                  # the grid's waves of resident CTAs
+MAX_BINS = 390             # the most fields a tile of 16 cells holds
+TILES = (128, 64, 32, 16)  # cells a tile, the largest that fits first
+WAVES = 4                  # the grid's waves of resident CTAs (one CTA an SM)
 PLAIN_CHUNK_BYTES = 2**28  # float64 products the plain version holds at once
-_THREADS = 256
 
 
 def _cdiv(a, b):
     return -(-a // b)
 
 
-def bispectrum_plan(n, bins, n_triples, sms=132):
-    """K10's launch plan for N cells, B fields and T triples on a card of
-    `sms` SMs: (M, cells a CTA, CTAs along the cells).  A tile is 32 M
-    cells, M the largest of 8, 4, 2, 1 whose tile (2 B 32 M doubles) and
-    accumulators fit a CTA's shared memory; the cells are cut into ranges
-    so that the grid holds about WAVES waves of resident CTAs (four left
-    fewer SMs idle in the last wave than two, at 128^3 and 256^3 on an
-    H100)."""
+def padded_bins(bins):
+    """B rounded up to the block's 16 rows (the float64 tile's rows)."""
+    return BLOCK[0] * _cdiv(bins, BLOCK[0])
+
+
+def tile_bytes(bins, tile):
+    """Shared memory of a CTA at B fields and tiles of `tile` cells: the
+    float64 tile of F and U (`padded_bins` rows, each tile + PAD doubles)
+    and the two float32 stages of both."""
+    return 2 * padded_bins(bins) * (tile + PAD) * 8 + 4 * bins * tile * 4
+
+
+def _strips(triples):
+    """The strips of the closed triples (T, 3), i <= j <= l: for each 16 x
+    8 block (i // 16, j // 8) the range of l its triples take, cut into
+    runs of at most SLOTS l's; (ib, jb, l0, nl) rows, the longest first (a
+    CTA's warps then take strips of about one length).  Also each
+    triple's strip, slot l - l0 and block entry 8 (i % 16) + j % 8."""
+    i, j, l = (triples[:, c].astype(np.int64) for c in range(3))
+    block = (i // BLOCK[0]) * 1_000_000 + j // BLOCK[1]
+    rows, where = [], np.empty(len(triples), np.int64)
+    for key in np.unique(block):
+        sel = np.flatnonzero(block == key)
+        lo, hi = int(l[sel].min()), int(l[sel].max())
+        for l0 in range(lo, hi + 1, SLOTS):
+            on = sel[(l[sel] >= l0) & (l[sel] < l0 + SLOTS)]
+            where[on] = len(rows)
+            rows.append((int(key // 1_000_000), int(key % 1_000_000), l0, min(SLOTS, hi - l0 + 1)))
+    rows = np.asarray(rows, np.int64).reshape(-1, 4)
+    order = np.argsort(-rows[:, 3], kind="stable")
+    rank = np.empty_like(order)
+    rank[order] = np.arange(len(order))
+    return (rows[order], rank[where], l - rows[order][rank[where], 2],
+            BLOCK[1] * (i % BLOCK[0]) + j % BLOCK[1])
+
+
+@lru_cache(maxsize=16)
+def _plan(tri_bytes, n_triples, bins, n, sms, device):
+    triples = np.frombuffer(tri_bytes, np.int32).reshape(n_triples, 3)
     if not 1 <= bins <= MAX_BINS:
         raise ValueError(f"K10 takes 1 to {MAX_BINS} fields, got {bins}")
-    for m in (8, 4, 2, 1):
-        smem = (2 * bins * 32 * m + 2 * TRIPLES_PER_CTA) * 8
-        if smem <= SMEM_LIMIT:
-            break
-    tile = 32 * m
-    resident = max(1, min(2048 // _THREADS, 233472 // (smem + 1024)))
-    ny = _cdiv(n_triples, TRIPLES_PER_CTA)
-    nx = max(1, min(_cdiv(n, tile), _cdiv(WAVES * sms * resident, ny)))
+    if n_triples and not ((triples[:, 0] <= triples[:, 1]) & (triples[:, 1] <= triples[:, 2])
+                          & (triples[:, 0] >= 0) & (triples[:, 2] < bins)).all():
+        raise ValueError("K10 takes triples i <= j <= l of bins in [0, B)")
+    rows, strip, slot, entry = _strips(triples)
+    ny = max(1, _cdiv(len(rows), WARPS))
+    strips = np.zeros((ny * WARPS, 4), np.int32)
+    strips[:len(rows)] = rows
+    entries = np.full((ny * WARPS, SLOTS, BLOCK[0] * BLOCK[1]), -1, np.int32)
+    entries[strip, slot, entry] = np.arange(n_triples)
+    tile = next(c for c in TILES if tile_bytes(bins, c) <= SMEM_LIMIT)
+    nx = max(1, min(_cdiv(n, tile), _cdiv(WAVES * sms, ny)))
     per = _cdiv(_cdiv(n, nx), tile) * tile
-    return m, per, _cdiv(n, per)
+    if device is not None:
+        strips, entries = torch.as_tensor(strips, device=device), torch.as_tensor(entries,
+                                                                                  device=device)
+    return {"strips": strips, "entries": entries, "tile": tile, "ny": ny, "per": per,
+            "nx": _cdiv(n, per), "rows": rows}
+
+
+def bispectrum_plan(triples, bins, n, sms=132, device=None):
+    """K10's plan for the closed triples (T, 3) (i <= j <= l), B fields of
+    N cells, on a card of `sms` SMs, cached: `strips` (8 ny, 4) int32 (ib,
+    jb, l0, nl; nl = 0 for the idle warps of the last CTA row) and
+    `entries` (8 ny, SLOTS, 128) int32 (the triple at each strip's slot and
+    16 x 8 block entry, -1 for none: every triple appears once), numpy
+    arrays, or tensors on `device` when one is given; `ny` CTA rows of
+    WARPS strips; `tile` cells, the largest of TILES whose stages fit a
+    CTA; `nx` cell ranges of `per` cells (a multiple of the tile), about
+    WAVES waves of CTAs."""
+    tri = np.ascontiguousarray(np.asarray(triples, np.int32).reshape(-1, 3))
+    return _plan(tri.tobytes(), tri.shape[0], int(bins), int(n), int(sms),
+                 None if device is None else torch.device(device))
 
 
 def bispectrum_triples_plain(F, U, triples, with_abs=False):
@@ -84,9 +145,11 @@ def _ptr(t):
 
 def bispectrum_triples_kernel(F, U, triples):
     """K10 on the card: `bispectrum_triples_plain` of the CUDA tensors F, U
-    (B, N) float32 and triples (T, 3) int32 (sorted by (i, j, l), as
+    (B, N) float32 and triples (T, 3) int32 (i <= j <= l, as
     `metrics.bispectrum` lists them), the same bit for bit from launch to
-    launch.  Two launches: the CTAs' partial sums, then their ordered sum."""
+    launch.  Two launches: the cell ranges' partial sums on the tensor
+    cores, then their ordered sum.  The triples are read to the host for
+    the plan (cached by their values)."""
     from montecosmo_tpu_torch.ops import _kernels
 
     if not (F.is_cuda and U.is_cuda and triples.is_cuda and F.device == U.device == triples.device):
@@ -105,16 +168,19 @@ def bispectrum_triples_kernel(F, U, triples):
     if n >= 2**40 or t >= 2**26:
         raise ValueError(f"K10's {n} cells or {t} triples are too many")
     sms = torch.cuda.get_device_properties(F.device).multi_processor_count
-    m, per, nx = bispectrum_plan(n, bins, t, sms)
+    plan = bispectrum_plan(triples.cpu().numpy(), bins, n, sms, F.device)
     lib = _kernels.cuda_library()
-    F, U, triples = F.contiguous(), U.contiguous(), triples.contiguous()
-    partial = torch.empty(nx, t, 2, dtype=torch.float64, device=F.device)
+    F, U = F.contiguous(), U.contiguous()
+    vec = n % 4 == 0 and F.data_ptr() % 16 == 0 and U.data_ptr() % 16 == 0
+    partial = torch.empty(plan["nx"], t, 2, dtype=torch.float64, device=F.device)
     out = torch.empty(t, 2, dtype=torch.float64, device=F.device)
     stream = ctypes.c_void_p(torch.cuda.current_stream(F.device).cuda_stream)
     code = lib.bispectrum_sums(_ptr(F), _ptr(U), ctypes.c_longlong(n), ctypes.c_int(bins),
-                               _ptr(triples), ctypes.c_int(t), ctypes.c_int(m),
-                               ctypes.c_longlong(per), ctypes.c_int(nx), _ptr(partial), _ptr(out),
-                               stream)
+                               ctypes.c_int(padded_bins(bins)), ctypes.c_int(plan["tile"]),
+                               ctypes.c_int(vec), _ptr(plan["strips"]), _ptr(plan["entries"]),
+                               ctypes.c_int(plan["ny"]), ctypes.c_int(t),
+                               ctypes.c_longlong(plan["per"]), ctypes.c_int(plan["nx"]),
+                               _ptr(partial), _ptr(out), stream)
     LAUNCHES["bispectrum_sums", "partials", 0] += 1
     LAUNCHES["bispectrum_sums", "reduce", 0] += 1
     if code != 0:

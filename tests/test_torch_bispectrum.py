@@ -12,6 +12,8 @@ triangles divide by a float32 mean of the unit fields that has lost
 digits), and the gate (at least half a closed triangle) must decide
 every triple alike.
 """
+import itertools
+
 import numpy as np
 import pytest
 import torch
@@ -88,17 +90,92 @@ def test_triples_plain_matches_numpy_einsum(monkeypatch):
 
 
 def test_k10_plan_fits_shared_memory():
-    """The tile and accumulators fit a CTA's shared memory at every bin
-    count up to MAX_BINS (128^3 takes tiles of 256 cells, 256^3 of 128),
-    the cell ranges cover the mesh, and more bins are refused."""
-    assert bispectrum_plan(128**3, 35, 4347)[0] == 8
-    assert bispectrum_plan(256**3, 72, 34343)[0] == 4
+    """The stages and tile fit a CTA's shared memory at every bin count up
+    to MAX_BINS (128^3 takes tiles of 128 cells, 256^3 of 64), the cell
+    ranges cover the mesh, and more bins, or triples out of order, are
+    refused."""
+    def plan(n, bins, t=None):
+        every = ((i, j, l) for l in range(bins) for j in range(l + 1) for i in range(j + 1))
+        tri = np.array(list(itertools.islice(every, t)), np.int32)
+        return bispectrum_plan(tri, bins, n)
+
+    assert plan(128**3, 35, 50)["tile"] == 128
+    assert plan(256**3, 72, 50)["tile"] == 64
     for bins in (1, 35, 72, 97, 98, 195, 196, MAX_BINS):
-        m, per, nx = bispectrum_plan(100_000, bins, 5000)
-        assert (2 * bins * 32 * m + 2 * 2048) * 8 <= 232448
-        assert per % (32 * m) == 0 and (nx - 1) * per < 100_000 <= nx * per
+        p = plan(100_000, bins, 500)
+        assert BS.tile_bytes(bins, p["tile"]) <= BS.SMEM_LIMIT and p["tile"] % 16 == 0
+        assert p["per"] % p["tile"] == 0 and (p["nx"] - 1) * p["per"] < 100_000 <= p["nx"] * p["per"]
     with pytest.raises(ValueError):
-        bispectrum_plan(1000, MAX_BINS + 1, 10)
+        plan(1000, MAX_BINS + 1, 10)
+    with pytest.raises(ValueError):
+        bispectrum_plan(np.array([[2, 1, 3]], np.int32), 4, 1000)
+
+
+def test_k10_plan_on_a_device_is_one_cached_plan():
+    """With `device`, the plan's strips and entries are tensors on it with
+    the numpy plan's values (what the wrapper launches with), and a second
+    call, the device named either way, returns the same cached plan."""
+    tri = np.array([(i, j, l) for l in range(20) for j in range(l + 1) for i in range(j + 1)],
+                   np.int32)
+    host = bispectrum_plan(tri, 20, 4096)
+    dev = bispectrum_plan(tri, 20, 4096, device="cpu")
+    assert dev is bispectrum_plan(tri, 20, 4096, device=torch.device("cpu"))
+    assert dev is not host and bispectrum_plan(tri, 20, 4096) is host
+    for key in ("strips", "entries"):
+        assert isinstance(dev[key], torch.Tensor) and dev[key].device.type == "cpu"
+        np.testing.assert_array_equal(dev[key].numpy(), host[key])
+    assert all(dev[k] == host[k] for k in ("tile", "ny", "per", "nx"))
+
+
+def _emulate_k10(F, U, tri, sms):
+    """K10's plan as the kernel runs it, in float64 torch: each strip's 16 x
+    8 blocks (F_I F_l) F_J^T for its l's, summed over each cell range, the
+    entries picked for the triples, the ranges added in order."""
+    bins, n = F.shape
+    plan = bispectrum_plan(tri.numpy(), bins, n, sms)
+    pad = BS.padded_bins(bins)
+    out = torch.zeros(tri.shape[0], 2, dtype=torch.float64)
+    for x0 in range(0, n, plan["per"]):
+        part = torch.full((tri.shape[0], 2), float("nan"), dtype=torch.float64)
+        for col, X in enumerate((F, U)):
+            Xp = torch.zeros(pad, min(n, x0 + plan["per"]) - x0, dtype=torch.float64)
+            Xp[:bins] = X[:, x0:x0 + plan["per"]].double()
+            for s, (ib, jb, l0, nl) in enumerate(plan["strips"]):
+                for w in range(nl):
+                    block = (Xp[16 * ib:16 * ib + 16] * Xp[l0 + w]) @ Xp[8 * jb:8 * jb + 8].T
+                    ent = torch.as_tensor(plan["entries"][s, w])
+                    on = ent >= 0
+                    part[ent[on].long(), col] = block.reshape(-1)[on]
+        assert not torch.isnan(part).any()
+        out += part
+    return out, plan
+
+
+@pytest.mark.parametrize("n,kedges", [(16, None), (16, 6), (32, None), (32, 24)])
+def test_k10_block_plan_covers_triples_and_matches_plain(n, kedges):
+    """K10's block plan at 16^3 and 32^3, with the default `kedges` (3
+    and 8 bins: one and two strips) and `kedges` as a count (5 and 23 bins:
+    one strip, and 10 over two CTA rows; a shell with no mode sums to 0):
+    every closed triple is one entry of one strip's 16 x 8 block, at slot
+    l - l0 and entry 8 (i - 16 ib) + j - 8 jb, its blocks inside the B
+    fields (padded to a multiple of 16), and the blocked float64 sums within
+    1e-12 of each triple's sum of |products| of `bispectrum_triples_plain`."""
+    g = np.random.default_rng(n).normal(size=(n,) * 3)
+    delta = torch.as_tensor((g + FNL * (g**2 - np.mean(g**2))).astype(np.float32))
+    F, U, tri, _ = _bispectrum_inputs(delta, (2.0 * n,) * 3, kedges)
+    bins = F.shape[0]
+    got, plan = _emulate_k10(F, U, tri, sms=4)
+    entries = plan["entries"]
+    assert np.array_equal(np.sort(entries[entries >= 0]), np.arange(tri.shape[0]))
+    for s, (ib, jb, l0, nl) in enumerate(plan["strips"]):
+        assert 0 <= nl <= BS.SLOTS and (entries[s, nl:] == -1).all()
+        if nl:
+            assert 2 * ib <= jb and 8 * jb < bins and l0 + nl <= bins
+        for w, e in zip(*np.nonzero(entries[s] >= 0)):
+            i, j, l = tri[entries[s, w, e]].tolist()
+            assert (i, j, l) == (16 * ib + e // 8, 8 * jb + e % 8, l0 + w)
+    ref, mag = bispectrum_triples_plain(F, U, tri, with_abs=True)
+    assert float(((got - ref).abs() / mag.clamp(min=1e-300)).max()) <= 1e-12
 
 
 def test_bispectrum_norm_past_int64():

@@ -614,3 +614,57 @@ def test_bispectrum_sums_match_plain_and_repeat_on_card():
     _, t_cpu, b_cpu, _ = M.bispectrum(field, box_size=(64.0,) * 3)
     np.testing.assert_array_equal(t_card, t_cpu)
     torch.testing.assert_close(b_card.cpu(), b_cpu, rtol=0, atol=1e-4 * float(b_cpu.abs().max()))
+
+
+@pytest.mark.cuda
+def test_segment_sum_groups_and_counters_on_card():
+    """K9 at a shape whose plan takes several group finishers (2M uniform
+    ids into 73 rows: 264 CTAs on an H100) and at runs of one id that span
+    many warps: one launch a call, equal to its plain version within 1e-6
+    (float32) and 1e-12 (float64) of the largest sum, bit for bit twice,
+    and every ticket counter back at 0 after the calls (skips without a
+    card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K9 is CUDA")
+    from montecosmo_tpu_torch.ops import segment as tsg
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(5)
+    n, rows = 2_097_152, 73
+    for ids in (rng.integers(0, rows, n), np.repeat(np.arange(rows), -(-n // rows))[:n]):
+        src = rng.standard_normal((n, 1))
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        plan = tsg.segment_plan(n, rows, 1, sms)
+        assert plan["launches"] == 1 and plan["groups"] > 1
+        for dtype, tol in ((torch.float32, 1e-6), (torch.float64, 1e-12)):
+            s = torch.tensor(src, dtype=dtype, device=dev)
+            i = torch.tensor(ids, device=dev)
+            a = tsg.segment_sum_kernel(s, i, rows)
+            b = tsg.segment_sum_kernel(s, i, rows)
+            torch.cuda.synchronize()
+            assert torch.equal(a, b)
+            ref = tsg.segment_sum_plain(s.double().cpu(), i.cpu(), rows)
+            torch.testing.assert_close(a.double().cpu(), ref, rtol=0,
+                                       atol=tol * float(ref.abs().max()))
+        assert int(tsg._counters(dev).abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_bispectrum_sums_strips_on_card():
+    """K10 with several strips over two CTA rows (23 bins at 32^3,
+    kedges=24) and with 16-byte and 4-byte copies (a 31 x 32 x 32 mesh,
+    N not a multiple of 4): within 1e-9 of each triple's sum of |products|
+    of its plain version, bit for bit twice (skips without a card)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: K10 is CUDA")
+    from montecosmo_tpu_torch import metrics as M
+    from montecosmo_tpu_torch.ops import bispectrum as BS
+
+    for shape in ((32, 32, 32), (31, 32, 32)):
+        g = torch.randn(shape, generator=torch.Generator().manual_seed(4))
+        field = (g + 0.05 * (g**2 - (g**2).mean())).cuda()
+        F, U, tri, _ = M._bispectrum_inputs(field, (64.0,) * 3, 24)
+        out = BS.bispectrum_triples_kernel(F, U, tri)
+        assert torch.equal(out, BS.bispectrum_triples_kernel(F, U, tri))
+        ref, mag = BS.bispectrum_triples_plain(F, U, tri, with_abs=True)
+        assert float(((out - ref).abs() / mag.clamp(min=1e-300)).max()) <= 1e-9
